@@ -1,0 +1,130 @@
+"""Where a stream's frame time goes on the card, and how far it spreads.
+
+    python -m tdnet_tpu_torch.cli.profile --model td4-psp18 td2-psp50 \\
+        --dtype bfloat16 --out profiles/
+
+For each model, on seeded random weights and seeded synthetic frames
+(``stream.runtime.synthetic_frames``) at the model's streaming size
+(``models.STREAM_SIZE``), after one pipelined pass over the 48 frames as a
+warm-up:
+
+1. 7 pipelined runs over the frames (queued back to back, one synchronize at
+   the end): frames/s of each run;
+2. hard-synced per-frame latency over the same frames, the first 6 excluded:
+   mean, min and max;
+3. one ``torch.profiler`` trace of a pipelined run: device ms per frame, the
+   sum of the self device time of every kernel the trace records over the
+   frame count, split by kernel family;
+   idle share = 1 - device ms per frame / wall ms per frame, both of the
+   traced run (the profiler's own host work makes it an upper bound);
+4. ``nvidia-smi`` SM clock, power draw and temperature just after.
+
+TF32 is off, as in ``chip_smoke.py``. Prints one JSON object per model;
+``--out`` also gets the profiler's kernel table, one file per model.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+FRAMES = 48
+REPEATS = 7
+
+# (family, name fragments); a kernel goes to the first family one of whose
+# fragments its name contains
+FAMILIES = (
+    ("K1 propagation attention", ("stats_f32", "pv_f32", "fc_f32",
+                                  "stats_bf16", "pv_bf16", "fc_bf16")),
+    ("convolutions (cuDNN)", ("conv", "xmma", "cutlass", "cudnn", "gemm",
+                              "nchwToNhwc", "nhwcToNchw")),
+    ("adaptive pool", ("adaptive_average_pool",)),
+    ("resize", ("upsample",)),
+    ("layer norm", ("layer_norm",)),
+    ("elementwise (BN affine, activations, adds, casts)", ("elementwise",)),
+)
+
+
+def kernel_family(name: str) -> str:
+    for family, fragments in FAMILIES:
+        if any(f in name for f in fragments):
+            return family
+    return "other"
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def device_breakdown(prof, n_frames: int):
+    """(device ms per frame, ms per frame by family, the 12 longest kernels)."""
+    kernels = [r for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA]
+    families: dict[str, float] = {}
+    for r in kernels:
+        fam = kernel_family(r.key)
+        families[fam] = families.get(fam, 0.0) + r.self_device_time_total / 1e3 / n_frames
+    total = sum(families.values())
+    top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:12]
+    top = [{"kernel": r.key[:90], "ms_per_frame": r.self_device_time_total / 1e3 / n_frames,
+            "calls_per_frame": r.count / n_frames} for r in top]
+    return total, dict(sorted(families.items(), key=lambda kv: -kv[1])), top
+
+
+def profile_model(arch: str, dtype, out: str | None) -> dict:
+    from tdnet_tpu_torch.models import STREAM_SIZE, init_tdnet, tdnet_config
+    from tdnet_tpu_torch.stream.runtime import LatencyMeter, Streamer, synthetic_frames
+    cfg = tdnet_config(arch, in_size=STREAM_SIZE[arch])
+    model = init_tdnet(cfg, torch.Generator().manual_seed(0)).to("cuda")
+    streamer = Streamer(model, dtype=dtype)
+    frames = synthetic_frames(FRAMES, cfg.in_size, seed=0, device="cuda", dtype=dtype)
+    streamer.run_pipelined(frames)
+    fps = [1.0 / streamer.run_pipelined(frames)[1] for _ in range(REPEATS)]
+    streamer.meter = LatencyMeter()
+    for f in frames:
+        streamer.step(f)
+    lat = np.asarray(streamer.meter.times) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced_ms = streamer.run_pipelined(frames)[1] * 1e3
+    after = smi("clocks.sm,power.draw,temperature.gpu")
+    device_ms, families, top = device_breakdown(prof, FRAMES)
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, f"profile_{arch}_{str(dtype)[6:]}.txt"), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return {"model": arch, "dtype": str(dtype)[6:], "in_size": list(cfg.in_size),
+            "frames": FRAMES, "frames_per_s": fps,
+            "latency_ms": {"mean": float(lat.mean()), "min": float(lat.min()),
+                           "max": float(lat.max())},
+            "traced_wall_ms_per_frame": traced_ms, "device_ms_per_frame": device_ms,
+            "idle_share": 1.0 - device_ms / traced_ms, "families_ms_per_frame": families,
+            "top_kernels": top, "smi_after_sm_clock_power_temp": after}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", nargs="+", default=["td4-psp18", "td2-psp50"],
+                        choices=["td4-psp18", "td2-psp50"])
+    parser.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    parser.add_argument("--out", default=None, help="directory for the kernel tables")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tdnet_tpu_torch.cli.profile needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    print(smi("name,power.limit"), flush=True)
+    for arch in args.model:
+        print(json.dumps(profile_model(arch, dtype, args.out)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

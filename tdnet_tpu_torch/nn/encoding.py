@@ -1,0 +1,97 @@
+"""QKV encoding and one cross-frame propagation hop, eval mode.
+
+Encoding (Testing/model/pspnet/transformer.py:9-56):
+- ``w_qs`` / ``w_ks``: 1x1 conv(+bias) -> BN with leaky-ReLU -> 1x1 conv(+bias)
+  to d_k = 64;
+- ``w_vs``: one 1x1 conv(+bias) to d_v;
+- a cached frame is grid-subsampled before the projections (stride 4 when
+  streaming).
+
+Attention (transformer.py:60-92): softmax(q k^T / sqrt(d_k)) v, then the
+per-token fc; the last hop turns the tokens back into a feature map.
+
+Tokens are [n, H*W, d] in row-major (h, w) order, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+from tdnet_tpu_torch.ops import BatchNorm, Conv2d, grid_subsample, init_conv_kaiming, normal_
+
+
+class Proj2(nn.Module):
+    """ConvBNReLU(d_model -> d_k, leaky) + Conv(d_k -> d_k), both with bias."""
+
+    def __init__(self, d_model: int, d_k: int, device=None):
+        super().__init__()
+        self.conv0 = Conv2d(d_model, d_k, 1, bias=True, device=device)
+        self.bn0 = BatchNorm(d_k, device=device)
+        self.conv1 = Conv2d(d_k, d_k, 1, bias=True, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv1(self.bn0(self.conv0(x), "leaky_relu"))
+
+
+class Encoding(nn.Module):
+    def __init__(self, d_model: int, d_k: int, d_v: int, device=None):
+        super().__init__()
+        self.w_qs = Proj2(d_model, d_k, device)
+        self.w_ks = Proj2(d_model, d_k, device)
+        self.w_vs = Conv2d(d_model, d_v, 1, bias=True, device=device)
+
+
+def init_encoding(enc: Encoding, generator: torch.Generator) -> None:
+    for conv in (enc.w_qs.conv0, enc.w_qs.conv1, enc.w_ks.conv0, enc.w_ks.conv1, enc.w_vs):
+        init_conv_kaiming(conv, generator)
+
+
+def tokens(x: torch.Tensor) -> torch.Tensor:
+    """NCHW map -> contiguous [n, H*W, C] tokens."""
+    return x.flatten(2).transpose(1, 2).contiguous()
+
+
+def apply_encoding_full(enc: Encoding, fea: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Current frame: (q tokens [n, H*W, d_k], v map [n, d_v, H, W])."""
+    return tokens(enc.w_qs(fea)), enc.w_vs(fea)
+
+
+def apply_encoding_cached(enc: Encoding, fea: torch.Tensor, *, kv_stride: int):
+    """Cached frame, subsampled before the projections: (q, k, v) tokens."""
+    fea = grid_subsample(fea, kv_stride)
+    return tokens(enc.w_qs(fea)), tokens(enc.w_ks(fea)), tokens(enc.w_vs(fea))
+
+
+class Attention(nn.Module):
+    """The per-token fc of one hop; ``w`` is stored [in, out]."""
+
+    def __init__(self, d_v: int, device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_v, d_v, device=device))
+        self.b = nn.Parameter(torch.zeros(d_v, device=device))
+
+
+def init_attention(atn: Attention, generator: torch.Generator) -> None:
+    """kaiming_normal(a=1) of the reference's 1x1 fc conv (fan_in = d_v)."""
+    normal_(atn.w, 1.0 / math.sqrt(atn.w.shape[0]), generator)
+    nn.init.zeros_(atn.b)
+
+
+def apply_attention(atn: Attention, k_src: torch.Tensor, v_src: torch.Tensor,
+                    q_tgr: torch.Tensor, *, d_k: int,
+                    fea_hw: tuple[int, int] | None = None) -> torch.Tensor:
+    """One hop: q_tgr attends over (k_src, v_src), then the fc.
+
+    Token inputs [n, L, d]; returns tokens [n, Lq, d_v], or with ``fea_hw``
+    (the last hop) the map [n, d_v, H, W].
+    """
+    out = fused_propagation_attention(q_tgr, k_src, v_src, temperature=math.sqrt(d_k),
+                                      fc_w=atn.w, fc_b=atn.b)
+    if fea_hw is None:
+        return out
+    h, w = fea_hw
+    return out.transpose(1, 2).reshape(out.shape[0], out.shape[2], h, w)

@@ -1,0 +1,49 @@
+"""Grouped pyramid pooling (Testing/model/pspnet/td4_psp18.py:243-284), eval.
+
+Four adaptive-average-pool branches {1, 2, 3, 6} -> 1x1 conv to C/4 ->
+BN+ReLU -> channel group ``pid`` -> align-corners upsample; concatenated
+after channel group ``pid`` of the input: 2C/groups channels out.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tdnet_tpu_torch.ops import (BatchNorm, Conv2d, adaptive_avg_pool_multi,
+                                 init_conv_kaiming, resize_bilinear)
+
+_BINS = (1, 2, 3, 6)
+
+
+class PSPBranch(nn.Module):
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, 1, device=device)
+        self.bn = BatchNorm(cout, device=device)
+
+
+class PyramidPooling(nn.Module):
+    def __init__(self, in_channels: int, device=None):
+        super().__init__()
+        for i in range(4):
+            self.add_module(f"conv{i + 1}", PSPBranch(in_channels, in_channels // 4, device))
+
+
+def apply_pyramid_pooling(psp: PyramidPooling, x: torch.Tensor, *, groups: int,
+                          pid: int) -> torch.Tensor:
+    """NCHW c4 -> grouped pyramid feature z [n, 2C/groups, h, w]."""
+    n, c, h, w = x.shape
+    g, gq = c // groups, c // (groups * 4)
+    feats = [x[:, pid * g:(pid + 1) * g]]
+    for i, f in enumerate(adaptive_avg_pool_multi(x, _BINS)):
+        br = getattr(psp, f"conv{i + 1}")
+        f = br.bn(br.conv(f), "relu")
+        # slicing commutes with the upsample: slice first, upsample less
+        feats.append(resize_bilinear(f[:, pid * gq:(pid + 1) * gq], (h, w)))
+    return torch.cat(feats, dim=1)
+
+
+def init_pyramid_pooling(psp: PyramidPooling, generator: torch.Generator) -> None:
+    for i in range(4):
+        init_conv_kaiming(getattr(psp, f"conv{i + 1}").conv, generator)

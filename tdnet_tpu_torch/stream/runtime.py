@@ -1,0 +1,114 @@
+"""Stateful streaming inference runtime.
+
+Replaces the reference's per-frame loop over a stateful nn.Module
+(Testing/test.py:46-74) with:
+- the model's weights cast once to the stream's dtype and every BatchNorm's
+  eval affine folded once at construction;
+- a preallocated K/V/Q ring cache updated in place;
+- a seeded synthetic frame stream for driving it without a dataset;
+- synchronized per-frame latency with the reference's 6-frame warm-up
+  excluded (test.py:58-59), and a pipelined mode that synchronizes once.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from tdnet_tpu_torch.models.tdnet import TDNet, init_cache, stream_step
+from tdnet_tpu_torch.ops import BatchNorm
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class LatencyMeter:
+    def __init__(self, warmup: int = 6):
+        self.warmup = warmup
+        self.times: list[float] = []
+        self.count = 0
+
+    def add(self, dt: float):
+        if self.count > self.warmup - 1:
+            self.times.append(dt)
+        self.count += 1
+
+    @property
+    def avg(self) -> float:
+        return float(np.mean(self.times)) if self.times else float("nan")
+
+    @property
+    def fps(self) -> float:
+        return 1.0 / self.avg if self.times else float("nan")
+
+
+class Streamer:
+    """Drives a TDNet over a frame stream on the model's device.
+
+    It takes the model over: casts it to ``dtype`` and folds its BatchNorms
+    in place."""
+
+    def __init__(self, model: TDNet, *, dtype=torch.float32):
+        self.cfg = model.cfg
+        self.dtype = dtype
+        self.model = model.to(dtype).eval().requires_grad_(False)
+        self.device = next(self.model.parameters()).device
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm):
+                m.fold()
+        self.reset()
+        self.meter = LatencyMeter()
+
+    def reset(self):
+        self.cache = init_cache(self.cfg, 1, self.dtype, self.device)
+        self.frame_idx = 0
+
+    @torch.inference_mode()
+    def step(self, img: torch.Tensor, timed: bool = True):
+        """Run one NHWC frame [1, H, W, 3]; returns (logits [1, H, W, nclass],
+        seconds)."""
+        p = self.frame_idx % self.cfg.path_num
+        img = img.to(self.device, self.dtype)
+        if timed:
+            sync(self.device)
+        t0 = time.perf_counter()
+        out = stream_step(self.model.paths[p], self.model.atn[p], self.cache, img,
+                          self.cfg, self.cfg.psp_pid(p))
+        if timed:
+            sync(self.device)
+        dt = time.perf_counter() - t0
+        if timed:
+            self.meter.add(dt)
+        self.frame_idx += 1
+        return out, dt
+
+    def run_pipelined(self, frames):
+        """Throughput mode: queue frames back to back and synchronize at the
+        end. Returns (last output, seconds per frame)."""
+        t0 = time.perf_counter()
+        out = None
+        n = 0
+        for n, img in enumerate(frames, 1):
+            out, _ = self.step(img, timed=False)
+        sync(self.device)
+        return out, (time.perf_counter() - t0) / n
+
+
+def synthetic_frames(n: int, in_size: tuple[int, int], *, seed: int = 0,
+                     device="cpu", dtype=torch.float32) -> list[torch.Tensor]:
+    """``n`` normalized NHWC frames [1, H, W, 3]: a seeded uint8 RGB scene
+    panned one pixel per frame, normalized with the ImageNet mean and std as
+    the reference's loader does."""
+    h, w = in_size
+    scene = np.random.RandomState(seed).randint(0, 256, (h, w + n, 3), dtype=np.uint8)
+    return [torch.from_numpy((scene[None, :, t:t + w].astype(np.float32) / 255.0
+                              - IMAGENET_MEAN) / IMAGENET_STD).to(device, dtype)
+            for t in range(n)]

@@ -1,0 +1,81 @@
+"""Weight bridge: the JAX package's params pytree -> the port's state.
+
+The pytree (``tdnet_tpu.models.tdnet.init_tdnet``) holds numpy-convertible
+leaves with NHWC-era layouts:
+- ``paths``: the P sub-network trees stacked on axis 0 -> ``paths.{p}``;
+- ``atn``: [P, W]-stacked attention trees, already rotated so that
+  ``atn[p][h]`` is path p's hop h -> ``atn.{p}.{h}``;
+- conv kernels HWIO -> OIHW; biases as they are;
+- BatchNorm {scale, bias, mean, var} -> {weight, bias, running_mean,
+  running_var}; LayerNorm {scale, bias} stay [H, W] as {weight, bias};
+- the attention fc ``fc.w[0, 0]`` is [in, out], which is the orientation the
+  kernel takes (o @ W + b), so it is not transposed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tdnet_tpu_torch.models.tdnet import TDNet, TDNetConfig
+
+_BN_KEYS = {"scale", "bias", "mean", "var"}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def convert_tree(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """An unstacked JAX subtree (a backbone, a head, ...) -> state-dict entries."""
+    out: dict[str, torch.Tensor] = {}
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    if isinstance(tree, dict):
+        keys = set(tree)
+        if keys == _BN_KEYS:
+            out[prefix + "weight"] = t(tree["scale"])
+            out[prefix + "bias"] = t(tree["bias"])
+            out[prefix + "running_mean"] = t(tree["mean"])
+            out[prefix + "running_var"] = t(tree["var"])
+        elif keys == {"scale", "bias"}:
+            out[prefix + "weight"] = t(tree["scale"])
+            out[prefix + "bias"] = t(tree["bias"])
+        elif "w" in keys and keys <= {"w", "b"}:
+            out[prefix + "weight"] = t(tree["w"]).permute(3, 2, 0, 1).contiguous()
+            if "b" in keys:
+                out[prefix + "bias"] = t(tree["b"])
+        else:
+            for k, v in tree.items():
+                out.update(convert_tree(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(convert_tree(v, f"{prefix}{i}."))
+    else:
+        raise TypeError(f"unexpected leaf at {prefix!r}: {type(tree)}")
+    return out
+
+
+def tdnet_state_from_jax(params: dict, cfg: TDNetConfig) -> dict[str, torch.Tensor]:
+    """The full params pytree -> a ``TDNet`` state dict (the aux head, a
+    training-only branch, is left out)."""
+    state: dict[str, torch.Tensor] = {}
+    fc_w = np.asarray(params["atn"]["fc"]["w"], dtype=np.float32)  # [P, W, 1, 1, in, out]
+    fc_b = np.asarray(params["atn"]["fc"]["b"], dtype=np.float32)  # [P, W, out]
+    for p in range(cfg.path_num):
+        sub = _tree_map(lambda a: np.asarray(a)[p], params["paths"])
+        sub.pop("aux", None)
+        state.update(convert_tree(sub, f"paths.{p}."))
+        for h in range(cfg.window):
+            state[f"atn.{p}.{h}.w"] = torch.from_numpy(fc_w[p, h, 0, 0].copy())
+            state[f"atn.{p}.{h}.b"] = torch.from_numpy(fc_b[p, h].copy())
+    return state
+
+
+def tdnet_from_jax(params: dict, cfg: TDNetConfig, device=None) -> TDNet:
+    model = TDNet(cfg, device)
+    model.load_state_dict(tdnet_state_from_jax(params, cfg))
+    return model.eval().requires_grad_(False)

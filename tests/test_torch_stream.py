@@ -1,0 +1,158 @@
+"""The port's streaming slice against the JAX package, and the port's
+entry points: no JAX behind ``import tdnet_tpu_torch``, and the CLI.
+
+Same weights (JAX ``init_tdnet`` through ``utils/from_jax.py``) and the same
+frames (numpy, seeded) go through both; f32 on the CPU, where the port's
+attention wrapper takes its plain version.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tdnet_tpu.data.streaming import normalize_frame
+from tdnet_tpu.models.tdnet import TDNetConfig as JaxConfig
+from tdnet_tpu.models.tdnet import init_tdnet as jax_init_tdnet
+from tdnet_tpu.stream.runtime import Streamer as JaxStreamer
+from tdnet_tpu_torch.models import TDNetConfig
+from tdnet_tpu_torch.cli.profile import kernel_family
+from tdnet_tpu_torch.stream.runtime import LatencyMeter, Streamer, synthetic_frames
+from tdnet_tpu_torch.utils.from_jax import tdnet_from_jax
+
+IN_SIZE = (97, 193)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", params=[4, 2], ids=["P4", "P2"])
+def streams(request):
+    """Per-frame logits of the JAX Streamer (reference dataflow and fused
+    trunk) and of the port's Streamer over 2P+1 frames (cold and warm)."""
+    p = request.param
+    jcfg = JaxConfig(nclass=19, backbone="resnet10", path_num=p, in_size=IN_SIZE,
+                     kv_stride=4, aux=False)
+    params = jax_init_tdnet(jax.random.PRNGKey(p), jcfg)
+    cfg = TDNetConfig(nclass=19, backbone="resnet10", path_num=p, in_size=IN_SIZE,
+                      kv_stride=4)
+    rng = np.random.RandomState(p)
+    frames = [rng.randn(1, *IN_SIZE, 3).astype(np.float32) * 0.5
+              for _ in range(2 * p + 1)]
+    ref = JaxStreamer(params, jcfg, fused_trunk=False)
+    fused = JaxStreamer(params, jcfg)
+    port = Streamer(tdnet_from_jax(params, cfg))
+    out = {"ref": [], "fused": [], "port": []}
+    for f in frames:
+        out["ref"].append(np.asarray(ref.step(jnp.asarray(f), timed=False)[0]))
+        out["fused"].append(np.asarray(fused.step(jnp.asarray(f), timed=False)[0]))
+        out["port"].append(port.step(torch.from_numpy(f), timed=False)[0].numpy())
+    return out
+
+
+def test_stream_matches_reference_dataflow(streams):
+    for i, (got, want) in enumerate(zip(streams["port"], streams["ref"])):
+        assert got.shape == want.shape == (1, *IN_SIZE, 19)
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5, err_msg=f"frame {i}")
+
+
+def test_stream_matches_fused_trunk(streams):
+    for i, (got, want) in enumerate(zip(streams["port"], streams["fused"])):
+        np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-4, err_msg=f"frame {i}")
+
+
+def test_latency_meter_warmup_exclusion():
+    m = LatencyMeter(warmup=6)
+    for i in range(10):
+        m.add(1.0 if i < 6 else 0.5)
+    assert m.avg == 0.5 and m.fps == 2.0
+
+
+def test_synthetic_frames_pan_a_seeded_scene():
+    frames = synthetic_frames(3, (5, 7), seed=3)
+    assert [tuple(f.shape) for f in frames] == [(1, 5, 7, 3)] * 3
+    assert all(f.dtype == torch.float32 for f in frames)
+    # frame t is the scene's columns t..t+W, normalized as the JAX loader does
+    scene = np.random.RandomState(3).randint(0, 256, (5, 7 + 3, 3), dtype=np.uint8)
+    for t, f in enumerate(frames):
+        np.testing.assert_allclose(f[0].numpy(), normalize_frame(scene[:, t:t + 7]),
+                                   atol=1e-6)
+    np.testing.assert_array_equal(frames[1][0, :, :-1].numpy(), frames[0][0, :, 1:].numpy())
+    again = synthetic_frames(3, (5, 7), seed=3, dtype=torch.bfloat16)
+    assert again[2].dtype == torch.bfloat16
+    torch.testing.assert_close(again[2].float(), frames[2].to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("name,family", [
+    ("void (anonymous namespace)::pv_bf16(__nv_bfloat16 const*, ...)", "K1 propagation attention"),
+    ("(anonymous namespace)::stats_f32(float const*, ...)", "K1 propagation attention"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwc", "convolutions (cuDNN)"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>", "convolutions (cuDNN)"),
+    ("void at::native::vectorized_elementwise_kernel<8, ...>",
+     "elementwise (BN affine, activations, adds, casts)"),
+    ("void at::native::(anonymous namespace)::adaptive_average_pool<float>(float const*, ...)",
+     "adaptive pool"),
+    ("Memcpy DtoD (Device -> Device)", "other"),
+])
+def test_kernel_family(name, family):
+    assert kernel_family(name) == family
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """The card's smoke stands on the port alone: no import of jax or of the
+    JAX package anywhere in it, lazy imports included."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert "tdnet_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "tdnet_tpu"}, roots
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tdnet_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(tdnet_tpu_torch.__path__, "
+        "'tdnet_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert 'tdnet_tpu_torch.cli.test' in mods, mods\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
+
+
+def test_cli_streams_pngs(tmp_path):
+    import imageio.v2 as imageio
+    from tdnet_tpu.data.synthetic import render_frame
+    from tdnet_tpu_torch.cli.test import main
+    src = tmp_path / "vid" / "clip"
+    src.mkdir(parents=True)
+    for t in range(3):
+        imageio.imwrite(src / f"frame_{t:03d}.png", render_frame(t, (64, 128)))
+    out = tmp_path / "out"
+    main(["--img_path", str(tmp_path / "vid"), "--output_path", str(out),
+          "--device", "cpu", "--in_size", "65", "129", "--model", "td4-psp18"])
+    pngs = sorted(os.listdir(out / "clip"))
+    assert pngs == [f"frame_{t:03d}.png" for t in range(3)]
+    assert imageio.imread(out / "clip" / pngs[0]).shape == (65 // 4, 129 // 4, 3)
+
+
+@pytest.mark.parametrize("argv", [["--model", "psp101"], ["--model", "td2-fa"],
+                                  ["--parallel", "group"]])
+def test_cli_rejects_what_is_not_ported(argv):
+    from tdnet_tpu_torch.cli.test import main
+    with pytest.raises(NotImplementedError, match="not ported"):
+        main(argv + ["--device", "cpu"])
