@@ -5,10 +5,12 @@
 
 Phases (any failure exits non-zero):
 0. toolchain and card: torch, CUDA, nvcc, ``nvidia-smi`` name and power limit;
-1. build the propagation-attention kernel from ``tdnet_tpu_torch/csrc``;
-2. the kernel against its plain PyTorch version at the streaming hop shapes
-   (and a ragged batch of 2), f32 (TF32 off) and bf16, with and without the
-   fc; max abs error and the median time of each (CUDA events);
+1. build every kernel library from ``tdnet_tpu_torch/csrc``, one nvcc each,
+   all at once;
+2. the propagation-attention kernel (K1) against its plain PyTorch version at
+   the streaming hop shapes (and a ragged batch of 2), f32 (TF32 off) and
+   bf16, with and without the fc; max abs error and the median time of each
+   (CUDA events), and ``F.scaled_dot_product_attention`` at the TD2 hop;
 3. TD4-PSP18 at 769x1537 in f32 through ``Streamer`` on seeded random weights
    and 12 seeded synthetic frames, against the same stream with the plain
    attention (1e-3 x max|logits|); 3 kernel launches per warm frame; latency,
@@ -16,10 +18,36 @@ Phases (any failure exits non-zero):
 4. the same stream in bf16, against its plain-attention run (3e-2 x
    max|logits|) and against the f32 stream (5e-2 x max|f32 logits|);
 5. TD2-PSP50 at 1025x2049 in bf16, against its plain-attention run (3e-2 x
-   max|logits|); one launch per warm frame.
-The line before the last is one JSON object of the kernels, one entry per
-dtype, each with its error and times at the TD2 hop with the fc; the last line
-is ``{"ok": true, "device": {...}}``.
+   max|logits|); one launch per warm frame;
+6. load the training libraries (K2: training attention, K3: dropout);
+7. K2 against its plain version at the TD4 training hop shapes (2,145 x 2,145,
+   run twice a step, and 18,721 x 2,145), f32, dropout off and on with one
+   seed: the output to 1e-5 x max|output| and dq, dk, dv from a seeded dy to
+   atol 2e-4 / rtol 1e-3; the keep rate within 0.9 +- 1e-3 (uniform scores,
+   v of ones: each output row counts its kept keys); kernel, plain and
+   ``F.scaled_dot_product_attention`` (scale 1/8, no dropout) times, forward
+   and backward;
+8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
+   backward (from a seeded dy) bit-identical, the same mask; keep rate within
+   0.9 +- 1e-3;
+   kernel, plain and ``F.dropout`` times;
+9. the TD4-PSP18 full training recipe at 769x1537, batch 1, f32: seeded
+   student and ResNet-101 teacher, OHEM, KD, AdaOptimizer; a warm-up step and
+   8 steps with pos_id 0-3, every loss finite, 3 launches a step of each of K2
+   forward, K2 backward, K3 forward and K3 backward; ms/step and peak memory;
+   then the loss and every gradient of the kernel path against the plain path
+   (K2 and K3 both swapped for their plain versions) from the same state,
+   dropout off and then on (the same masks): the loss to 1e-4 relative; each
+   gradient to 1e-3 x max(max|grad|, 1e-5 x the run's largest max|grad|), the
+   floor for gradients that vanish in exact arithmetic (such as a bias before
+   a BatchNorm), plus twice the kernel path's own run-to-run difference
+   (cuDNN's and the upsampling's backward are nondeterministic); that
+   run-to-run term must stay within 1e-2 x max|grad| on every gradient above
+   the floor.
+The line before the last is one JSON object of the kernels: K1 per dtype (its
+error and times at the TD2 hop with the fc), K2 forward, K2 backward and K3,
+each with launches, error, times, library time and bound; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -32,8 +60,20 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SHAPES = [(1225, 1225), (18721, 1225), (33153, 2145), (700, 130)]   # (Lq, Lkv)
+TRAIN_SHAPES = [(2145, 2145), (18721, 2145)]   # the TD4 training hops (Lq, Lkv)
+DROP_ROWS = [18721, 2145]                       # K3's [rows, 512] on the training path
+TRAIN_STEPS = 8
+GRAD_RTOL = 1e-3     # kernel path vs plain path, per gradient tensor, x max|grad|
+GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
+NOISE_LIMIT = 1e-2   # the largest 2 x run-to-run / max|grad| allowed above the floor
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet): bytes/s of HBM3,
+# FLOP/s of f32 on the CUDA cores and of bf16 on the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 BATCHED = (2, 700, 130)   # (n, Lq, Lkv): the batch axis of the kernel's grid
 D_K, D_V = 64, 512
 N_FRAMES = 12
@@ -75,11 +115,24 @@ def phase_toolchain() -> str:
     return smi
 
 
+def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
+    """The least time of the work on this card: the larger of its operations
+    at the peak rate of their type and its bytes at the memory rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_build() -> None:
-    from tdnet_tpu_torch.kernels import propagation_attention as pa
+    from tdnet_tpu_torch.kernels import dropout, propagation_attention, \
+        propagation_attention_train
+    from tdnet_tpu_torch.kernels.build import compile_libraries
+    mods = (propagation_attention, propagation_attention_train, dropout)
     t0 = time.perf_counter()
-    pa.build()
-    log(f"[1] built propagation_attention.cu in {time.perf_counter() - t0:.1f} s")
+    compile_libraries({m.__name__.rsplit(".", 1)[1]: m.SOURCES for m in mods})
+    log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, concurrently)")
+    propagation_attention.build()
 
 
 def phase_kernel(card: str) -> dict:
@@ -120,7 +173,16 @@ def phase_kernel(card: str) -> dict:
                 log(f"[2] n={n} {lq:6d} x {lkv:5d} {name:4s} fc={int(fc)}  max_abs_err {err:.3e} "
                     f"(tol {tol:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
                 if (n, lq, lkv) == HEADLINE and fc:
-                    headline[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                        t["q"], t["k"], t["v"], scale=1.0 / 8.0))
+                    flops = 2 * n * lq * lkv * (D_K + D_V) + 2 * n * lq * D_V * D_V
+                    nbytes = t["q"].element_size() * (
+                        n * lq * (D_K + D_V) + n * lkv * (D_K + D_V) + D_V * D_V + D_V)
+                    headline[name] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        **bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32))
+                    log(f"[2]   F.scaled_dot_product_attention (no fc) {lib_ms:.3f} ms; bound "
+                        f"{headline[name]['bound_ms']:.3f} ms by {headline[name]['bound_by']}")
             del t, ref_in
     return headline
 
@@ -131,15 +193,21 @@ def stream_frames(in_size, dtype):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """The hops take the plain attention instead of the kernel's wrapper."""
-    from tdnet_tpu_torch.kernels import propagation_attention as pa
-    from tdnet_tpu_torch.nn import encoding
-    encoding.fused_propagation_attention = pa.propagation_attention_plain
+def swapped(module, name: str, replacement):
+    """``module.name`` is ``replacement`` inside the block."""
+    original = getattr(module, name)
+    setattr(module, name, replacement)
     try:
         yield
     finally:
-        encoding.fused_propagation_attention = pa.fused_propagation_attention
+        setattr(module, name, original)
+
+
+def plain_attention():
+    """The streaming hops take the plain attention instead of the kernel's wrapper."""
+    from tdnet_tpu_torch.kernels import propagation_attention as pa
+    from tdnet_tpu_torch.nn import encoding
+    return swapped(encoding, "fused_propagation_attention", pa.propagation_attention_plain)
 
 
 def check_close(tag, got, want, frac, what):
@@ -187,6 +255,243 @@ def run_stream(arch, in_size, dtype, frames, card, tag, kernel=True):
     return outs, launches
 
 
+
+def phase_train_build() -> None:
+    from tdnet_tpu_torch.kernels import dropout, propagation_attention_train
+    t0 = time.perf_counter()
+    propagation_attention_train.build()
+    dropout.build()
+    log(f"[6] loaded propagation_attention_train.cu and dropout.cu in "
+        f"{time.perf_counter() - t0:.2f} s (built in phase 1)")
+
+
+def _fwd_bwd(fn, q, k, v, dy, **kw):
+    """(output, dq, dk, dv) of ``fn`` on leaf copies of q, k, v."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves, **kw)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def phase_train_attention(card: str) -> dict:
+    """K2 against its plain version; returns the kernels entries' numbers."""
+    from tdnet_tpu_torch.kernels.propagation_attention_train import (
+        propagation_attention_train as k2, propagation_attention_train_plain as p2)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    log(f"[7] training attention kernel vs plain ({card}); tolerances: output 1e-5 x "
+        f"max|output|, dq/dk/dv atol 2e-4 rtol 1e-3, keep rate 0.9 +- 1e-3")
+    res = dict(fwd_err=0.0, bwd_err=0.0)
+    for lq, lkv in TRAIN_SHAPES:
+        q, k = (torch.randn(1, n, D_K, generator=gen).to(dev) for n in (lq, lkv))
+        v = torch.randn(1, lkv, D_V, generator=gen).to(dev)
+        dy = torch.randn(1, lq, D_V, generator=gen).to(dev)
+        for rate in (0.0, 0.1):
+            kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
+            got, want = _fwd_bwd(k2, q, k, v, dy, **kw), _fwd_bwd(p2, q, k, v, dy, **kw)
+            f_err = (got[0] - want[0]).abs().max().item()
+            f_tol = 1e-5 * want[0].abs().max().item()
+            g_err = max((a - b).abs().max().item() for a, b in zip(got[1:], want[1:]))
+            ok = f_err <= f_tol and all(torch.allclose(a, b, atol=2e-4, rtol=1e-3)
+                                        for a, b in zip(got[1:], want[1:]))
+            log(f"[7] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
+                f"(tol {f_tol:.3e}), dq/dk/dv max abs err {g_err:.3e}")
+            if not ok:
+                raise AssertionError(f"K2 disagrees with its plain version at {lq}x{lkv} "
+                                     f"dropout {rate}")
+            res["fwd_err"] = max(res["fwd_err"], f_err)
+            res["bwd_err"] = max(res["bwd_err"], g_err)
+            del got, want
+        # keep rate: uniform scores (q = 0) and v of ones make o_i = kept_i / (0.9 Lkv)
+        ones = torch.ones(1, lkv, 128, device=dev)
+        o = k2(torch.zeros_like(q), k, ones, temperature=8.0, dropout_rate=0.1, seed=SEED + 17)
+        kept = torch.round(o[..., 0].double() * 0.9 * lkv).sum().item()
+        rate = kept / (lq * lkv)
+        log(f"[7] {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {lq * lkv} elements")
+        if abs(rate - 0.9) > 1e-3:
+            raise AssertionError(f"K2 keep rate {rate} outside 0.9 +- 1e-3")
+
+    # times at the last hop, the largest
+    lq, lkv = TRAIN_SHAPES[-1]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    times = {}
+    for name, fn, kw in (("kernel", k2, dict(dropout_rate=0.1, seed=SEED)),
+                         ("plain", p2, dict(dropout_rate=0.1, seed=SEED)),
+                         ("sdpa", None, {})):
+        if fn is None:
+            fwd = lambda: F.scaled_dot_product_attention(*leaves, scale=1.0 / 8.0)
+        else:
+            fwd = lambda: fn(*leaves, temperature=8.0, **kw)
+        out = fwd()
+        times[name] = (median_ms(fwd),
+                       median_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)))
+        del out
+    log(f"[7] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
+        f"{times['kernel'][1]:.3f}, plain {times['plain'][0]:.3f} / {times['plain'][1]:.3f}, "
+        f"F.scaled_dot_product_attention (no dropout) {times['sdpa'][0]:.3f} / "
+        f"{times['sdpa'][1]:.3f}")
+    io = 4 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, f32
+    fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_F32)
+    bwd_b = bound(2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_F32)
+    log(f"[7] bounds: forward {fwd_b['bound_ms']:.3f} ms, backward {bwd_b['bound_ms']:.3f} ms "
+        f"(by operations at {PEAK_F32 / 1e12:.0f} TFLOP/s f32)")
+    return {
+        "fwd": dict(max_abs_err=res["fwd_err"], ms=times["kernel"][0],
+                    plain_ms=times["plain"][0], library_ms=times["sdpa"][0], **fwd_b),
+        "bwd": dict(max_abs_err=res["bwd_err"], ms=times["kernel"][1],
+                    plain_ms=times["plain"][1], library_ms=times["sdpa"][1], **bwd_b)}
+
+
+def phase_dropout(card: str) -> dict:
+    """K3 against its plain version; returns the kernels entry's numbers."""
+    from tdnet_tpu_torch.kernels.dropout import dropout, dropout_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    log(f"[8] dropout kernel vs plain ({card}): bit-identical output and backward, keep rate "
+        f"0.9 +- 1e-3")
+    for rows in DROP_ROWS:
+        x = torch.randn(rows, D_V, generator=gen).to(dev).requires_grad_(True)
+        xp = x.detach().clone().requires_grad_(True)
+        dy = torch.randn(rows, D_V, generator=gen).to(dev)
+        got, want = dropout(x, 0.1, SEED + 5), dropout_plain(xp, 0.1, SEED + 5)
+        got.backward(dy)
+        want.backward(dy)
+        torch.cuda.synchronize()
+        keep = (got != 0).double().mean().item()
+        same = torch.equal(got.detach(), want.detach())
+        same_bwd = torch.equal(x.grad, xp.grad)
+        log(f"[8] [{rows}, {D_V}]: output identical {same}, backward identical {same_bwd}, "
+            f"keep rate {keep:.6f}")
+        if not same_bwd:
+            bad = x.grad != xp.grad
+            log(f"[8]   {int(bad.sum())} backward elements differ, max abs "
+                f"{(x.grad - xp.grad).abs().max().item():.3e}; at kept positions "
+                f"{int((bad & (want != 0)).sum())}; kernel backward == kernel forward of dy: "
+                f"{torch.equal(x.grad, dropout(dy, 0.1, SEED + 5))}")
+        if not (same and same_bwd and abs(keep - 0.9) <= 1e-3):
+            raise AssertionError(f"K3 disagrees with its plain version at [{rows}, {D_V}]")
+    rows = DROP_ROWS[0]
+    x = torch.randn(rows, D_V, generator=gen).to(dev)
+    ms = median_ms(lambda: dropout(x, 0.1, SEED))
+    plain_ms = median_ms(lambda: dropout_plain(x, 0.1, SEED))
+    lib_ms = median_ms(lambda: F.dropout(x, 0.1, training=True))
+    b = bound(0, 2 * 4 * rows * D_V, PEAK_F32)
+    log(f"[8] [{rows}, {D_V}] ms: kernel {ms:.4f}, plain {plain_ms:.4f}, F.dropout {lib_ms:.4f}; "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+
+
+def plain_train_kernels():
+    """The training hops take the plain attention and the plain dropout
+    instead of the kernels' wrappers."""
+    from tdnet_tpu_torch.kernels import dropout as kd
+    from tdnet_tpu_torch.kernels import propagation_attention_train as pat
+    from tdnet_tpu_torch.nn import encoding, module
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(encoding, "propagation_attention_train",
+                                pat.propagation_attention_train_plain))
+    stack.enter_context(swapped(module, "dropout", kd.dropout_plain))
+    return stack
+
+
+def _loss_and_grads(model, loss_of, frames, labels, pos_id, teacher):
+    from tdnet_tpu_torch.nn import step_generator
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_of(model, frames, labels, pos_id, step_generator(SEED, 0), teacher)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def compare_paths(loss_of, model, frames, labels, teacher, use_dropout: bool) -> None:
+    """The kernel path's loss and gradients against the plain path's from the
+    same state and the same step generator (so the same dropout masks)."""
+    pos_id = 1
+    run = lambda: _loss_and_grads(model, loss_of, frames, labels, pos_id, teacher)
+    loss_a, ga = run()
+    loss_b, gb = run()
+    with plain_train_kernels():
+        loss_p, gp = run()
+    rel = abs(loss_a - loss_p) / abs(loss_p)
+    if set(ga) != set(gp) or not rel <= 1e-4:
+        raise AssertionError(f"[9] kernel-path loss {loss_a} vs plain {loss_p} (rel {rel:.2e})")
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in gp.values())
+    worst, noisiest, above, needed = (0.0, ""), (0.0, ""), 0, 0
+    for k, g in gp.items():
+        scale = g.abs().max().item()
+        noise = (ga[k] - gb[k]).abs().max().item()
+        err = (ga[k] - g).abs().max().item()
+        tol = GRAD_RTOL * max(scale, floor)
+        if err > tol + 2 * noise:
+            raise AssertionError(f"[9] gradient {k}: kernel vs plain {err:.3e}, max|grad| "
+                                 f"{scale:.3e}, run-to-run {noise:.3e}")
+        needed += err > tol
+        worst = max(worst, (err / tol, k))
+        if scale > floor:
+            above += 1
+            noisiest = max(noisiest, (2 * noise / scale, k))
+    log(f"[9] kernel path vs plain path (dropout {'on' if use_dropout else 'off'}, pos_id "
+        f"{pos_id}): loss {loss_a:.6f} vs {loss_p:.6f} (rel {rel:.2e}); {len(gp)} gradients, "
+        f"{above} above the floor {floor:.2e}; worst {worst[0]:.3f} of {GRAD_RTOL:g} x "
+        f"max(max|grad|, floor) ({worst[1]}), {needed} needing the run-to-run term; largest "
+        f"2 x run-to-run / max|grad| above the floor {noisiest[0]:.2e} ({noisiest[1]}, limit "
+        f"{NOISE_LIMIT:g})")
+    if noisiest[0] > NOISE_LIMIT:
+        raise AssertionError(f"[9] run-to-run difference {noisiest[0]:.2e} x max|grad| on "
+                             f"{noisiest[1]} is above {NOISE_LIMIT:g}")
+
+
+def phase_train(card: str) -> dict:
+    """The full recipe's train step; returns the per-kernel launches of the
+    8 measured steps."""
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.train.trainer import make_loss_of, td4_full_recipe
+    state, step, teacher, frames, labels, loss_fn = td4_full_recipe(seed=SEED)
+    model, cfg = state.model, state.model.cfg
+    in_size = cfg.in_size
+    log(f"[9] TD4-PSP18 full recipe {in_size[0]}x{in_size[1]} b1 f32 ({card}): kv_stride "
+        f"{cfg.kv_stride}, aux, OHEM n_min {in_size[0] * in_size[1] // 16}, KD from ResNet-101, "
+        f"AdaOptimizer; {sum(p.numel() for p in model.parameters())} student parameters")
+    t0 = time.perf_counter()
+    m = step(state, frames, labels, 0, teacher)
+    torch.cuda.synchronize()
+    log(f"[9] warm-up step: loss {m['loss'].item():.5f} kd {m['kd'].item():.5f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    counters = ((propagation_attention_train, "launches"),
+                (propagation_attention_train, "backward_launches"),
+                (dropout, "launches"), (dropout, "backward_launches"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, frames, labels, i % cfg.path_num, teacher)
+        loss = m["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss) or not np.isfinite(m["kd"].item()):
+            raise AssertionError(f"[9] step {i}: loss {loss}, kd {m['kd'].item()}")
+    launches = [getattr(fn, attr) for fn, attr in counters]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[9] {TRAIN_STEPS} steps, pos_id 0-3: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"median {float(np.median(times)):.1f} ms/step (min {min(times):.1f}, max "
+        f"{max(times):.1f}); peak memory {peak:.0f} MiB; launches K2 fwd/bwd "
+        f"{launches[0]}/{launches[1]}, K3 fwd/bwd {launches[2]}/{launches[3]}")
+    if launches != [3 * TRAIN_STEPS] * 4:
+        raise AssertionError(f"[9] launches {launches}, expected {3 * TRAIN_STEPS} of each")
+
+    for use_dropout in (False, True):
+        compare_paths(make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout), model, frames,
+                      labels, teacher, use_dropout)
+    return dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3])
+
+
 def main() -> int:
     card = phase_toolchain()
     phase_build()
@@ -221,11 +526,31 @@ def main() -> int:
     check_close("5", outs2, plain, 3e-2, "kernel-path vs plain-attention bf16")
 
     launches = {"f32": n32, "bf16": n16 + n2}
-    log(json.dumps({"kernels": [{
-        "name": f"propagation_attention_{dt}", "route": "cuda",
-        "source": "tdnet_tpu_torch/csrc/propagation_attention.cu",
-        "replaces": "tdnet_tpu/kernels/propagation_attention.py:127",
-        "launches": launches[dt], **k1[dt]} for dt in ("f32", "bf16")]}))
+    del outs2, plain, td2_frames
+
+    phase_train_build()
+    k2 = phase_train_attention(card)
+    k3 = phase_dropout(card)
+    train_launches = phase_train(card)
+
+    src = "tdnet_tpu_torch/csrc/"
+    entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",
+                "source": src + "propagation_attention.cu",
+                "replaces": "tdnet_tpu/kernels/propagation_attention.py:127",
+                "launches": launches[dt], **k1[dt]} for dt in ("f32", "bf16")]
+    entries += [
+        {"name": "propagation_attention_train_fwd", "route": "cuda",
+         "source": src + "propagation_attention_train.cu",
+         "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:154",
+         "launches": train_launches["fwd"], **k2["fwd"]},
+        {"name": "propagation_attention_train_bwd", "route": "cuda",
+         "source": src + "propagation_attention_train.cu",
+         "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:188",
+         "launches": train_launches["bwd"], **k2["bwd"]},
+        {"name": "dropout", "route": "cuda", "source": src + "dropout.cu",
+         "replaces": "tdnet_tpu/kernels/dropout.py:38",
+         "launches": train_launches["drop"], **k3}]
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

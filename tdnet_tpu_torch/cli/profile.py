@@ -1,7 +1,9 @@
-"""Where a stream's frame time goes on the card, and how far it spreads.
+"""Where a stream's frame time, or a train step's time, goes on the card, and
+how far it spreads.
 
     python -m tdnet_tpu_torch.cli.profile --model td4-psp18 td2-psp50 \\
         --dtype bfloat16 --out profiles/
+    python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train --out profiles/
 
 For each model, on seeded random weights and seeded synthetic frames
 (``stream.runtime.synthetic_frames``) at the model's streaming size
@@ -19,6 +21,11 @@ warm-up:
    traced run (the profiler's own host work makes it an upper bound);
 4. ``nvidia-smi`` SM clock, power draw and temperature just after.
 
+``td4-psp18-train`` is the TD4-PSP18 full training recipe at 769x1537, f32
+(``train.trainer.td4_full_recipe``): after 2 warm-up steps, 8 synchronized
+steps (ms/step of each and the peak memory), then one ``torch.profiler``
+trace of 4 steps split by kernel family as above, per step.
+
 TF32 is off, as in ``chip_smoke.py``. Prints one JSON object per model;
 ``--out`` also gets the profiler's kernel table, one file per model.
 Needs a CUDA device.
@@ -30,6 +37,7 @@ import argparse
 import json
 import os
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -40,6 +48,9 @@ REPEATS = 7
 # (family, name fragments); a kernel goes to the first family one of whose
 # fragments its name contains
 FAMILIES = (
+    ("K2 training attention backward", ("dq_f32", "dkdv_f32", "rowdot_f32", "sum_parts")),
+    ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
+    # in a train step this family is K2's forward, which runs K1's f32 kernels
     ("K1 propagation attention", ("stats_f32", "pv_f32", "fc_f32",
                                   "stats_bf16", "pv_bf16", "fc_bf16")),
     ("convolutions (cuDNN)", ("conv", "xmma", "cutlass", "cudnn", "gemm",
@@ -109,10 +120,45 @@ def profile_model(arch: str, dtype, out: str | None) -> dict:
             "top_kernels": top, "smi_after_sm_clock_power_temp": after}
 
 
+def profile_train(out: str | None, steps: int = 8, traced: int = 4) -> dict:
+    from tdnet_tpu_torch.train.trainer import td4_full_recipe
+    state, step, teacher, frames, labels, _ = td4_full_recipe()
+    p_num = state.model.cfg.path_num
+    for i in range(2):
+        step(state, frames, labels, i % p_num, teacher)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, frames, labels, i % p_num, teacher)["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(traced):
+            step(state, frames, labels, i % p_num, teacher)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / traced
+    after = smi("clocks.sm,power.draw,temperature.gpu")
+    device_ms, families, top = device_breakdown(prof, traced)
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "profile_td4-psp18-train_float32.txt"), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
+    return {"model": "td4-psp18-train", "dtype": "float32", "in_size": [769, 1537],
+            "ms_per_step": times, "peak_mib": peak, "traced_wall_ms_per_step": traced_ms,
+            "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / traced_ms,
+            "families_ms_per_step": families, "top_kernels_per_step": top,
+            "smi_after_sm_clock_power_temp": after}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", nargs="+", default=["td4-psp18", "td2-psp50"],
-                        choices=["td4-psp18", "td2-psp50"])
+                        choices=["td4-psp18", "td2-psp50", "td4-psp18-train"])
     parser.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     parser.add_argument("--out", default=None, help="directory for the kernel tables")
     args = parser.parse_args(argv)
@@ -123,7 +169,9 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     print(smi("name,power.limit"), flush=True)
     for arch in args.model:
-        print(json.dumps(profile_model(arch, dtype, args.out)), flush=True)
+        res = profile_train(args.out) if arch == "td4-psp18-train" else \
+            profile_model(arch, dtype, args.out)
+        print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

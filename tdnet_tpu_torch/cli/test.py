@@ -48,7 +48,7 @@ def main(argv=None):
         what = f"--parallel {args.parallel}" if args.parallel else args.model
         raise NotImplementedError(f"{what} is not ported to tdnet_tpu_torch yet")
 
-    from tdnet_tpu.data.streaming import DATASET_META, FrameSource, decode_segmap
+    from tdnet_tpu_torch.data.streaming import DATASET_META, FrameSource, decode_segmap
     from tdnet_tpu_torch.models import init_tdnet, tdnet_config
     from tdnet_tpu_torch.stream.runtime import Streamer
 

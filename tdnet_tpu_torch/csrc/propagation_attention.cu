@@ -34,192 +34,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f32.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int DK = 64;  // key width the kernels take
-constexpr int BQ = 64;  // q rows per block
-constexpr int BK = 64;  // keys per chunk
-constexpr int BD = 128; // d_v columns per PV block (and fc columns per block)
-
-// Merge two (max, sum of exp(s - max)) pairs; an empty pair has max -inf.
-__device__ __forceinline__ void merge_stats(float& m, float& l, float mo, float lo) {
-  const float mn = fmaxf(m, mo);
-  const float a = m == -INFINITY ? 0.f : l * expf(m - mn);
-  const float b = mo == -INFINITY ? 0.f : lo * expf(mo - mn);
-  m = mn;
-  l = a + b;
-}
-
 // ---------------------------------------------------------------------------
-// f32: CUDA cores. 256 threads as 16 x 16; each thread owns 4 q rows.
+// f32: CUDA cores (stats_f32 and pv_f32 in attention_f32.cuh), and the fc below.
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS = 256;
-constexpr int KS = DK + 1; // padded row stride of the q and k tiles
-constexpr int PS = BK + 1; // padded row stride of the p tile
 constexpr int FC_BK = 32;
-
-constexpr size_t STATS_SMEM = sizeof(float) * (2 * 64 * KS);
-constexpr size_t PV_SMEM = sizeof(float) * (2 * 64 * KS + BQ * PS + BK * BD);
-
-// Rows [row0, row0 + 64) of a row-major [len, 64] matrix into a padded shared
-// tile; rows past len are zero.
-__device__ __forceinline__ void load_rows64(float* dst, const float* src, int row0, int len) {
-  for (int idx = threadIdx.x; idx < 64 * DK; idx += THREADS) {
-    const int r = idx / DK, d = idx % DK, g = row0 + r;
-    dst[r * KS + d] = g < len ? src[(size_t)g * DK + d] : 0.f;
-  }
-}
-
-// s[i][j] = scale * q[4 ty + i] . k[tx + 16 j] over one 64 x 64 tile.
-__device__ __forceinline__ void score_tile(const float* qs, const float* ks, float scale,
-                                           float s[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DK; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * KS + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * KS + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] *= scale;
-}
-
-__global__ void __launch_bounds__(THREADS)
-stats_f32(const float* __restrict__ q, const float* __restrict__ k, float* __restrict__ row_max,
-          float* __restrict__ row_sum, int lq, int lkv, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = smem + 64 * KS;
-  const int b = blockIdx.z, q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  load_rows64(qs, q, q0, lq);
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < lkv; k0 += BK) {
-    __syncthreads();
-    load_rows64(ks, k, k0, lkv);
-    __syncthreads();
-    float s[4][4];
-    score_tile(qs, ks, scale, s);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (k0 + tx + 16 * j >= lkv) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) merge_stats(m[i], l[i], s[i][j], 1.f);
-    }
-  }
-  // the 16 threads of one row group are 16 neighbouring lanes of one warp
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
-      merge_stats(m[i], l[i], mo, lo);
-    }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      if (r < lq) {
-        row_max[(size_t)b * lq + r] = m[i];
-        row_sum[(size_t)b * lq + r] = l[i];
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-pv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       const float* __restrict__ row_max, const float* __restrict__ row_sum,
-       float* __restrict__ o, int lq, int lkv, int dv, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + 64 * KS;
-  float* ps = ks + 64 * KS;  // [BQ][PS]: p rows by key
-  float* vs = ps + BQ * PS;  // [BK][BD]
-  const int b = blockIdx.z, d0 = blockIdx.y * BD, q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * dv;
-  o += (size_t)b * lq * dv;
-  load_rows64(qs, q, q0, lq);
-
-  float mrow[4], lrow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    mrow[i] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
-    lrow[i] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < lkv; k0 += BK) {
-    __syncthreads();
-    load_rows64(ks, k, k0, lkv);
-    for (int idx = threadIdx.x; idx < BK * BD; idx += THREADS) {
-      const int r = idx / BD, c = idx % BD, g = k0 + r;
-      vs[idx] = g < lkv ? v[(size_t)g * dv + d0 + c] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4];
-    score_tile(qs, ks, scale, s);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool valid = k0 + tx + 16 * j < lkv;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ps[(ty * 4 + i) * PS + tx + 16 * j] = valid ? expf(s[i][j] - mrow[i]) / lrow[i] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ps[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = vs[kk * BD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= lq) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[(size_t)r * dv + d0 + tx + 16 * j] = acc[i][j];
-  }
-}
 
 // y[m, n] = sum_k x[m, k] w[k, n] + bias[n]; kdim % 32 == 0, ndim % 128 == 0.
 __global__ void __launch_bounds__(THREADS)
@@ -526,11 +351,12 @@ int run_f32(const float* q, const float* k, const float* v, const float* w, cons
   stats_f32<<<g_rows, THREADS, STATS_SMEM, st>>>(q, k, row_max, row_sum, lq, lkv, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(pv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PV_SMEM);
+  err = cudaFuncSetAttribute(pv_f32<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)PV_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 g_pv((lq + BQ - 1) / BQ, dv / BD, n);
-  pv_f32<<<g_pv, THREADS, PV_SMEM, st>>>(q, k, v, row_max, row_sum, w ? o_tmp : out, lq, lkv,
-                                         dv, scale);
+  pv_f32<false><<<g_pv, THREADS, PV_SMEM, st>>>(q, k, v, row_max, row_sum, w ? o_tmp : out,
+                                                lq, lkv, dv, scale, 0u, 0u, 1.f);
   err = cudaGetLastError();
   if (err != cudaSuccess || !w) return (int)err;
   const dim3 g_fc((n * lq + BQ - 1) / BQ, dv / BD);

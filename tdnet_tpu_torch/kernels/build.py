@@ -3,8 +3,10 @@
 Each library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``. The object lands in
 ``build/tdnet_tpu_torch/`` at the root of the checkout, named by a hash of
-its sources and flags, so a changed source builds anew and an unchanged one
-is reused.
+its sources, the local headers they include (``#include "x.cuh"``) and the
+flags, so a changed source or header builds anew and an unchanged one is
+reused. ``compile_libraries``
+starts one ``nvcc`` per library, all at once.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -33,24 +36,54 @@ def nvcc() -> str:
     return path
 
 
+def _with_headers(sources: tuple[str, ...]) -> list[str]:
+    """``sources`` and, transitively, the csrc/ headers they include."""
+    seen, todo = [], list(sources)
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC, name)) as f:
+            todo += re.findall(r'^\s*#include\s+"([^"]+)"', f.read(), re.M)
+    return seen
+
+
+def _lib_path(name: str, sources: tuple[str, ...]) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _with_headers(sources):
+        with open(os.path.join(CSRC, s), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def compile_libraries(specs: dict[str, tuple[str, ...]]) -> None:
+    """Compile every library of ``specs`` (name -> source file names under
+    csrc/) that is not built yet, one nvcc process each, all concurrently."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for name, sources in specs.items():
+        lib_path = _lib_path(name, sources)
+        if os.path.isfile(lib_path):
+            continue
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *[os.path.join(CSRC, s) for s in sources]]
+        jobs.append((cmd, tmp, lib_path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for cmd, tmp, lib_path, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Compile ``sources`` (file names under csrc/) once and load the library."""
-    if name in _loaded:
-        return _loaded[name]
-    paths = [os.path.join(CSRC, s) for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        with open(p, "rb") as f:
-            digest.update(f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.isfile(lib_path):
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
-    _loaded[name] = ctypes.CDLL(lib_path)
+    if name not in _loaded:
+        compile_libraries({name: sources})
+        _loaded[name] = ctypes.CDLL(_lib_path(name, sources))
     return _loaded[name]

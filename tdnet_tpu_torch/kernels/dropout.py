@@ -1,0 +1,86 @@
+"""Dropout with a 1 / (1 - rate) scale, its mask regenerated from a seed (K3).
+
+The attention fc's dropout (rate 0.1, reference Training/.../td4_psp/
+transformer.py:89). The CUDA kernel is ``csrc/dropout.cu``; the keep mask of
+element (row, c) of the contiguous [rows, C] view is
+``keep_mask(seed, rate, ...)`` of ``ops/dropout_mask.py``, so
+``dropout_plain`` gives the kernel's output bit for bit. The backward applies
+the same mask to the cotangent: the kernel runs again on dy with the saved
+seed, as the TPU kernel's VJP does (tdnet_tpu/kernels/dropout.py:51-66).
+
+``dropout`` takes the plain version for CPU tensors and the kernel for CUDA
+tensors; ``dropout.launches`` and ``dropout.backward_launches`` count the
+kernel's forward and backward launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.ops.dropout_mask import keep_mask, keep_threshold
+
+SOURCES = ("dropout.cu",)
+
+
+def dropout_plain(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """where(keep, x * (1 / (1 - rate)), 0), differentiable through autograd."""
+    keep = keep_mask(seed, rate, tuple(x.shape), device=x.device)
+    inv_keep = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype)
+    return torch.where(keep, x * inv_keep, torch.zeros((), dtype=x.dtype))
+
+
+def build() -> ctypes.CDLL:
+    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
+    lib = load_library("dropout", SOURCES)
+    lib.tdnet_dropout.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                                  ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+    lib.tdnet_dropout.restype = ctypes.c_int
+    lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"the dropout kernel takes contiguous float32, got {x.dtype}")
+    lib = build()
+    y = torch.empty_like(x)
+    err = lib.tdnet_dropout(x.data_ptr(), y.data_ptr(), x.numel(), seed & 0xFFFFFFFF,
+                            keep_threshold(rate), 1.0 / (1.0 - rate),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout kernel failed: CUDA error {err}: "
+                           f"{lib.tdnet_cuda_error_string(err).decode()}")
+    return y
+
+
+class _DropoutKernel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rate, seed):
+        ctx.rate, ctx.seed = rate, seed
+        y = _launch(x, rate, seed)
+        dropout.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = _launch(dy.contiguous(), ctx.rate, ctx.seed)
+        dropout.backward_launches += 1
+        return dx, None, None
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Bernoulli(1 - rate) dropout with a 1 / (1 - rate) scale, the mask a
+    function of (seed, flat element index); differentiable."""
+    if x.device.type == "cpu":
+        return dropout_plain(x, rate, seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _DropoutKernel.apply(x, rate, seed)
+
+
+dropout.launches = 0
+dropout.backward_launches = 0

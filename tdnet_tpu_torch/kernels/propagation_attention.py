@@ -22,6 +22,7 @@ import torch
 from tdnet_tpu_torch.kernels.build import load_library
 from tdnet_tpu_torch.ops.attention import scaled_dot_attention
 
+SOURCES = ("propagation_attention.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 D_K = 64        # the key width the kernel takes
 DV_TILE = 128   # d_v must be a multiple of the kernel's column tile
@@ -39,7 +40,7 @@ def propagation_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 def build() -> ctypes.CDLL:
     """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
-    lib = load_library("propagation_attention", ("propagation_attention.cu",))
+    lib = load_library("propagation_attention", SOURCES)
     fn = lib.tdnet_propagation_attention
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

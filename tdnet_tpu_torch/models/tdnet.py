@@ -1,14 +1,18 @@
-"""TDNet streaming inference: P sub-networks over P consecutive frames, with
-attention propagation over a cache of the last P-1 frames' K/V/Q.
+"""TDNet: P sub-networks over P consecutive frames, with attention
+propagation over the other P-1 frames' K/V/Q.
 
 The streaming twins of the reference (Testing/model/pspnet/td4_psp18.py,
-td2_psp50.py), as in ``tdnet_tpu/models/tdnet.py``:
+td2_psp50.py) and the clip twins used for training
+(Training/ptsemseg/models/td4_psp/td4_psp.py, td2_psp/td2_psp.py), as in
+``tdnet_tpu/models/tdnet.py``:
 - hop h of path p uses attention instance atn{p+1}_{s+1} with
   s = (p + h + 1) mod P; the weights are stored rotated as ``atn[p][h]``;
 - grouped-PSP pid = p % 2, in 2 groups for both P = 4 and P = 2;
-- d_v = C for P = 4 and C/4 for P = 2; head chn_down 4 / 2.
+- d_v = C for P = 4 and C/4 for P = 2; head chn_down 4 / 2;
+- clip routing: sub-network s reads frame (s - pos_id - 1) mod P, frame P-1
+  being the current one; the chain runs over sigma(j) = (pos_id + 1 + j) mod P.
 
-The cache is a preallocated ring of [W, n, L, d] tensors (W = P - 1) that
+The streaming cache is a preallocated ring of [W, n, L, d] tensors (W = P - 1) that
 each step updates in place; the hop chain reads it oldest frame first.
 """
 
@@ -19,7 +23,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from tdnet_tpu_torch.nn import (BACKBONES, Attention, Encoding, FCNHead, PyramidPooling,
+from tdnet_tpu_torch.nn import (BACKBONES, Attention, Ctx, Encoding, FCNHead, PyramidPooling,
                                 ResNet, apply_attention, apply_encoding_cached,
                                 apply_encoding_full, apply_fcn_head, apply_pyramid_pooling,
                                 init_attention, init_encoding, init_fcn_head,
@@ -42,7 +46,9 @@ class TDNetConfig:
     path_num: int = 4
     in_size: tuple[int, int] = (769, 1537)
     d_k: int = 64
-    kv_stride: int = 4
+    kv_stride: int = 4            # 4 when streaming, 3 in training
+    pool_before_proj: bool = True  # False only in TD2 training
+    aux: bool = False             # the training-only aux head on c3
 
     @property
     def expansion(self) -> int:
@@ -91,6 +97,8 @@ class SubNet(nn.Module):
         self.ln = LayerNorm2d(*cfg.feat_hw, device=device)
         head_in = cfg.d_v if cfg.path_num == 2 else cfg.channels
         self.head = FCNHead(head_in, cfg.nclass, chn_down=cfg.head_chn_down, device=device)
+        if cfg.aux:
+            self.aux = FCNHead(256 * cfg.expansion, cfg.nclass, chn_down=4, device=device)
 
 
 class TDNet(nn.Module):
@@ -110,17 +118,20 @@ def init_subnet(sub: SubNet, generator: torch.Generator) -> None:
     init_pyramid_pooling(sub.psp, generator)
     init_encoding(sub.enc, generator)
     init_fcn_head(sub.head, generator)
+    if hasattr(sub, "aux"):
+        init_fcn_head(sub.aux, generator)
 
 
 def init_tdnet(cfg: TDNetConfig, generator: torch.Generator, device=None) -> TDNet:
-    """A TDNet with the reference's init distributions, drawn from ``generator``."""
+    """A trainable TDNet with the reference's init distributions, drawn from
+    ``generator`` (the streaming entry points set eval mode themselves)."""
     model = TDNet(cfg, device)
     for sub in model.paths:
         init_subnet(sub, generator)
     for row in model.atn:
         for atn in row:
             init_attention(atn, generator)
-    return model.eval().requires_grad_(False)
+    return model
 
 
 @dataclasses.dataclass
@@ -144,7 +155,7 @@ def init_cache(cfg: TDNetConfig, batch: int = 1, dtype=torch.float32,
     return StreamCache(q=z(cfg.d_k), k=z(cfg.d_k), v=z(cfg.d_v))
 
 
-def _hop_chain(atn_p, ks, vs, qs, q_cur, cfg: TDNetConfig) -> torch.Tensor:
+def _hop_chain(atn_p, ks, vs, qs, q_cur, cfg: TDNetConfig, ctx: Ctx | None = None) -> torch.Tensor:
     """The propagation chain (reference td4_psp18.py:145-151).
 
     ks/vs/qs: per-hop tokens, oldest first, each [n, L, d]. Hop h queries
@@ -157,7 +168,7 @@ def _hop_chain(atn_p, ks, vs, qs, q_cur, cfg: TDNetConfig) -> torch.Tensor:
         vin = vs[h] if acc is None else vs[h] + acc
         q = qs[h + 1] if h + 1 < w else q_cur
         acc = apply_attention(atn_p[h], ks[h], vin, q, d_k=cfg.d_k,
-                              fea_hw=cfg.feat_hw if h == w - 1 else None)
+                              fea_hw=cfg.feat_hw if h == w - 1 else None, ctx=ctx)
     return acc
 
 
@@ -178,7 +189,8 @@ def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
     out = apply_fcn_head(sub.head, sub.ln(feat))
     out = resize_bilinear(out, cfg.in_size)
 
-    q_c, k_c, v_c = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride)
+    q_c, k_c, v_c = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride,
+                                          pool_before_proj=cfg.pool_before_proj)
     slot = cache.head
     cache.q[slot].copy_(q_c)
     cache.k[slot].copy_(k_c)
@@ -186,3 +198,47 @@ def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
     cache.head = (slot + 1) % cfg.window
     cache.count += 1
     return out.permute(0, 2, 3, 1)
+
+
+def clip_forward(model: TDNet, frames: torch.Tensor, pos_id: int, ctx: Ctx) -> dict:
+    """A clip of P frames (axis 0: oldest .. current) in one step, the
+    unrolled form of ``tdnet_tpu/models/tdnet.py:clip_forward``.
+
+    ``frames`` NHWC [P, n, H, W, 3]. Every sub-network runs on its routed
+    frame; the chain recomposes the current frame's features; the current
+    path's head gives ``out`` and ``out_sub`` (logits NCHW at the input size)
+    and ``out_lowres`` / ``out_sub_lowres`` (at the c4 grid, for KD); in
+    training the aux head on the current sub-network's c3 gives ``auxout``.
+
+    BatchNorm statistics follow the JAX rules (tdnet.py:347-390) by running
+    only what is used: the current path's head runs twice (two updates); its
+    encoding runs only at full resolution (its cached encoding is never read);
+    the oldest frame's w_qs does not run (hop h reads the q of frame h + 1).
+    """
+    cfg = model.cfg
+    p_num = cfg.path_num
+    sigma = [(pos_id + 1 + j) % p_num for j in range(cfg.window)]
+    cached = {}
+    for s in range(p_num):
+        sub = model.paths[s]
+        x = frames[(s - pos_id - 1) % p_num].permute(0, 3, 1, 2).contiguous()
+        c3, c4 = sub.backbone(x)
+        z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=cfg.psp_pid(s))
+        if s == pos_id:
+            c3_cur, z_cur = c3, z
+        else:
+            cached[s] = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride,
+                                              pool_before_proj=cfg.pool_before_proj,
+                                              with_q=s != sigma[0])
+    sel = model.paths[pos_id]
+    q_cur, v_cur = apply_encoding_full(sel.enc, z_cur)
+    qs, ks, vs = zip(*(cached[s] for s in sigma))
+    v_prop = _hop_chain(model.atn[pos_id], ks, vs, qs, q_cur, cfg, ctx)
+    out_lr = apply_fcn_head(sel.head, sel.ln(v_prop + v_cur), ctx)
+    out_sub_lr = apply_fcn_head(sel.head, sel.ln(v_cur), ctx)
+    res = {"out": resize_bilinear(out_lr, cfg.in_size),
+           "out_sub": resize_bilinear(out_sub_lr, cfg.in_size),
+           "out_lowres": out_lr, "out_sub_lowres": out_sub_lr}
+    if cfg.aux and ctx.train:
+        res["auxout"] = resize_bilinear(apply_fcn_head(sel.aux, c3_cur, ctx), cfg.in_size)
+    return res

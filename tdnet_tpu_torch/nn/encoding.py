@@ -1,14 +1,19 @@
-"""QKV encoding and one cross-frame propagation hop, eval mode.
+"""QKV encoding and one cross-frame propagation hop.
 
 Encoding (Testing/model/pspnet/transformer.py:9-56):
 - ``w_qs`` / ``w_ks``: 1x1 conv(+bias) -> BN with leaky-ReLU -> 1x1 conv(+bias)
   to d_k = 64;
 - ``w_vs``: one 1x1 conv(+bias) to d_v;
 - a cached frame is grid-subsampled before the projections (stride 4 when
-  streaming).
+  streaming, 3 in TD4 training) or, in TD2 training, after them
+  (``pool_before_proj=False``; Training/.../td2_psp/transformer.py:26-44).
 
 Attention (transformer.py:60-92): softmax(q k^T / sqrt(d_k)) v, then the
-per-token fc; the last hop turns the tokens back into a feature map.
+per-token fc; the last hop turns the tokens back into a feature map. In
+eval the fc rides inside the inference kernel (K1); in training
+(``tdnet_tpu/nn/encoding.py:110-138``) the attention is the training kernel
+(K2, attention dropout 0.1), the fc a ``torch.matmul`` whose weight takes a
+gradient, and the fc output goes through dropout 0.1 (K3).
 
 Tokens are [n, H*W, d] in row-major (h, w) order, as in the JAX package.
 """
@@ -21,6 +26,8 @@ import torch
 from torch import nn
 
 from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+from tdnet_tpu_torch.nn.module import Ctx
 from tdnet_tpu_torch.ops import BatchNorm, Conv2d, grid_subsample, init_conv_kaiming, normal_
 
 
@@ -60,10 +67,21 @@ def apply_encoding_full(enc: Encoding, fea: torch.Tensor) -> tuple[torch.Tensor,
     return tokens(enc.w_qs(fea)), enc.w_vs(fea)
 
 
-def apply_encoding_cached(enc: Encoding, fea: torch.Tensor, *, kv_stride: int):
-    """Cached frame, subsampled before the projections: (q, k, v) tokens."""
-    fea = grid_subsample(fea, kv_stride)
-    return tokens(enc.w_qs(fea)), tokens(enc.w_ks(fea)), tokens(enc.w_vs(fea))
+def apply_encoding_cached(enc: Encoding, fea: torch.Tensor, *, kv_stride: int,
+                          pool_before_proj: bool = True, with_q: bool = True):
+    """Cached frame: subsampled (q, k, v) tokens, subsampled before the
+    projections or after them. ``with_q=False`` skips w_qs (q is None): the
+    training chain never reads the oldest frame's q, so its w_qs BN statistics
+    must not move."""
+    if pool_before_proj:
+        fea = grid_subsample(fea, kv_stride)
+        sub = lambda x: x
+    else:
+        sub = lambda x: grid_subsample(x, kv_stride)
+    k = tokens(sub(enc.w_ks(fea)))
+    v = tokens(sub(enc.w_vs(fea)))
+    q = tokens(sub(enc.w_qs(fea))) if with_q else None
+    return q, k, v
 
 
 class Attention(nn.Module):
@@ -82,15 +100,23 @@ def init_attention(atn: Attention, generator: torch.Generator) -> None:
 
 
 def apply_attention(atn: Attention, k_src: torch.Tensor, v_src: torch.Tensor,
-                    q_tgr: torch.Tensor, *, d_k: int,
-                    fea_hw: tuple[int, int] | None = None) -> torch.Tensor:
+                    q_tgr: torch.Tensor, *, d_k: int, fea_hw: tuple[int, int] | None = None,
+                    ctx: Ctx | None = None) -> torch.Tensor:
     """One hop: q_tgr attends over (k_src, v_src), then the fc.
 
     Token inputs [n, L, d]; returns tokens [n, Lq, d_v], or with ``fea_hw``
-    (the last hop) the map [n, d_v, H, W].
+    (the last hop) the map [n, d_v, H, W]. ``ctx.train``: the training form.
     """
-    out = fused_propagation_attention(q_tgr, k_src, v_src, temperature=math.sqrt(d_k),
-                                      fc_w=atn.w, fc_b=atn.b)
+    temperature = math.sqrt(d_k)
+    if ctx is not None and ctx.train:
+        drop = ctx.dropping
+        out = propagation_attention_train(q_tgr, k_src, v_src, temperature=temperature,
+                                          dropout_rate=0.1 if drop else 0.0,
+                                          seed=ctx.next_seed() if drop else 0)
+        out = ctx.dropout(torch.matmul(out, atn.w) + atn.b, 0.1)
+    else:
+        out = fused_propagation_attention(q_tgr, k_src, v_src, temperature=temperature,
+                                          fc_w=atn.w, fc_b=atn.b)
     if fea_hw is None:
         return out
     h, w = fea_hw

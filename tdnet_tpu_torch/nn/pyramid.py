@@ -1,8 +1,10 @@
-"""Grouped pyramid pooling (Testing/model/pspnet/td4_psp18.py:243-284), eval.
+"""Grouped pyramid pooling (Testing/model/pspnet/td4_psp18.py:243-284).
 
 Four adaptive-average-pool branches {1, 2, 3, 6} -> 1x1 conv to C/4 ->
 BN+ReLU -> channel group ``pid`` -> align-corners upsample; concatenated
 after channel group ``pid`` of the input: 2C/groups channels out.
+``apply_pyramid_pooling_groups`` gives every group's output with the branch
+work shared, as the grouped teacher needs (``tdnet_tpu/nn/pyramid.py:79-106``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,20 @@ def apply_pyramid_pooling(psp: PyramidPooling, x: torch.Tensor, *, groups: int,
         # slicing commutes with the upsample: slice first, upsample less
         feats.append(resize_bilinear(f[:, pid * gq:(pid + 1) * gq], (h, w)))
     return torch.cat(feats, dim=1)
+
+
+def apply_pyramid_pooling_groups(psp: PyramidPooling, x: torch.Tensor,
+                                 groups: int) -> list[torch.Tensor]:
+    """NCHW c4 -> the ``groups`` grouped pyramid features, each
+    [n, 2C/groups, h, w]; each branch runs once at full width."""
+    n, c, h, w = x.shape
+    g, gq = c // groups, c // (groups * 4)
+    feats = []
+    for i, f in enumerate(adaptive_avg_pool_multi(x, _BINS)):
+        br = getattr(psp, f"conv{i + 1}")
+        feats.append(resize_bilinear(br.bn(br.conv(f), "relu"), (h, w)))
+    return [torch.cat([x[:, p * g:(p + 1) * g]] + [f[:, p * gq:(p + 1) * gq] for f in feats],
+                      dim=1) for p in range(groups)]
 
 
 def init_pyramid_pooling(psp: PyramidPooling, generator: torch.Generator) -> None:

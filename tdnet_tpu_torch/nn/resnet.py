@@ -1,4 +1,5 @@
-"""Dilated multi-grid ResNet backbones (output stride 8), eval mode.
+"""Dilated multi-grid ResNet backbones (output stride 8); the BatchNorms
+follow the module's ``train()`` / ``eval()``.
 
 Reference: Testing/model/pspnet/resnet.py:114-215, the same geometry as
 ``tdnet_tpu/nn/resnet.py``:

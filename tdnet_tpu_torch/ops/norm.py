@@ -1,9 +1,12 @@
-"""Normalization layers in eval mode (NCHW).
+"""Normalization layers (NCHW).
 
 - ``batch_norm``: torch ``BatchNorm2d`` eval semantics (eps 1e-5) with the
   reference's fused activation (relu, or leaky_relu with slope 0.01) and an
   optional residual, added after the affine and before the activation
   (Testing/model/pspnet/td4_psp18.py:11-24, resnet.py blocks).
+- ``batch_norm_train``: the train-mode twin (batch statistics, biased
+  variance to normalize, unbiased variance into the running buffer with
+  momentum 0.1), as ``tdnet_tpu/ops/norm.py:159-200``.
 - ``fold_bn_eval``: the eval affine folded once into (fscale, fbias).
 - ``layer_norm_2d``: torch ``nn.LayerNorm([H, W])`` over each (n, c) plane
   with the learned [H, W] affine (td4_psp18.py:306-312).
@@ -18,7 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tdnet_tpu_torch.ops.dtype import at_least_f32
+
 EPS = 1e-5
+MOMENTUM = 0.1
 
 
 def _activate(y: torch.Tensor, activation: str | None) -> torch.Tensor:
@@ -43,9 +49,38 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, *, activation: str | None = None,
                residual: torch.Tensor | None = None, eps: float = EPS) -> torch.Tensor:
     """Eval batch norm: act(((x - mean) * inv + bias) + residual)."""
-    inv = (torch.rsqrt(var.float() + eps) * weight.float())[:, None, None]
-    y = ((x.float() - mean.float()[:, None, None]) * inv
-         + bias.float()[:, None, None]).to(x.dtype)
+    inv = (torch.rsqrt(at_least_f32(var) + eps) * at_least_f32(weight))[:, None, None]
+    y = ((at_least_f32(x) - at_least_f32(mean)[:, None, None]) * inv
+         + at_least_f32(bias)[:, None, None]).to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return _activate(y, activation)
+
+
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor, *,
+                     activation: str | None = None, residual: torch.Tensor | None = None,
+                     eps: float = EPS, momentum: float = MOMENTUM) -> torch.Tensor:
+    """Train-mode batch norm: normalize with the batch mean and biased
+    variance over (n, h, w), update the running buffers in place with the
+    unbiased variance, then the residual and the activation.
+
+    ``F.batch_norm`` does it where a channel has more than one value; with
+    one value a channel (the PSP's 1x1 pool at batch 1, which torch's own
+    op refuses) the variance is 0 and the output is the bias, as in the JAX
+    package's E[x^2] - E[x]^2 form.
+    """
+    n = x.numel() // x.shape[1]
+    if n > 1:
+        y = F.batch_norm(x, running_mean, running_var, weight, bias, training=True,
+                         momentum=momentum, eps=eps)
+    else:
+        mean = at_least_f32(x).mean(dim=(0, 2, 3))
+        var = (at_least_f32(x) - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(momentum * mean)
+            running_var.mul_(1 - momentum).add_(momentum * var)
+        y = batch_norm(x, weight, bias, mean, var, eps=eps)
     if residual is not None:
         y = y + residual
     return _activate(y, activation)
@@ -62,10 +97,13 @@ def batch_norm_folded(x: torch.Tensor, fscale: torch.Tensor, fbias: torch.Tensor
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d in eval mode, with the activation and residual fused in.
+    """BatchNorm2d with the activation and residual fused in; ``train()``
+    selects batch statistics (``batch_norm_train``), ``eval()`` the running
+    ones.
 
-    ``fold()`` computes the folded affine once (after any dtype cast); from
-    then on the forward uses it."""
+    ``fold()`` computes the folded eval affine once (after any dtype cast);
+    from then on the eval forward uses it. Any mode switch drops it, so that
+    training never sees it and a later fold takes the new statistics."""
 
     def __init__(self, c: int, device=None):
         super().__init__()
@@ -79,8 +117,16 @@ class BatchNorm(nn.Module):
         self.folded = fold_bn_eval(self.weight.detach(), self.bias.detach(),
                                    self.running_mean, self.running_var)
 
+    def train(self, mode: bool = True) -> "BatchNorm":
+        self.folded = None
+        return super().train(mode)
+
     def forward(self, x: torch.Tensor, activation: str | None = None,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
+        if self.training:
+            return batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var, activation=activation,
+                                    residual=residual)
         if self.folded is not None:
             return batch_norm_folded(x, *self.folded, activation=activation,
                                      residual=residual)
@@ -92,7 +138,8 @@ def layer_norm_2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float = EPS) -> torch.Tensor:
     """nn.LayerNorm([H, W]) on NCHW ``x`` with the [H, W] affine, in f32."""
     h, w = x.shape[-2:]
-    return F.layer_norm(x.float(), (h, w), weight.float(), bias.float(), eps).to(x.dtype)
+    return F.layer_norm(at_least_f32(x), (h, w), at_least_f32(weight), at_least_f32(bias),
+                        eps).to(x.dtype)
 
 
 class LayerNorm2d(nn.Module):

@@ -13,10 +13,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tdnet_tpu_torch.ops.dtype import at_least_f32
+
 
 def adaptive_avg_pool_multi(x: torch.Tensor, sizes: tuple[int, ...]) -> list[torch.Tensor]:
     """One [n, c, s, s] adaptive average pool per size in ``sizes``, in f32."""
-    xf = x.float()
+    xf = at_least_f32(x)
     return [F.adaptive_avg_pool2d(xf, s).to(x.dtype) for s in sizes]
 
 

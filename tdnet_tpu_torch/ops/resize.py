@@ -10,10 +10,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tdnet_tpu_torch.ops.dtype import at_least_f32
+
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Align-corners bilinear resize of NCHW ``x`` to ``out_hw``, computed in f32."""
+    """Align-corners bilinear resize of NCHW ``x`` to ``out_hw``, computed in f32
+    (or wider)."""
     if tuple(x.shape[-2:]) == tuple(out_hw):
         return x
-    y = F.interpolate(x.float(), size=tuple(out_hw), mode="bilinear", align_corners=True)
+    y = F.interpolate(at_least_f32(x), size=tuple(out_hw), mode="bilinear", align_corners=True)
     return y.to(x.dtype)

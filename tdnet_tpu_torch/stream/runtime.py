@@ -17,11 +17,10 @@ import time
 import numpy as np
 import torch
 
+from tdnet_tpu_torch.data.streaming import IMAGENET_MEAN, IMAGENET_STD
 from tdnet_tpu_torch.models.tdnet import TDNet, init_cache, stream_step
 from tdnet_tpu_torch.ops import BatchNorm
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
 def sync(device: torch.device) -> None:

@@ -1,0 +1,122 @@
+"""The training step (``tdnet_tpu/train/trainer.py:make_train_state`` and
+``make_train_step``), f32.
+
+Loss recipe (reference td4_psp.py:367-374):
+  loss = CE(out) + 0.5 CE(out_sub) + 0.1 CE(auxout) + KD
+  KD   = KL(out_lowres || T_full) + 0.5 KL(out_sub_lowres || T_group[pos_id])
+at the c4 grid, the frozen teacher run on the current frame. One backward and
+one AdaOptimizer update per step; every parameter takes part in the update
+(a parameter the step did not reach gets a zero gradient, so that its weight
+decay and momentum run as optax runs them). The step's dropout draws come
+from a generator seeded by (seed, it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from tdnet_tpu_torch.models import TDNet, Teacher, apply_teacher, clip_forward, init_tdnet
+from tdnet_tpu_torch.nn import Ctx, step_generator
+from tdnet_tpu_torch.train.loss import cross_entropy, kl_divergence
+from tdnet_tpu_torch.train.optim import ada_optimizer
+
+RECIPE_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "configs", "td4_psp18_cityscapes.yml")
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: TDNet
+    optimizer: torch.optim.Optimizer
+    schedule: object
+    it: int = 0
+    seed: int = 0
+
+
+def make_train_state(model: TDNet, *, seed: int = 0,
+                     opt_kwargs: dict | None = None) -> TrainState:
+    """The model in train mode with its AdaOptimizer (``opt_kwargs`` over
+    ``ada_optimizer``'s defaults, the reference's recipe); ``seed`` seeds the
+    dropout of every step."""
+    opt, schedule = ada_optimizer(model.train(), **(opt_kwargs or {}))
+    return TrainState(model=model, optimizer=opt, schedule=schedule, seed=seed)
+
+
+def make_loss_of(*, loss_fn=None, use_dropout: bool = True):
+    """``loss_of(model, frames, labels, pos_id, generator, teacher=None)
+    -> (loss, kd)``; frames NHWC [P, n, H, W, 3] (oldest .. current), labels
+    [n, H, W]. ``use_dropout=False``: train-mode BN without dropout."""
+    if loss_fn is None:
+        loss_fn = lambda lg, lb: cross_entropy(lg, lb, 250)
+
+    def loss_of(model: TDNet, frames, labels, pos_id: int, generator, teacher=None):
+        ctx = Ctx(train=True, use_dropout=use_dropout, generator=generator)
+        res = clip_forward(model, frames, pos_id, ctx)
+        loss = loss_fn(res["out"], labels) + 0.5 * loss_fn(res["out_sub"], labels)
+        if model.cfg.aux:
+            loss = loss + 0.1 * loss_fn(res["auxout"], labels)
+        kd = torch.zeros((), device=loss.device)
+        if teacher is not None:
+            t_full, t_grp = apply_teacher(teacher, frames[-1], group_id=pos_id)
+            kd = (kl_divergence(res["out_lowres"], t_full)
+                  + 0.5 * kl_divergence(res["out_sub_lowres"], t_grp))
+            loss = loss + kd
+        return loss, kd
+
+    return loss_of
+
+
+def make_train_step(*, loss_fn=None, use_dropout: bool = True):
+    """``step(state, frames, labels, pos_id, teacher=None) -> {loss, kd, lr}``.
+    After the step each parameter's ``.grad`` holds this step's gradient."""
+    loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout)
+
+    def step(state: TrainState, frames, labels, pos_id: int, teacher: Teacher | None = None):
+        model, opt = state.model, state.optimizer
+        opt.zero_grad(set_to_none=False)
+        loss, kd = loss_of(model, frames, labels, pos_id,
+                           step_generator(state.seed, state.it), teacher)
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        lr = state.schedule(state.it)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.it += 1
+        return {"loss": loss.detach(), "kd": kd.detach(), "lr": lr}
+
+    return step
+
+
+def td4_full_recipe(*, seed: int = 0):
+    """The TD4-PSP18 full training recipe of ``configs/td4_psp18_cityscapes.yml``
+    (model, teacher, loss and optimizer sections: kv_stride 3, aux head, OHEM,
+    KD from a ResNet-101 teacher, AdaOptimizer) at its 769x1537 crop on one
+    card at batch 1, as ``bench_train.py:49-64`` runs it on the TPU, on seeded
+    random weights, frames and labels (a corner band at the ignore label 250).
+
+    Returns (state, step, teacher, frames [4, 1, H, W, 3], labels [1, H, W],
+    loss_fn), all on the card."""
+    from tdnet_tpu_torch.models import init_teacher
+    from tdnet_tpu_torch.utils.config import (load_config, loss_fn_from_yaml,
+                                              model_config_from_yaml, opt_kwargs_from_yaml,
+                                              teacher_config_from_yaml)
+    yml = load_config(RECIPE_YAML)
+    yml["training"]["batch_size"] = 1
+    cfg = model_config_from_yaml(yml)
+    model = init_tdnet(cfg, torch.Generator().manual_seed(seed)).to("cuda")
+    teacher = init_teacher(teacher_config_from_yaml(yml),
+                           torch.Generator().manual_seed(seed + 1)).to("cuda")
+    loss_fn = loss_fn_from_yaml(yml, n_devices=1)
+    state = make_train_state(model, seed=seed, opt_kwargs=opt_kwargs_from_yaml(yml))
+    gen = torch.Generator().manual_seed(seed + 2)
+    frames = torch.randn(cfg.path_num, 1, *cfg.in_size, 3, generator=gen).to("cuda")
+    labels = torch.randint(0, cfg.nclass, (1, *cfg.in_size), generator=gen)
+    labels[:, :64] = 250
+    labels[:, :, :32] = 250
+    return state, make_train_step(loss_fn=loss_fn), teacher, frames, labels.to("cuda"), loss_fn

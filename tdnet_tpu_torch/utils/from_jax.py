@@ -9,7 +9,9 @@ leaves with NHWC-era layouts:
 - BatchNorm {scale, bias, mean, var} -> {weight, bias, running_mean,
   running_var}; LayerNorm {scale, bias} stay [H, W] as {weight, bias};
 - the attention fc ``fc.w[0, 0]`` is [in, out], which is the orientation the
-  kernel takes (o @ W + b), so it is not transposed.
+  kernel takes (o @ W + b), so it is not transposed;
+- the teacher's tree (``tdnet_tpu.models.teacher.init_teacher``) is not
+  stacked and converts as it is.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from tdnet_tpu_torch.models.tdnet import TDNet, TDNetConfig
+from tdnet_tpu_torch.models.teacher import Teacher, TeacherConfig, freeze
 
 _BN_KEYS = {"scale", "bias", "mean", "var"}
 
@@ -30,10 +33,16 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _float_type(a):
+    """float64 leaves stay float64 (the float64 parity tests); the rest become
+    float32."""
+    return np.float64 if np.asarray(a).dtype == np.float64 else np.float32
+
+
 def convert_tree(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     """An unstacked JAX subtree (a backbone, a head, ...) -> state-dict entries."""
     out: dict[str, torch.Tensor] = {}
-    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    t = lambda a: torch.from_numpy(np.array(a, dtype=_float_type(a)))
     if isinstance(tree, dict):
         keys = set(tree)
         if keys == _BN_KEYS:
@@ -60,14 +69,18 @@ def convert_tree(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 def tdnet_state_from_jax(params: dict, cfg: TDNetConfig) -> dict[str, torch.Tensor]:
-    """The full params pytree -> a ``TDNet`` state dict (the aux head, a
-    training-only branch, is left out)."""
+    """The full params pytree (or a gradient tree of the same structure) -> a
+    ``TDNet`` state dict. The aux heads are carried when ``cfg.aux`` and left
+    out otherwise (the streaming model has none)."""
     state: dict[str, torch.Tensor] = {}
-    fc_w = np.asarray(params["atn"]["fc"]["w"], dtype=np.float32)  # [P, W, 1, 1, in, out]
-    fc_b = np.asarray(params["atn"]["fc"]["b"], dtype=np.float32)  # [P, W, out]
+    fc_w = params["atn"]["fc"]["w"]  # [P, W, 1, 1, in, out]
+    fc_b = params["atn"]["fc"]["b"]  # [P, W, out]
+    fc_w = np.asarray(fc_w, dtype=_float_type(fc_w))
+    fc_b = np.asarray(fc_b, dtype=_float_type(fc_b))
     for p in range(cfg.path_num):
         sub = _tree_map(lambda a: np.asarray(a)[p], params["paths"])
-        sub.pop("aux", None)
+        if not cfg.aux:
+            sub.pop("aux", None)
         state.update(convert_tree(sub, f"paths.{p}."))
         for h in range(cfg.window):
             state[f"atn.{p}.{h}.w"] = torch.from_numpy(fc_w[p, h, 0, 0].copy())
@@ -76,6 +89,19 @@ def tdnet_state_from_jax(params: dict, cfg: TDNetConfig) -> dict[str, torch.Tens
 
 
 def tdnet_from_jax(params: dict, cfg: TDNetConfig, device=None) -> TDNet:
+    """A trainable TDNet holding ``params`` (the Streamer sets eval itself)."""
     model = TDNet(cfg, device)
     model.load_state_dict(tdnet_state_from_jax(params, cfg))
-    return model.eval().requires_grad_(False)
+    return model
+
+
+def teacher_state_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``init_teacher``'s tree {backbone, psp, groups[p], head} -> a
+    ``Teacher`` state dict."""
+    return convert_tree(params)
+
+
+def teacher_from_jax(params: dict, cfg: TeacherConfig, device=None) -> Teacher:
+    teacher = Teacher(cfg, device)
+    teacher.load_state_dict(teacher_state_from_jax(params))
+    return freeze(teacher)

@@ -59,7 +59,7 @@ def test_batch_norm_eval(activation, residual, folded):
         jp = jops.fold_bn_eval({"bn": jp})["bn"]
     want = jops.batch_norm(jnp.asarray(x), jp, train=False, activation=activation,
                            residual=None if r is None else jnp.asarray(r))
-    bn = ops.BatchNorm(16)
+    bn = ops.BatchNorm(16).eval()   # a new module trains; this is the eval form
     with torch.no_grad():
         bn.weight.copy_(torch.from_numpy(p["scale"]))
         bn.bias.copy_(torch.from_numpy(p["bias"]))

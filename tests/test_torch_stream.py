@@ -98,6 +98,10 @@ def test_synthetic_frames_pan_a_seeded_scene():
     ("void at::native::(anonymous namespace)::adaptive_average_pool<float>(float const*, ...)",
      "adaptive pool"),
     ("Memcpy DtoD (Device -> Device)", "other"),
+    ("void (anonymous namespace)::dkdv_f32<true>(float const*, ...)",
+     "K2 training attention backward"),
+    ("void (anonymous namespace)::pv_f32<true>(float const*, ...)", "K1 propagation attention"),
+    ("(anonymous namespace)::dropout_vec4(float4 const*, ...)", "K3 dropout"),
 ])
 def test_kernel_family(name, family):
     assert kernel_family(name) == family
