@@ -36,16 +36,63 @@ Phases (any failure exits non-zero):
    8 steps with pos_id 0-3, every loss finite, 3 launches a step of each of K2
    forward, K2 backward, K3 forward and K3 backward; ms/step and peak memory;
    then the loss and every gradient of the kernel path against the plain path
-   (K2 and K3 both swapped for their plain versions) from the same state,
+   (K2 and K3 both swapped for their plain versions) from the recipe's seeded
+   initial state (the same in every run: the state after the timed steps
+   carries the nondeterministic backward's noise, and with it whether a ReLU
+   input sits within an f32 rounding of zero and flips between the paths),
    dropout off and then on (the same masks): the loss to 1e-4 relative; each
    gradient to 1e-3 x max(max|grad|, 1e-5 x the run's largest max|grad|), the
    floor for gradients that vanish in exact arithmetic (such as a bias before
    a BatchNorm), plus twice the kernel path's own run-to-run difference
    (cuDNN's and the upsampling's backward are nondeterministic); that
    run-to-run term must stay within 1e-2 x max|grad| on every gradient above
-   the floor.
+   the floor;
+10. the fused deep-base stem tail (K4) against its plain version (the unfused
+    cuDNN conv / BN / ReLU / max-pool sequence) at the TD2-PSP50 stem shape
+    [1, 64, 513, 1025], the PSP-101 one [1, 64, 385, 769] and a small ragged
+    one, f32 (TF32 off; 1e-4 x max|ref|) and bf16 (2e-2 x max|ref|: one bf16
+    ulp before a BN can carry through conv2); kernel and plain times and the
+    bound;
+11. TD2-PSP50 at 1025x2049 through ``Streamer(stem_impl="fused")``, in bf16
+    and in f32; one K4 launch a frame and K1's launches as in phase 5; in
+    each fused run, the stem tail of every frame, fused against plain with
+    the backbone that took the frame, on the run's weights (the runner's K4
+    layout), by phase 10's rules. The f32 logits against the plain-stem f32
+    stream to 1e-3 x max|logits|. In bf16 that check is the gate: the kernel
+    and cuDNN sum a conv in another order, so a few stem outputs round one
+    bf16 ulp apart, and the random-weight net spreads that as it spreads any
+    bf16 rounding, to about half of max|logits|, as far as the plain bf16
+    stream lies from f32; so the fused bf16 stream's distances from the
+    plain-stem bf16 stream (phase 5's) and from f32 are reported, not held
+    to a bound;
+12. PSP-101 at 769x1537 (``FrameRunner``, seeded weights, the 12 frames), f32
+    and bf16, the fused stem against the plain stem by phase 11's rules (the
+    stem tail of every frame; f32 logits to 1e-3 x max|logits|; bf16 logits
+    reported); one K4 launch a frame; latency, frames/s and peak memory;
+13. the dilated-conv kernel (K5) against its plain version at the recipe's
+    layer4 shapes (97x193 grid; 256->512 d4, 512->512 d4 and d8), f32 with
+    TF32 off: forward and dgrad to 5e-5 x max|ref|, and the autograd
+    function's output, dx and dW against ``F.conv2d`` autograd (dW 1e-4 x
+    max|ref|: a sum over 18,721 pixels); kernel, plain and cuDNN times
+    (``F.conv2d``, ``torch.nn.grad.conv2d_input``) and the bound;
+14. the phase-9 recipe with ``conv_wgrad="kernel"``: a warm-up step and 4
+    steps, every loss finite, 16 forward and 16 dgrad K5 launches a step,
+    ms/step and peak memory; then, from phase 9's initial state, dropout off
+    and on, the loss and every gradient of the K5 path and of the default
+    cuDNN path, each against the cuDNN path in float64 (K2 and K3 swapped for
+    their plain versions, which take float64; the same masks): the losses to
+    1e-4 relative, and each K5 gradient no farther from float64 than twice the
+    cuDNN one plus 1e-3 x max(max|grad|, floor). Phase 9's rule does not
+    apply here: K5 and cuDNN sum layer4's convs in other orders, and at
+    random init f32 gradients of the recipe move by up to a few percent of
+    max|grad| when one ReLU flips, on both paths alike. The evidence is
+    printed beside it: the farthest gradient from float64 of two more f32
+    variants, deterministic cuDNN and K5's plain version on the card, and
+    how many gradients' limits the cuDNN term dominates and how many K5
+    gradients needed it.
 The line before the last is one JSON object of the kernels: K1 per dtype (its
-error and times at the TD2 hop with the fc), K2 forward, K2 backward and K3,
+error and times at the TD2 hop with the fc), K2 forward, K2 backward, K3, K4
+per dtype (at the TD2 stem shape) and K5 forward and dgrad (at 512->512 d4),
 each with launches, error, times, library time and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -53,6 +100,7 @@ each with launches, error, times, library time and bound; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -66,6 +114,11 @@ SHAPES = [(1225, 1225), (18721, 1225), (33153, 2145), (700, 130)]   # (Lq, Lkv)
 TRAIN_SHAPES = [(2145, 2145), (18721, 2145)]   # the TD4 training hops (Lq, Lkv)
 DROP_ROWS = [18721, 2145]                       # K3's [rows, 512] on the training path
 TRAIN_STEPS = 8
+K5_STEPS = 4
+STEM_SHAPES = [(513, 1025), (385, 769), (21, 35)]   # K4's input (H, W): TD2, PSP-101, ragged
+K5_GRID = (97, 193)                                 # the recipe's c4 grid at 769x1537
+K5_SHAPES = [(256, 512, 4), (512, 512, 4), (512, 512, 8)]   # layer4's (ci, co, dilation)
+K5_HEADLINE = (512, 512, 4)
 GRAD_RTOL = 1e-3     # kernel path vs plain path, per gradient tensor, x max|grad|
 GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
 NOISE_LIMIT = 1e-2   # the largest 2 x run-to-run / max|grad| allowed above the floor
@@ -124,10 +177,11 @@ def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
 
 
 def phase_build() -> None:
-    from tdnet_tpu_torch.kernels import dropout, propagation_attention, \
-        propagation_attention_train
+    from tdnet_tpu_torch.kernels import dilated_conv, dropout, fused_stem, \
+        propagation_attention, propagation_attention_train
     from tdnet_tpu_torch.kernels.build import compile_libraries
-    mods = (propagation_attention, propagation_attention_train, dropout)
+    mods = (propagation_attention, propagation_attention_train, dropout, fused_stem,
+            dilated_conv)
     t0 = time.perf_counter()
     compile_libraries({m.__name__.rsplit(".", 1)[1]: m.SOURCES for m in mods})
     log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} in "
@@ -223,37 +277,93 @@ def check_close(tag, got, want, frac, what):
         f"{worst[2]:.4e} ({frac:g} x max|logits|), {worst[0]:.3f} of it")
 
 
-def run_stream(arch, in_size, dtype, frames, card, tag, kernel=True):
-    """Stream the frames through a fresh seeded model; returns (logits on the
-    host, launches). The peak memory is the stream's own: weights, cache and
-    activations, not the frames. ``kernel=False``: the attention is the plain
-    version, which launches nothing."""
+def drive(make_runner, frames, card, tag, what):
+    """Step the frames one at a time through the runner ``make_runner()``
+    builds, then once pipelined; returns (logits on the host, K1 launches, K4
+    launches) of the stepped run. The peak memory is the run's own: weights,
+    cache and activations, not the frames."""
+    from tdnet_tpu_torch.kernels.fused_stem import fused_stem_tail
     from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
-    from tdnet_tpu_torch.models import init_tdnet, tdnet_config
-    from tdnet_tpu_torch.stream.runtime import Streamer
-    cfg = tdnet_config(arch, in_size=in_size)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    model = init_tdnet(cfg, torch.Generator().manual_seed(SEED)).to("cuda")
-    streamer = Streamer(model, dtype=dtype)
+    runner = make_runner()
     fused_propagation_attention.launches = 0
-    outs = [streamer.step(f)[0].cpu() for f in frames]
-    launches = fused_propagation_attention.launches
+    fused_stem_tail.launches = 0
+    outs = [runner.step(f)[0].cpu() for f in frames]
+    launches = (fused_propagation_attention.launches, fused_stem_tail.launches)
+    if runner.ctx.stem_impl == "fused":
+        check_stem(tag, runner, frames)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    cfg = runner.cfg
     for o in outs:
-        if o.shape != (1, *in_size, cfg.nclass) or not torch.isfinite(o).all():
+        if o.shape != (1, *cfg.in_size, cfg.nclass) or not torch.isfinite(o).all():
             raise AssertionError(f"{tag}: bad logits {tuple(o.shape)}")
-    streamer.reset()
-    _, spf = streamer.run_pipelined(frames)
-    log(f"[{tag}] {arch} {in_size[0]}x{in_size[1]} {str(dtype)[6:]} ({card}): hard-synced "
-        f"latency {streamer.meter.avg * 1e3:.2f} ms/frame (frames 7-{N_FRAMES}), pipelined "
-        f"{1.0 / spf:.2f} frames/s, peak memory {peak:.0f} MiB, kernel launches {launches}")
-    warm = N_FRAMES - cfg.window
-    expected = cfg.window * warm if kernel else 0
-    if launches != expected:
-        raise AssertionError(f"{tag}: {launches} kernel launches, expected {expected}")
-    return outs, launches
+    runner.reset()
+    _, spf = runner.run_pipelined(frames)
+    log(f"[{tag}] {what} {cfg.in_size[0]}x{cfg.in_size[1]} {str(runner.dtype)[6:]} stem "
+        f"{runner.ctx.stem_impl} ({card}): hard-synced latency {runner.meter.avg * 1e3:.2f} "
+        f"ms/frame (frames 7-{N_FRAMES}), pipelined {1.0 / spf:.2f} frames/s, peak memory "
+        f"{peak:.0f} MiB, launches K1 {launches[0]} K4 {launches[1]}")
+    return outs, *launches
 
+
+def report_bf16_stream(tag, fused, plain, ref, what):
+    """How far the fused bf16 stream lies from the plain-stem bf16 stream and
+    from ``ref`` (the f32 stream), beside the plain bf16 stream's own
+    distance from it: a report; the stem check inside the run is the gate."""
+    dist = lambda xs, ys: max((a.float() - r.float()).abs().max().item() for a, r in zip(xs, ys))
+    d_fused, d_plain = dist(fused, ref), dist(plain, ref)
+    log(f"[{tag}] {what} logits (report): fused vs plain {dist(fused, plain):.4e}; distance "
+        f"from f32: fused {d_fused:.4e}, plain {d_plain:.4e} ({d_fused / d_plain:.3f} of it); "
+        f"max|f32 logits| {max(r.float().abs().max().item() for r in ref):.4e}")
+
+
+def check_stem(tag, runner, frames) -> None:
+    """K4 inside a fused run: the stem tail of every frame, fused against
+    plain, with the backbone that took the frame (path ``i % path_num`` of a
+    TDNet) on the run's weights (BNs folded, the runner's K4 layout), by
+    phase 10's rules."""
+    from tdnet_tpu_torch.ops import max_pool
+    model = runner.model
+    backbones = [p.backbone for p in model.paths] if hasattr(model, "paths") \
+        else [model.backbone]
+    frac = 2e-2 if runner.dtype == torch.bfloat16 else 1e-4
+    worst = 0.0
+    with torch.inference_mode():
+        for i, f in enumerate(frames):
+            bb = backbones[i % len(backbones)]
+            x = f.to(runner.dtype).permute(0, 3, 1, 2).contiguous()
+            got = bb.stem.fused(x, bb.bn1)
+            want = max_pool(bb.bn1(bb.stem(x), "relu"), 3, 2, 1)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = frac * want.float().abs().max().item()
+            worst = max(worst, err / tol)
+            if not (got.shape == want.shape and err <= tol):
+                raise AssertionError(f"[{tag}] frame {i}: stem tail in the run, fused vs plain "
+                                     f"{err} > {tol}")
+    log(f"[{tag}] stem tail of all {len(frames)} frames in the run ({len(backbones)} "
+        f"backbone(s)), fused vs plain: worst {worst:.3f} of {frac:g} x max|ref|")
+
+
+def run_stream(arch, in_size, dtype, frames, card, tag, kernel=True, stem_impl="plain"):
+    """Stream the frames through a fresh seeded TDNet; returns (logits on the
+    host, K1 launches, K4 launches). ``kernel=False``: the attention is the
+    plain version, which launches nothing."""
+    from tdnet_tpu_torch.models import init_tdnet, tdnet_config
+    from tdnet_tpu_torch.nn import BACKBONES
+    from tdnet_tpu_torch.stream.runtime import Streamer
+    cfg = tdnet_config(arch, in_size=in_size)
+    deep_base = BACKBONES[cfg.backbone]().deep_base
+    outs, launches, stem_launches = drive(
+        lambda: Streamer(init_tdnet(cfg, torch.Generator().manual_seed(SEED)).to("cuda"),
+                         dtype=dtype, stem_impl=stem_impl), frames, card, tag, arch)
+    warm = N_FRAMES - cfg.window
+    expected = (cfg.window * warm if kernel else 0,
+                N_FRAMES if stem_impl == "fused" and deep_base else 0)
+    if (launches, stem_launches) != expected:
+        raise AssertionError(f"{tag}: K1 / K4 launches {launches} / {stem_launches}, expected "
+                             f"{expected[0]} / {expected[1]}")
+    return outs, launches, stem_launches
 
 
 def phase_train_build() -> None:
@@ -405,10 +515,11 @@ def _loss_and_grads(model, loss_of, frames, labels, pos_id, teacher):
                          if p.grad is not None}
 
 
-def compare_paths(loss_of, model, frames, labels, teacher, use_dropout: bool) -> None:
+def compare_paths(loss_of, model, start, frames, labels, teacher, use_dropout: bool) -> None:
     """The kernel path's loss and gradients against the plain path's from the
-    same state and the same step generator (so the same dropout masks)."""
+    state ``start`` and the same step generator (so the same dropout masks)."""
     pos_id = 1
+    model.load_state_dict(start)
     run = lambda: _loss_and_grads(model, loss_of, frames, labels, pos_id, teacher)
     loss_a, ga = run()
     loss_b, gb = run()
@@ -443,14 +554,20 @@ def compare_paths(loss_of, model, frames, labels, teacher, use_dropout: bool) ->
                              f"{noisiest[1]} is above {NOISE_LIMIT:g}")
 
 
-def phase_train(card: str) -> dict:
-    """The full recipe's train step; returns the per-kernel launches of the
-    8 measured steps."""
+def phase_train(card: str):
+    """The full recipe's train step; returns the recipe (state, its initial
+    state dict, teacher, frames, labels, loss_fn) and the per-kernel launches
+    of the 8 measured steps."""
     from tdnet_tpu_torch.kernels.dropout import dropout
     from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
     from tdnet_tpu_torch.train.trainer import make_loss_of, td4_full_recipe
     state, step, teacher, frames, labels, loss_fn = td4_full_recipe(seed=SEED)
     model, cfg = state.model, state.model.cfg
+    # the paths are compared from the seeded initial state: the state after the
+    # timed steps carries the noise of cuDNN's and the upsampling's
+    # nondeterministic backward, so whether some ReLU input sits within an f32
+    # rounding of zero, and flips between the paths, would change from run to run
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     in_size = cfg.in_size
     log(f"[9] TD4-PSP18 full recipe {in_size[0]}x{in_size[1]} b1 f32 ({card}): kv_stride "
         f"{cfg.kv_stride}, aux, OHEM n_min {in_size[0] * in_size[1] // 16}, KD from ResNet-101, "
@@ -487,9 +604,240 @@ def phase_train(card: str) -> dict:
         raise AssertionError(f"[9] launches {launches}, expected {3 * TRAIN_STEPS} of each")
 
     for use_dropout in (False, True):
-        compare_paths(make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout), model, frames,
-                      labels, teacher, use_dropout)
-    return dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3])
+        loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout)
+        compare_paths(loss_of, model, start, frames, labels, teacher, use_dropout)
+    return ((state, start, teacher, frames, labels, loss_fn),
+            dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3]))
+
+
+def phase_stem_kernel(card: str) -> dict:
+    """K4 against its plain version; returns the kernels entries' numbers (at
+    the TD2 stem shape) per dtype."""
+    from tdnet_tpu_torch.kernels.fused_stem import fused_stem_plain, fused_stem_tail, stem_tail
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    log(f"[10] fused stem kernel vs plain ({card}); tolerances: f32 1e-4, bf16 2e-2 x max|ref|")
+    head = {}
+    for h, w in STEM_SHAPES:
+        x = torch.randn(1, 64, h, w, generator=gen).relu_().to(dev)
+        w1 = (torch.randn(64, 64, 3, 3, generator=gen) * 0.06).to(dev)
+        w2 = (torch.randn(128, 64, 3, 3, generator=gen) * 0.06).to(dev)
+        sb1, sb2 = (torch.stack([torch.rand(c, generator=gen) + 0.5,
+                                 torch.randn(c, generator=gen) * 0.1]).to(dev) for c in (64, 128))
+        for dtype, frac in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = (x.to(dtype), w1.to(dtype), sb1, w2.to(dtype), sb2)
+            tail = stem_tail(*args[1:])   # laid out once, as a runner does
+            got = fused_stem_tail(args[0], tail)
+            torch.cuda.synchronize()
+            ref = fused_stem_plain(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = frac * ref.float().abs().max().item()
+            if not (got.shape == ref.shape and np.isfinite(err) and err <= tol):
+                raise AssertionError(f"[10] K4 disagrees at {h}x{w} {dtype}: max abs err {err} "
+                                     f"> {tol}")
+            ms = median_ms(lambda: fused_stem_tail(args[0], tail))
+            plain_ms = median_ms(lambda: fused_stem_plain(*args))
+            hp, wp = (h + 1) // 2, (w + 1) // 2
+            es = got.element_size()
+            flops = 2 * h * w * 9 * 64 * (64 + 128)
+            nbytes = es * (64 * h * w + 128 * hp * wp + 9 * 64 * (64 + 128)) + 4 * 2 * (64 + 128)
+            b = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            log(f"[10] [1, 64, {h}, {w}] {name:4s} max_abs_err {err:.3e} (tol {tol:.3e})  kernel "
+                f"{ms:.3f} ms  plain (cuDNN conv sequence) {plain_ms:.3f} ms  bound "
+                f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+            if (h, w) == STEM_SHAPES[0]:
+                head[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+            del got, ref, args, tail
+    return head
+
+
+def phase_psp101(card: str) -> dict:
+    """PSP-101 over the 12 frames, fused stem against plain stem, f32 and
+    bf16; returns the fused runs' K4 launches per dtype."""
+    from tdnet_tpu_torch.models import STREAM_SIZE, PSPNet, PSPNetConfig, init_pspnet
+    from tdnet_tpu_torch.stream.runtime import FrameRunner
+    cfg = PSPNetConfig(backbone="resnet101", in_size=STREAM_SIZE["psp101"])
+    state = init_pspnet(cfg, torch.Generator().manual_seed(SEED)).state_dict()
+
+    def make(dtype, stem_impl):
+        net = PSPNet(cfg, "cuda")
+        net.load_state_dict(state)
+        return FrameRunner(net, dtype=dtype, stem_impl=stem_impl)
+
+    runs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        frames = stream_frames(cfg.in_size, dtype)
+        for stem_impl in ("fused", "plain"):
+            run = drive(lambda: make(dtype, stem_impl), frames, card, "12", "psp101")
+            want = (0, N_FRAMES if stem_impl == "fused" else 0)
+            if run[1:] != want:
+                raise AssertionError(f"[12] {stem_impl} stem: K1 / K4 launches {run[1:]}, "
+                                     f"expected {want}")
+            runs[name, stem_impl] = run
+        del frames
+    check_close("12", runs["f32", "fused"][0], runs["f32", "plain"][0], 1e-3,
+                "fused-stem vs plain-stem f32")
+    report_bf16_stream("12", runs["bf16", "fused"][0], runs["bf16", "plain"][0],
+                      runs["f32", "plain"][0], "fused-stem vs plain-stem bf16")
+    return {name: runs[name, "fused"][2] for name in ("f32", "bf16")}
+
+
+def phase_dilated_conv(card: str) -> dict:
+    """K5 against its plain version and cuDNN; returns the kernels entries'
+    numbers (at ``K5_HEADLINE``) for the forward and the dgrad."""
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil, dilated_conv_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    h, w = K5_GRID
+    log(f"[13] dilated conv kernel vs plain and cuDNN ({card}) at {h}x{w}; tolerances: output "
+        f"and dx 5e-5, dW 1e-4 x max|ref|")
+    errs = dict(fwd=0.0, dgrad=0.0)
+    head = {}
+    for ci, co, d in K5_SHAPES:
+        x = torch.randn(1, ci, h, w, generator=gen).to(dev)
+        wt = (torch.randn(co, ci, 3, 3, generator=gen) / (9 * ci) ** 0.5).to(dev)
+        dy = torch.randn(1, co, h, w, generator=gen).to(dev)
+        xg, wg = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+        y = conv2d_dil(xg, wg, d, d)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        xc, wc = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+        yc = F.conv2d(xc, wc, padding=d, dilation=d)
+        yc.backward(dy)
+        w_flip = torch.flip(wt, (2, 3)).transpose(0, 1)
+        checks = {  # name: (got, want, fraction of max|want|)
+            "fwd vs plain": (y, dilated_conv_plain(x, wt, d, d), 5e-5),
+            "dgrad vs plain": (xg.grad, dilated_conv_plain(dy, w_flip, d, d), 5e-5),
+            "fwd vs cuDNN": (y, yc, 5e-5),
+            "dx vs cuDNN": (xg.grad, xc.grad, 5e-5),
+            "dW vs cuDNN": (wg.grad, wc.grad, 1e-4)}
+        found = {}
+        for name, (got, want, frac) in checks.items():
+            err = (got.detach() - want.detach()).abs().max().item()
+            tol = frac * want.abs().max().item()
+            found[name] = f"{err:.2e} (tol {tol:.2e})"
+            if not (got.shape == want.shape and err <= tol):
+                raise AssertionError(f"[13] K5 {ci}->{co} d{d}: {name} max abs err {err} > {tol}")
+            if name.endswith("vs plain"):
+                part = name.split()[0]
+                errs[part] = max(errs[part], err)
+        log(f"[13] {ci}->{co} d{d} max abs err: " + ", ".join(f"{k} {v}" for k, v in found.items()))
+        del y, yc, checks
+
+        x_dg = x.clone().requires_grad_(True)
+        y_dg = conv2d_dil(x_dg, wt, d, d)   # only x needs a gradient: the backward is the dgrad
+        with torch.no_grad():
+            t = dict(fwd=(median_ms(lambda: conv2d_dil(x, wt, d, d)),
+                          median_ms(lambda: dilated_conv_plain(x, wt, d, d)),
+                          median_ms(lambda: F.conv2d(x, wt, padding=d, dilation=d))))
+        t["dgrad"] = (
+            median_ms(lambda: torch.autograd.grad(y_dg, x_dg, dy, retain_graph=True)),
+            median_ms(lambda: dilated_conv_plain(dy, torch.flip(wt, (2, 3)).transpose(0, 1), d, d)),
+            median_ms(lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=d, dilation=d)))
+        del y_dg, x_dg
+        b = bound(2 * h * w * 9 * ci * co, 4 * (ci * h * w + co * h * w + 9 * ci * co), PEAK_F32)
+        for part in ("fwd", "dgrad"):
+            log(f"[13] {ci}->{co} d{d} {part:5s} ms: kernel {t[part][0]:.3f}, plain "
+                f"{t[part][1]:.3f}, cuDNN {t[part][2]:.3f}; bound {b['bound_ms']:.3f} ms by "
+                f"{b['bound_by']}")
+        if (ci, co, d) == K5_HEADLINE:
+            head = {part: dict(ms=t[part][0], plain_ms=t[part][1], library_ms=t[part][2], **b)
+                    for part in ("fwd", "dgrad")}
+    return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
+
+
+def phase_train_k5(card: str, state, start, teacher, frames, labels, loss_fn) -> dict:
+    """The recipe with the dilated convs through K5; returns the forward and
+    dgrad launches of the measured steps."""
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
+    from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step
+    step = make_train_step(loss_fn=loss_fn, conv_wgrad="kernel")
+    model, cfg = state.model, state.model.cfg
+    t0 = time.perf_counter()
+    m = step(state, frames, labels, 0, teacher)
+    torch.cuda.synchronize()
+    log(f"[14] TD4-PSP18 full recipe, conv_wgrad=kernel ({card}): warm-up step loss "
+        f"{m['loss'].item():.5f} ({time.perf_counter() - t0:.2f} s)")
+    conv2d_dil.launches = conv2d_dil.backward_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(K5_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, frames, labels, i % cfg.path_num, teacher)
+        loss = m["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss) or not np.isfinite(m["kd"].item()):
+            raise AssertionError(f"[14] step {i}: loss {loss}, kd {m['kd'].item()}")
+    launches = dict(fwd=conv2d_dil.launches, dgrad=conv2d_dil.backward_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[14] {K5_STEPS} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; median "
+        f"{float(np.median(times)):.1f} ms/step (min {min(times):.1f}, max {max(times):.1f}); "
+        f"peak memory {peak:.0f} MiB; K5 launches fwd/dgrad {launches['fwd']}/{launches['dgrad']}")
+    want = 4 * cfg.path_num * K5_STEPS   # 4 dilated convs in each path's layer4
+    if launches != dict(fwd=want, dgrad=want):
+        raise AssertionError(f"[14] K5 launches {launches}, expected {want} of each")
+    model64, teacher64 = copy.deepcopy(model).double(), copy.deepcopy(teacher).double()
+    for use_dropout in (False, True):
+        compare_with_f64(make_loss_of, loss_fn, model, model64, start, (teacher, teacher64),
+                         frames, labels, use_dropout)
+    return launches
+
+
+def compare_with_f64(make_loss_of, loss_fn, model, model64, start, teachers, frames, labels,
+                     use_dropout: bool) -> None:
+    """The K5 path's and the cuDNN path's loss and gradients, each against the
+    cuDNN path's in float64, from the state ``start``; beside them, the
+    distances from float64 of deterministic cuDNN and of K5's plain version."""
+    from tdnet_tpu_torch.kernels import dilated_conv
+    pos_id = 1
+
+    def run(m, teacher, x, conv_wgrad):
+        m.load_state_dict(start)
+        loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad)
+        return _loss_and_grads(m, loss_of, x, labels, pos_id, teacher)
+
+    loss_k, gk = run(model, teachers[0], frames, "kernel")
+    loss_c, gc = run(model, teachers[0], frames, "cudnn")
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        _, g_det = run(model, teachers[0], frames, "cudnn")
+    plain_k5 = lambda x, w, p, d, counter: dilated_conv.dilated_conv_plain(x, w, p, d)
+    with swapped(dilated_conv, "_forward", plain_k5):
+        _, g_plain = run(model, teachers[0], frames, "kernel")
+    with plain_train_kernels():
+        loss_d, gd = run(model64, teachers[1], frames.double(), "cudnn")
+    rel = max(abs(loss_k - loss_d), abs(loss_c - loss_d)) / abs(loss_d)
+    if set(gk) != set(gd) or set(gc) != set(gd) or not rel <= 1e-4:
+        raise AssertionError(f"[14] losses K5 {loss_k}, cuDNN {loss_c}, float64 {loss_d}")
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in gd.values())
+    worst = (0.0, "")
+    farthest = {name: (0.0, "") for name in ("cuDNN", "deterministic cuDNN", "plain K5")}
+    cudnn_term, needed = 0, 0
+    for k, g in gd.items():
+        scale = max(g.abs().max().item(), floor)
+        dist = lambda grads: (grads[k].double() - g).abs().max().item()
+        e_k5, e_cudnn = dist(gk), dist(gc)
+        limit = 2 * e_cudnn + GRAD_RTOL * scale
+        if not e_k5 <= limit:
+            raise AssertionError(f"[14] gradient {k}: K5 path {e_k5:.3e} from float64, cuDNN "
+                                 f"path {e_cudnn:.3e}, max(max|grad|, floor) {scale:.3e}")
+        worst = max(worst, (e_k5 / limit, k))
+        for name, e in (("cuDNN", e_cudnn), ("deterministic cuDNN", dist(g_det)),
+                        ("plain K5", dist(g_plain))):
+            farthest[name] = max(farthest[name], (e / scale, k))
+        cudnn_term += 2 * e_cudnn > GRAD_RTOL * scale
+        needed += e_k5 > GRAD_RTOL * scale
+    log(f"[14] K5 path and cuDNN path vs float64 (dropout {'on' if use_dropout else 'off'}, "
+        f"pos_id {pos_id}): loss {loss_k:.6f} / {loss_c:.6f} / {loss_d:.6f} (largest rel "
+        f"{rel:.2e}); {len(gd)} gradients, floor {floor:.2e}; worst K5 gradient "
+        f"{worst[0]:.3f} of its limit ({worst[1]}); the limit is mostly the cuDNN term on "
+        f"{cudnn_term} of {len(gd)}, and {needed} K5 gradients lie beyond {GRAD_RTOL:g} x "
+        f"max(max|grad|, floor)")
+    log("[14] farthest gradient from float64, x max(max|grad|, floor): " + "; ".join(
+        f"{name} {e:.2e} ({k})" for name, (e, k) in farthest.items()))
 
 
 def main() -> int:
@@ -502,36 +850,54 @@ def main() -> int:
     from tdnet_tpu_torch.models import STREAM_SIZE
     td4, td2 = STREAM_SIZE["td4-psp18"], STREAM_SIZE["td2-psp50"]
     f32_frames = stream_frames(td4, torch.float32)
-    outs32, n32 = run_stream("td4-psp18", td4, torch.float32, f32_frames, card, "3")
+    outs32, n32, _ = run_stream("td4-psp18", td4, torch.float32, f32_frames, card, "3")
     with plain_attention():
-        plain, _ = run_stream("td4-psp18", td4, torch.float32, f32_frames, card, "3-plain",
-                              kernel=False)
+        plain, _, _ = run_stream("td4-psp18", td4, torch.float32, f32_frames, card, "3-plain",
+                                 kernel=False)
     check_close("3", outs32, plain, 1e-3, "kernel-path vs plain-attention f32")
     del plain, f32_frames
 
     bf16_frames = stream_frames(td4, torch.bfloat16)
-    outs16, n16 = run_stream("td4-psp18", td4, torch.bfloat16, bf16_frames, card, "4")
+    outs16, n16, _ = run_stream("td4-psp18", td4, torch.bfloat16, bf16_frames, card, "4")
     with plain_attention():
-        plain, _ = run_stream("td4-psp18", td4, torch.bfloat16, bf16_frames, card, "4-plain",
-                              kernel=False)
+        plain, _, _ = run_stream("td4-psp18", td4, torch.bfloat16, bf16_frames, card, "4-plain",
+                                 kernel=False)
     check_close("4", outs16, plain, 3e-2, "kernel-path vs plain-attention bf16")
     check_close("4", outs16, outs32, 5e-2, "bf16 vs f32")
     del outs16, outs32, plain, bf16_frames
 
     td2_frames = stream_frames(td2, torch.bfloat16)
-    outs2, n2 = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames, card, "5")
+    outs2, n2, _ = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames, card, "5")
     with plain_attention():
-        plain, _ = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames, card, "5-plain",
-                              kernel=False)
+        plain, _, _ = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames, card, "5-plain",
+                                 kernel=False)
     check_close("5", outs2, plain, 3e-2, "kernel-path vs plain-attention bf16")
 
     launches = {"f32": n32, "bf16": n16 + n2}
-    del outs2, plain, td2_frames
+    del plain, td2_frames
 
     phase_train_build()
     k2 = phase_train_attention(card)
     k3 = phase_dropout(card)
-    train_launches = phase_train(card)
+    recipe, train_launches = phase_train(card)
+
+    k4 = phase_stem_kernel(card)
+    stem_launches = {"f32": 0, "bf16": 0}
+    td2_frames = stream_frames(td2, torch.bfloat16)
+    fused2, _, stem_launches["bf16"] = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames,
+                                                  card, "11", stem_impl="fused")
+    td2_frames = stream_frames(td2, torch.float32)
+    fused32, _, stem_launches["f32"] = run_stream("td2-psp50", td2, torch.float32, td2_frames,
+                                                  card, "11-f32", stem_impl="fused")
+    plain32, _, _ = run_stream("td2-psp50", td2, torch.float32, td2_frames, card,
+                               "11-f32-plain")
+    check_close("11", fused32, plain32, 1e-3, "fused-stem vs plain-stem f32")
+    report_bf16_stream("11", fused2, outs2, plain32, "fused-stem vs plain-stem bf16")
+    del fused2, outs2, fused32, plain32, td2_frames
+    for name, n in phase_psp101(card).items():
+        stem_launches[name] += n
+    k5 = phase_dilated_conv(card)
+    k5_launches = phase_train_k5(card, *recipe)
 
     src = "tdnet_tpu_torch/csrc/"
     entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",
@@ -550,6 +916,13 @@ def main() -> int:
         {"name": "dropout", "route": "cuda", "source": src + "dropout.cu",
          "replaces": "tdnet_tpu/kernels/dropout.py:38",
          "launches": train_launches["drop"], **k3}]
+    entries += [{"name": f"fused_stem_{dt}", "route": "cuda", "source": src + "fused_stem.cu",
+                 "replaces": "tdnet_tpu/kernels/fused_stem.py:199",
+                 "launches": stem_launches[dt], **k4[dt]} for dt in ("f32", "bf16")]
+    entries += [{"name": f"dilated_conv_{part}", "route": "cuda",
+                 "source": src + "dilated_conv.cu",
+                 "replaces": "tdnet_tpu/kernels/dilated_conv.py:87",
+                 "launches": k5_launches[part], **k5[part]} for part in ("fwd", "dgrad")]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

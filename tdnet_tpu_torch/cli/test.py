@@ -1,11 +1,14 @@
-"""Streaming inference CLI for the TDNet models on one device.
+"""Streaming inference CLI for the TDNet models and the PSPNet-101 baseline
+on one device.
 
 Mirrors ``python Testing/test.py`` (reference Testing/test.py:85-110):
-round-robin streaming over a frame directory, colorized quarter-resolution
-PNG outputs, and per-frame latency with the 6-frame warm-up excluded.
+round-robin streaming over a frame directory (``--model psp101``: one
+PSPNet-101 forward per frame), colorized quarter-resolution PNG outputs, and
+per-frame latency with the 6-frame warm-up excluded. ``--stem_impl fused``
+runs the deep-base stems (TD2-PSP50, PSP-101) through the fused stem kernel.
 
     python -m tdnet_tpu_torch.cli.test --img_path frames/ --output_path out/ \\
-        --model td4-psp18 --device cuda --dtype bfloat16
+        --model td2-psp50 --device cuda --dtype bfloat16 --stem_impl fused
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-NOT_PORTED = ("psp101", "td2-fa")
+NOT_PORTED = ("td2-fa",)
 
 
 def main(argv=None):
@@ -29,12 +32,17 @@ def main(argv=None):
                         default="./checkpoint/td4-psp18.pkl")
     parser.add_argument("--_td2_psp50_path", nargs="?", type=str,
                         default="./checkpoint/td2-psp50.pkl")
+    parser.add_argument("--_psp101_path", nargs="?", type=str,
+                        default="./checkpoint/psp101.pkl")
     parser.add_argument("--model", nargs="?", type=str, default="td4-psp18",
-                        help="model in [td4-psp18, td2-psp50]")
+                        help="model in [td4-psp18, td2-psp50, psp101]")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--in_size", type=int, nargs=2, default=[769, 1537])
+    parser.add_argument("--stem_impl", type=str, default="plain", choices=["plain", "fused"],
+                        help="'fused': the deep-base stem's tail through the fused kernel "
+                             "(TD2-PSP50, PSP-101; eval)")
     parser.add_argument("--no_save", action="store_true")
     parser.add_argument("--dataset", type=str, default="cityscapes",
                         choices=["cityscapes", "camvid", "nyud2", "nyudv2"],
@@ -49,8 +57,8 @@ def main(argv=None):
         raise NotImplementedError(f"{what} is not ported to tdnet_tpu_torch yet")
 
     from tdnet_tpu_torch.data.streaming import DATASET_META, FrameSource, decode_segmap
-    from tdnet_tpu_torch.models import init_tdnet, tdnet_config
-    from tdnet_tpu_torch.stream.runtime import Streamer
+    from tdnet_tpu_torch.models import PSPNetConfig, init_pspnet, init_tdnet, tdnet_config
+    from tdnet_tpu_torch.stream.runtime import FrameRunner, Streamer
 
     in_size = tuple(args.in_size)
     nclass, palette = DATASET_META[args.dataset]
@@ -58,22 +66,29 @@ def main(argv=None):
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     ckpt_path = {"td4-psp18": args._td4_psp18_path,
-                 "td2-psp50": args._td2_psp50_path}[args.model]
+                 "td2-psp50": args._td2_psp50_path,
+                 "psp101": args._psp101_path}[args.model]
     if ckpt_path and os.path.isfile(ckpt_path):
         raise NotImplementedError(
             f"loading reference checkpoints ({ckpt_path}) is not ported to tdnet_tpu_torch yet")
     print(f"No pretrained found at '{ckpt_path}'")
 
-    cfg = tdnet_config(args.model, nclass=nclass, in_size=in_size)
-    model = init_tdnet(cfg, torch.Generator().manual_seed(0)).to(device)
-    streamer = Streamer(model, dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    if args.model == "psp101":
+        cfg = PSPNetConfig(nclass=nclass, backbone="resnet101", in_size=in_size)
+        runner = FrameRunner(init_pspnet(cfg, gen).to(device), dtype=dtype,
+                               stem_impl=args.stem_impl)
+    else:
+        cfg = tdnet_config(args.model, nclass=nclass, in_size=in_size)
+        runner = Streamer(init_tdnet(cfg, gen).to(device), dtype=dtype,
+                            stem_impl=args.stem_impl)
     os.makedirs(args.output_path, exist_ok=True)
     # quarter-resolution nearest-neighbour sampling grid
     rows = np.arange(in_size[0] // 4) * in_size[0] // (in_size[0] // 4)
     cols = np.arange(in_size[1] // 4) * in_size[1] // (in_size[1] // 4)
 
     for i, (x, img_name, folder, _) in enumerate(FrameSource(args.img_path, in_size)):
-        out, dt = streamer.step(torch.from_numpy(x))
+        out, dt = runner.step(torch.from_numpy(x))
         if not args.no_save:
             import imageio.v2 as imageio
             pred = out[0].argmax(-1).to(torch.uint8).cpu().numpy()
@@ -83,7 +98,7 @@ def main(argv=None):
                             decode_segmap(pred[rows][:, cols], palette))
         print(" Frame {0:2d}   RunningTime/Latency={1:3.5f} s".format(i + 1, dt))
 
-    meter = streamer.meter
+    meter = runner.meter
     print("---------------------")
     print(" Model: {0:s}".format(args.model))
     print(" Average  RunningTime/Latency={0:3.5f} s  ({1:.1f} FPS)".format(meter.avg, meter.fps))

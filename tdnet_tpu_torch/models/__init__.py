@@ -3,6 +3,7 @@ Training/ptsemseg/models/__init__.py:34-44)."""
 
 from __future__ import annotations
 
+from tdnet_tpu_torch.models.pspnet import PSPNet, PSPNetConfig, apply_pspnet, init_pspnet
 from tdnet_tpu_torch.models.tdnet import (StreamCache, SubNet, TDNet, TDNetConfig,
                                           backbone_feat_hw, clip_forward, init_cache,
                                           init_subnet, init_tdnet, stream_step)
@@ -16,8 +17,8 @@ _PRESETS = {
     "td2_psp": dict(backbone="resnet50", path_num=2),
 }
 
-# the slice's streaming sizes (bench.py's geometry)
-STREAM_SIZE = {"td4-psp18": (769, 1537), "td2-psp50": (1025, 2049)}
+# the streaming sizes (bench.py's geometry; PSP-101 at the reference's evaluation size)
+STREAM_SIZE = {"td4-psp18": (769, 1537), "td2-psp50": (1025, 2049), "psp101": (769, 1537)}
 
 
 def tdnet_config(arch: str, nclass: int = 19, in_size: tuple[int, int] = (769, 1537),
@@ -41,4 +42,5 @@ __all__ = [
     "STREAM_SIZE", "StreamCache", "SubNet", "TDNet", "TDNetConfig", "backbone_feat_hw",
     "clip_forward", "init_cache", "init_subnet", "init_tdnet", "stream_step", "tdnet_config",
     "Teacher", "TeacherConfig", "apply_teacher", "freeze", "init_teacher",
+    "PSPNet", "PSPNetConfig", "apply_pspnet", "init_pspnet",
 ]

@@ -173,13 +173,14 @@ def _hop_chain(atn_p, ks, vs, qs, q_cur, cfg: TDNetConfig, ctx: Ctx | None = Non
 
 
 def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
-                cfg: TDNetConfig, pid: int) -> torch.Tensor:
+                cfg: TDNetConfig, pid: int, ctx: Ctx) -> torch.Tensor:
     """One frame through one sub-network; updates ``cache`` in place.
 
     ``img`` is NHWC [n, H, W, 3]; returns logits NHWC [n, H, W, nclass].
+    ``ctx`` (eval) carries the backbone's ``stem_impl``.
     """
     x = img.permute(0, 3, 1, 2).contiguous()
-    _, c4 = sub.backbone(x)
+    _, c4 = sub.backbone(x, ctx)
     z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=pid)
     q_cur, feat = apply_encoding_full(sub.enc, z)
     if cache.count >= cfg.window:
@@ -222,7 +223,7 @@ def clip_forward(model: TDNet, frames: torch.Tensor, pos_id: int, ctx: Ctx) -> d
     for s in range(p_num):
         sub = model.paths[s]
         x = frames[(s - pos_id - 1) % p_num].permute(0, 3, 1, 2).contiguous()
-        c3, c4 = sub.backbone(x)
+        c3, c4 = sub.backbone(x, ctx)
         z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=cfg.psp_pid(s))
         if s == pos_id:
             c3_cur, z_cur = c3, z

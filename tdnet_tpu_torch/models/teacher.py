@@ -17,7 +17,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from tdnet_tpu_torch.nn import (BACKBONES, PredLayer, PyramidPooling, ResNet, apply_pred_layer,
+from tdnet_tpu_torch.nn import (BACKBONES, Ctx, PredLayer, PyramidPooling, ResNet, apply_pred_layer,
                                 apply_pyramid_pooling_groups, init_pred_layer,
                                 init_pyramid_pooling, init_resnet)
 from tdnet_tpu_torch.ops import Conv2d, init_conv_kaiming
@@ -68,14 +68,16 @@ def freeze(teacher: Teacher) -> Teacher:
 
 
 @torch.no_grad()
-def apply_teacher(teacher: Teacher, x: torch.Tensor, group_id: int) -> tuple[torch.Tensor,
-                                                                          torch.Tensor]:
+def apply_teacher(teacher: Teacher, x: torch.Tensor, group_id: int,
+                  stem_impl: str = "plain") -> tuple[torch.Tensor, torch.Tensor]:
     """NHWC frame [n, H, W, 3] -> (T_full, T_group) logits NCHW at the c4 grid,
-    T_group the group the student at pos_id ``group_id`` trains against."""
+    T_group the group the student at pos_id ``group_id`` trains against.
+    ``stem_impl="fused"`` runs the frozen deep-base stem's tail through K4
+    (``tdnet_tpu/models/teacher.py:81-86``); the trainer keeps it plain."""
     cfg = teacher.cfg
     if teacher.training:
         raise ValueError("the teacher runs in eval mode (freeze it)")
-    _, c4 = teacher.backbone(x.permute(0, 3, 1, 2).contiguous())
+    _, c4 = teacher.backbone(x.permute(0, 3, 1, 2).contiguous(), Ctx(stem_impl=stem_impl))
     zs = apply_pyramid_pooling_groups(teacher.psp, c4, cfg.path_num)
     gs = [conv(z) for conv, z in zip(teacher.groups, zs)]
     full = apply_pred_layer(teacher.head, sum(gs))

@@ -6,8 +6,9 @@ from tdnet_tpu_torch.nn.encoding import (Attention, Encoding, apply_attention,
 from tdnet_tpu_torch.nn.heads import (FCNHead, PredLayer, apply_fcn_head, apply_pred_layer,
                                       init_fcn_head, init_pred_layer)
 from tdnet_tpu_torch.nn.module import Ctx, step_generator
-from tdnet_tpu_torch.nn.pyramid import (PyramidPooling, apply_pyramid_pooling,
-                                        apply_pyramid_pooling_groups, init_pyramid_pooling)
+from tdnet_tpu_torch.nn.pyramid import (PSPHead, PyramidPooling, apply_psp_head,
+                                        apply_pyramid_pooling, apply_pyramid_pooling_groups,
+                                        init_psp_head, init_pyramid_pooling)
 from tdnet_tpu_torch.nn.resnet import BACKBONES, ResNet, ResNetConfig, init_resnet
 
 __all__ = [
@@ -15,7 +16,7 @@ __all__ = [
     "apply_encoding_full", "init_attention", "init_encoding",
     "FCNHead", "PredLayer", "apply_fcn_head", "apply_pred_layer", "init_fcn_head",
     "init_pred_layer", "Ctx", "step_generator",
-    "PyramidPooling", "apply_pyramid_pooling", "apply_pyramid_pooling_groups",
-    "init_pyramid_pooling",
+    "PSPHead", "PyramidPooling", "apply_psp_head", "apply_pyramid_pooling",
+    "apply_pyramid_pooling_groups", "init_psp_head", "init_pyramid_pooling",
     "BACKBONES", "ResNet", "ResNetConfig", "init_resnet",
 ]

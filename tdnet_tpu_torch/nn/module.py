@@ -6,6 +6,16 @@ order, the seed of its mask (``next_seed``) or, for ``dropout2d``, the mask
 itself. The same generator state gives the same masks on the CPU and on the
 card. BatchNorm follows the module's own ``train()`` / ``eval()``; the
 trainer sets both together.
+
+Two options pick a kernel on the backbone's path (``tdnet_tpu/nn/module.py:31,36``):
+- ``stem_impl``: ``"plain"`` (the unfused ops) or ``"fused"``, the fused
+  deep-base stem tail K4 (``kernels/fused_stem.py``), taken only by deep-base
+  backbones in eval mode; elsewhere the stem stays plain;
+- ``conv_wgrad``: ``"cudnn"`` (the convs through ``F.conv2d`` and autograd) or
+  ``"kernel"``, the JAX package's ``"pallas"``: in training, the blocks' 3x3
+  convs with stride 1 and dilation >= 4 go through K5
+  (``kernels/dilated_conv.py``: the kernel for the forward and the dgrad,
+  per-tap matmuls for the weight gradient).
 """
 
 from __future__ import annotations
@@ -16,12 +26,23 @@ import torch
 
 from tdnet_tpu_torch.kernels.dropout import dropout
 
+STEM_IMPLS = ("plain", "fused")
+CONV_WGRADS = ("cudnn", "kernel")
+
 
 @dataclasses.dataclass
 class Ctx:
     train: bool = False
     use_dropout: bool = True  # False: train-mode BN, no dropout (the parity tests)
     generator: torch.Generator | None = None
+    stem_impl: str = "plain"
+    conv_wgrad: str = "cudnn"
+
+    def __post_init__(self):
+        if self.stem_impl not in STEM_IMPLS:
+            raise ValueError(f"stem_impl {self.stem_impl!r} not in {STEM_IMPLS}")
+        if self.conv_wgrad not in CONV_WGRADS:
+            raise ValueError(f"conv_wgrad {self.conv_wgrad!r} not in {CONV_WGRADS}")
 
     @property
     def dropping(self) -> bool:

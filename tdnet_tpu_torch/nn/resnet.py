@@ -8,8 +8,13 @@ Reference: Testing/model/pspnet/resnet.py:114-215, the same geometry as
 - deep_base (resnet50/101/152): three 3x3 stem convs to 128 channels;
   resnet10/18/34: one 7x7 stem conv to 64 channels.
 
-The stem is one plain conv; the JAX package's TPU stem rewrites compute the
-same function.
+The forward takes the pass's ``Ctx``, whose options pick the kernels
+(``tdnet_tpu/nn/resnet.py:34-68,247-271``): ``stem_impl="fused"`` runs the
+deep-base stem's tail (conv1, conv2, the BNs and the max-pool) through K4 in
+eval mode; ``conv_wgrad="kernel"`` runs the blocks' stride-1 3x3 convs with
+dilation >= 4 through K5 in training. Otherwise the stem is one plain conv
+per layer (the JAX package's TPU stem rewrites compute the same function) and
+every conv is ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -19,9 +24,13 @@ import dataclasses
 import torch
 from torch import nn
 
-from tdnet_tpu_torch.ops import BatchNorm, Conv2d, init_conv_msra_out, max_pool
+from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
+from tdnet_tpu_torch.kernels.fused_stem import StemTail, fused_stem_tail, stem_tail
+from tdnet_tpu_torch.nn.module import Ctx
+from tdnet_tpu_torch.ops import BatchNorm, Conv2d, fold_bn_eval, init_conv_msra_out, max_pool
 
 _MULTI_DILATIONS = (4, 8, 16)
+_EVAL = Ctx()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +95,14 @@ def _block_plan(cfg: ResNetConfig):
     return plan
 
 
+def _conv3x3(conv: Conv2d, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """A block's 3x3 conv: through K5 in training with ``conv_wgrad="kernel"``
+    when it has stride 1 and dilation >= 4 (``tdnet_tpu/nn/resnet.py:51-56``)."""
+    if ctx.train and ctx.conv_wgrad == "kernel" and conv.stride == 1 and conv.dilation >= 4:
+        return conv2d_dil(x, conv.weight, conv.padding, conv.dilation)
+    return conv(x)
+
+
 class Downsample(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int, device=None):
         super().__init__()
@@ -109,10 +126,10 @@ class BasicBlock(nn.Module):
         self.downsample = (Downsample(cin, mid, spec["stride"], device)
                            if spec["stride"] != 1 or cin != mid else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn1(self.conv1(x), "relu")
+    def forward(self, x: torch.Tensor, ctx: Ctx = _EVAL) -> torch.Tensor:
+        out = self.bn1(_conv3x3(self.conv1, x, ctx), "relu")
         res = x if self.downsample is None else self.downsample(x)
-        return self.bn2(self.conv2(out), "relu", residual=res)
+        return self.bn2(_conv3x3(self.conv2, out, ctx), "relu", residual=res)
 
 
 class Bottleneck(nn.Module):
@@ -130,11 +147,17 @@ class Bottleneck(nn.Module):
         self.downsample = (Downsample(cin, cout, spec["stride"], device)
                            if spec["stride"] != 1 or cin != cout else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx: Ctx = _EVAL) -> torch.Tensor:
         out = self.bn1(self.conv1(x), "relu")
-        out = self.bn2(self.conv2(out), "relu")
+        out = self.bn2(_conv3x3(self.conv2, out, ctx), "relu")
         res = x if self.downsample is None else self.downsample(x)
         return self.bn3(self.conv3(out), "relu", residual=res)
+
+
+def _folded(bn: BatchNorm) -> torch.Tensor:
+    """The eval BN's (scale; bias) as one [2, C] f32 tensor."""
+    return torch.stack(bn.folded if bn.folded is not None else fold_bn_eval(
+        bn.weight.detach(), bn.bias.detach(), bn.running_mean, bn.running_var))
 
 
 class Stem(nn.Module):
@@ -151,6 +174,11 @@ class Stem(nn.Module):
             self.conv2 = Conv2d(64, 128, 3, padding=1, device=device)
         else:
             self.conv0 = Conv2d(3, 64, 7, stride=2, padding=3, device=device)
+        self.tail: StemTail | None = None
+
+    def train(self, mode: bool = True) -> "Stem":
+        self.tail = None    # as BatchNorm drops its fold
+        return super().train(mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv0(x)
@@ -159,6 +187,20 @@ class Stem(nn.Module):
             x = self.bn1(self.conv1(x), "relu")
             x = self.conv2(x)
         return x
+
+    def fold_tail(self, bn2: BatchNorm) -> None:
+        """K4's weights laid out once, from the BNs' folds; ``bn2`` is the
+        ResNet's bn1, the BN after conv2. A mode switch drops them."""
+        self.tail = stem_tail(self.conv1.weight, _folded(self.bn1), self.conv2.weight,
+                              _folded(bn2))
+
+    def fused(self, x: torch.Tensor, bn2: BatchNorm) -> torch.Tensor:
+        """The eval deep-base stem with its tail through K4 (the weights of
+        ``fold_tail``, or laid out for this call). Ends after the max-pool."""
+        x = self.bn0(self.conv0(x), "relu")
+        tail = self.tail if self.tail is not None else stem_tail(
+            self.conv1.weight, _folded(self.bn1), self.conv2.weight, _folded(bn2))
+        return fused_stem_tail(x, tail)
 
 
 class ResNet(nn.Module):
@@ -172,13 +214,22 @@ class ResNet(nn.Module):
             self.add_module(f"layer{li + 1}", nn.ModuleList(
                 block(spec, cfg.expansion, device) for spec in layer))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def fold_stem(self) -> None:
+        """Lay out the deep-base stem tail's K4 weights once (eval, after the
+        BNs' fold); a no-op for the 7x7 stem."""
+        if self.cfg.deep_base:
+            self.stem.fold_tail(self.bn1)
+
+    def forward(self, x: torch.Tensor, ctx: Ctx = _EVAL) -> tuple[torch.Tensor, torch.Tensor]:
         """NCHW image -> (c3, c4)."""
-        x = max_pool(self.bn1(self.stem(x), "relu"), 3, 2, 1)
+        if ctx.stem_impl == "fused" and self.cfg.deep_base and not self.training:
+            x = self.stem.fused(x, self.bn1)
+        else:
+            x = max_pool(self.bn1(self.stem(x), "relu"), 3, 2, 1)
         feats = []
         for li in range(4):
             for blk in getattr(self, f"layer{li + 1}"):
-                x = blk(x)
+                x = blk(x, ctx)
             feats.append(x)
         return feats[2], feats[3]
 

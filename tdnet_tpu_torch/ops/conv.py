@@ -22,6 +22,24 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation)
 
 
+def tap_wgrad(x: torch.Tensor, dy: torch.Tensor, padding: int, dilation: int,
+              k: int = 3) -> torch.Tensor:
+    """The weight gradient [co, ci, k, k] of a stride-1 conv of ``x`` [n, ci, H, W]
+    giving ``dy`` [n, co, Ho, Wo]: per tap one [ci, L] x [L, co] matmul of the
+    shifted input against dy, L = n * Ho * Wo (``tdnet_tpu/ops/conv.py:_tap_wgrad``)."""
+    n, ci = x.shape[:2]
+    co, ho, wo = dy.shape[1:]
+    d = dilation
+    xp = F.pad(x, (padding,) * 4)
+    dy_t = dy.transpose(0, 1).reshape(co, -1).t()                      # [L, co]
+    taps = []
+    for i in range(k):
+        for j in range(k):
+            xs = xp[:, :, i * d:i * d + ho, j * d:j * d + wo]
+            taps.append(torch.matmul(xs.transpose(0, 1).reshape(ci, -1), dy_t))  # [ci, co]
+    return torch.stack(taps, dim=-1).reshape(ci, co, k, k).transpose(0, 1)
+
+
 class Conv2d(nn.Module):
     """A conv layer whose weights are left empty for the init functions below
     or a loaded state (it draws nothing from the global generator)."""

@@ -3,7 +3,9 @@
 Replaces the reference's per-frame loop over a stateful nn.Module
 (Testing/test.py:46-74) with:
 - the model's weights cast once to the stream's dtype and every BatchNorm's
-  eval affine folded once at construction;
+  eval affine folded once at construction, for the TDNet stream
+  (``Streamer``) and the single-frame PSPNet baseline (``FrameRunner``);
+- ``stem_impl``: the backbones' stem, plain or through the fused kernel K4;
 - a preallocated K/V/Q ring cache updated in place;
 - a seeded synthetic frame stream for driving it without a dataset;
 - synchronized per-frame latency with the reference's 6-frame warm-up
@@ -16,11 +18,13 @@ import time
 
 import numpy as np
 import torch
+from torch import nn
 
 from tdnet_tpu_torch.data.streaming import IMAGENET_MEAN, IMAGENET_STD
-from tdnet_tpu_torch.models.tdnet import TDNet, init_cache, stream_step
+from tdnet_tpu_torch.models.pspnet import apply_pspnet
+from tdnet_tpu_torch.models.tdnet import init_cache, stream_step
+from tdnet_tpu_torch.nn import Ctx, ResNet
 from tdnet_tpu_torch.ops import BatchNorm
-
 
 
 def sync(device: torch.device) -> None:
@@ -49,38 +53,43 @@ class LatencyMeter:
         return 1.0 / self.avg if self.times else float("nan")
 
 
-class Streamer:
-    """Drives a TDNet over a frame stream on the model's device.
+class _Runner:
+    """Runs a model frame by frame on its device. It takes the model over:
+    casts it to ``dtype`` and folds its BatchNorms in place; ``stem_impl``
+    goes into the eval ``Ctx`` of every frame, and ``"fused"`` lays out the
+    backbones' K4 weights once."""
 
-    It takes the model over: casts it to ``dtype`` and folds its BatchNorms
-    in place."""
-
-    def __init__(self, model: TDNet, *, dtype=torch.float32):
+    def __init__(self, model: nn.Module, *, dtype=torch.float32, stem_impl: str = "plain"):
         self.cfg = model.cfg
         self.dtype = dtype
+        self.ctx = Ctx(stem_impl=stem_impl)
         self.model = model.to(dtype).eval().requires_grad_(False)
         self.device = next(self.model.parameters()).device
         for m in self.model.modules():
             if isinstance(m, BatchNorm):
                 m.fold()
+        if stem_impl == "fused":
+            for m in self.model.modules():
+                if isinstance(m, ResNet):
+                    m.fold_stem()
         self.reset()
         self.meter = LatencyMeter()
 
     def reset(self):
-        self.cache = init_cache(self.cfg, 1, self.dtype, self.device)
         self.frame_idx = 0
+
+    def _forward(self, img: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
     @torch.inference_mode()
     def step(self, img: torch.Tensor, timed: bool = True):
         """Run one NHWC frame [1, H, W, 3]; returns (logits [1, H, W, nclass],
         seconds)."""
-        p = self.frame_idx % self.cfg.path_num
         img = img.to(self.device, self.dtype)
         if timed:
             sync(self.device)
         t0 = time.perf_counter()
-        out = stream_step(self.model.paths[p], self.model.atn[p], self.cache, img,
-                          self.cfg, self.cfg.psp_pid(p))
+        out = self._forward(img)
         if timed:
             sync(self.device)
         dt = time.perf_counter() - t0
@@ -99,6 +108,28 @@ class Streamer:
             out, _ = self.step(img, timed=False)
         sync(self.device)
         return out, (time.perf_counter() - t0) / n
+
+
+class Streamer(_Runner):
+    """Drives a ``TDNet`` over a frame stream, one sub-network per frame, with
+    the K/V/Q ring cache."""
+
+    def reset(self):
+        self.cache = init_cache(self.cfg, 1, self.dtype, self.device)
+        self.frame_idx = 0
+
+    def _forward(self, img):
+        p = self.frame_idx % self.cfg.path_num
+        return stream_step(self.model.paths[p], self.model.atn[p], self.cache, img, self.cfg,
+                           self.cfg.psp_pid(p), self.ctx)
+
+
+class FrameRunner(_Runner):
+    """Runs the single-frame ``PSPNet`` baseline on each frame (the
+    reference's ``--model psp101``, Testing/test.py:46-74)."""
+
+    def _forward(self, img):
+        return apply_pspnet(self.model, img, self.ctx)
 
 
 def synthetic_frames(n: int, in_size: tuple[int, int], *, seed: int = 0,

@@ -9,6 +9,12 @@ one AdaOptimizer update per step; every parameter takes part in the update
 (a parameter the step did not reach gets a zero gradient, so that its weight
 decay and momentum run as optax runs them). The step's dropout draws come
 from a generator seeded by (seed, it).
+
+``conv_wgrad`` picks the residual blocks' dilated convs: ``"cudnn"`` (the
+default, ``F.conv2d`` and autograd) or ``"kernel"``, the JAX package's
+``conv_wgrad="pallas"`` (``tdnet_tpu/train/trainer.py:124-132``): the stride-1
+3x3 convs with dilation >= 4 through K5 (``kernels/dilated_conv.py``). The
+teacher's stem stays plain, as the JAX trainer's ``teacher_stem = "xla"``.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ def make_train_state(model: TDNet, *, seed: int = 0,
     return TrainState(model=model, optimizer=opt, schedule=schedule, seed=seed)
 
 
-def make_loss_of(*, loss_fn=None, use_dropout: bool = True):
+def make_loss_of(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn"):
     """``loss_of(model, frames, labels, pos_id, generator, teacher=None)
     -> (loss, kd)``; frames NHWC [P, n, H, W, 3] (oldest .. current), labels
     [n, H, W]. ``use_dropout=False``: train-mode BN without dropout."""
@@ -53,7 +59,8 @@ def make_loss_of(*, loss_fn=None, use_dropout: bool = True):
         loss_fn = lambda lg, lb: cross_entropy(lg, lb, 250)
 
     def loss_of(model: TDNet, frames, labels, pos_id: int, generator, teacher=None):
-        ctx = Ctx(train=True, use_dropout=use_dropout, generator=generator)
+        ctx = Ctx(train=True, use_dropout=use_dropout, generator=generator,
+                  conv_wgrad=conv_wgrad)
         res = clip_forward(model, frames, pos_id, ctx)
         loss = loss_fn(res["out"], labels) + 0.5 * loss_fn(res["out_sub"], labels)
         if model.cfg.aux:
@@ -69,10 +76,10 @@ def make_loss_of(*, loss_fn=None, use_dropout: bool = True):
     return loss_of
 
 
-def make_train_step(*, loss_fn=None, use_dropout: bool = True):
+def make_train_step(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn"):
     """``step(state, frames, labels, pos_id, teacher=None) -> {loss, kd, lr}``.
     After the step each parameter's ``.grad`` holds this step's gradient."""
-    loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout)
+    loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad)
 
     def step(state: TrainState, frames, labels, pos_id: int, teacher: Teacher | None = None):
         model, opt = state.model, state.optimizer
@@ -93,7 +100,7 @@ def make_train_step(*, loss_fn=None, use_dropout: bool = True):
     return step
 
 
-def td4_full_recipe(*, seed: int = 0):
+def td4_full_recipe(*, seed: int = 0, conv_wgrad: str = "cudnn"):
     """The TD4-PSP18 full training recipe of ``configs/td4_psp18_cityscapes.yml``
     (model, teacher, loss and optimizer sections: kv_stride 3, aux head, OHEM,
     KD from a ResNet-101 teacher, AdaOptimizer) at its 769x1537 crop on one
@@ -119,4 +126,5 @@ def td4_full_recipe(*, seed: int = 0):
     labels = torch.randint(0, cfg.nclass, (1, *cfg.in_size), generator=gen)
     labels[:, :64] = 250
     labels[:, :, :32] = 250
-    return state, make_train_step(loss_fn=loss_fn), teacher, frames, labels.to("cuda"), loss_fn
+    return (state, make_train_step(loss_fn=loss_fn, conv_wgrad=conv_wgrad), teacher, frames,
+            labels.to("cuda"), loss_fn)

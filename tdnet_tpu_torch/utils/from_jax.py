@@ -10,8 +10,9 @@ leaves with NHWC-era layouts:
   running_var}; LayerNorm {scale, bias} stay [H, W] as {weight, bias};
 - the attention fc ``fc.w[0, 0]`` is [in, out], which is the orientation the
   kernel takes (o @ W + b), so it is not transposed;
-- the teacher's tree (``tdnet_tpu.models.teacher.init_teacher``) is not
-  stacked and converts as it is.
+- the teacher's tree (``tdnet_tpu.models.teacher.init_teacher``) and the
+  PSPNet baseline's (``tdnet_tpu.models.pspnet.init_pspnet``) are not
+  stacked and convert as they are.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tdnet_tpu_torch.models.pspnet import PSPNet, PSPNetConfig
 from tdnet_tpu_torch.models.tdnet import TDNet, TDNetConfig
 from tdnet_tpu_torch.models.teacher import Teacher, TeacherConfig, freeze
 
@@ -105,3 +107,12 @@ def teacher_from_jax(params: dict, cfg: TeacherConfig, device=None) -> Teacher:
     teacher = Teacher(cfg, device)
     teacher.load_state_dict(teacher_state_from_jax(params))
     return freeze(teacher)
+
+
+def pspnet_from_jax(params: dict, cfg: PSPNetConfig, device=None) -> PSPNet:
+    """``init_pspnet``'s tree {backbone, head, aux?} -> a ``PSPNet`` (the aux head
+    carried when ``cfg.aux``; the runner sets eval itself)."""
+    net = PSPNet(cfg, device)
+    tree = {k: v for k, v in params.items() if k != "aux" or cfg.aux}
+    net.load_state_dict(convert_tree(tree))
+    return net

@@ -48,4 +48,6 @@ def test_walk_catches_lazy_imports():
 def test_files_cover_the_package():
     assert "tdnet_tpu_torch/cli/test.py" in FILES
     assert "tdnet_tpu_torch/train/trainer.py" in FILES
+    for path in ("kernels/fused_stem.py", "kernels/dilated_conv.py", "models/pspnet.py"):
+        assert f"tdnet_tpu_torch/{path}" in FILES
     assert len(FILES) >= 30

@@ -102,6 +102,9 @@ def test_synthetic_frames_pan_a_seeded_scene():
      "K2 training attention backward"),
     ("void (anonymous namespace)::pv_f32<true>(float const*, ...)", "K1 propagation attention"),
     ("(anonymous namespace)::dropout_vec4(float4 const*, ...)", "K3 dropout"),
+    ("void (anonymous namespace)::tc::stem_bf16(__nv_bfloat16 const*, ...)", "K4 fused stem"),
+    ("void (anonymous namespace)::cc::stem_f32(float const*, ...)", "K4 fused stem"),
+    ("void (anonymous namespace)::dil_conv_f32(float const*, ...)", "K5 dilated conv"),
 ])
 def test_kernel_family(name, family):
     assert kernel_family(name) == family
@@ -138,7 +141,7 @@ def test_package_imports_no_jax():
     assert int(res.stdout.strip()) >= 15
 
 
-def test_cli_streams_pngs(tmp_path):
+def _cli_pngs(tmp_path, argv):
     import imageio.v2 as imageio
     from tdnet_tpu.data.synthetic import render_frame
     from tdnet_tpu_torch.cli.test import main
@@ -148,15 +151,29 @@ def test_cli_streams_pngs(tmp_path):
         imageio.imwrite(src / f"frame_{t:03d}.png", render_frame(t, (64, 128)))
     out = tmp_path / "out"
     main(["--img_path", str(tmp_path / "vid"), "--output_path", str(out),
-          "--device", "cpu", "--in_size", "65", "129", "--model", "td4-psp18"])
+          "--device", "cpu", "--in_size", "65", "129"] + argv)
     pngs = sorted(os.listdir(out / "clip"))
     assert pngs == [f"frame_{t:03d}.png" for t in range(3)]
     assert imageio.imread(out / "clip" / pngs[0]).shape == (65 // 4, 129 // 4, 3)
 
 
-@pytest.mark.parametrize("argv", [["--model", "psp101"], ["--model", "td2-fa"],
-                                  ["--parallel", "group"]])
-def test_cli_rejects_what_is_not_ported(argv):
+def test_cli_streams_pngs(tmp_path):
+    _cli_pngs(tmp_path, ["--model", "td4-psp18"])
+
+
+def test_cli_psp101_fused_stem_writes_pngs(tmp_path):
+    """``--model psp101``: one PSPNet-101 forward a frame, the deep-base stem
+    through the fused tail (its plain version on the CPU)."""
+    _cli_pngs(tmp_path, ["--model", "psp101", "--stem_impl", "fused"])
+
+
+@pytest.mark.parametrize("argv", [["--model", "psp101", "--_psp101_path", "CHECKPOINT"],
+                                  ["--model", "td2-fa"], ["--parallel", "group"]])
+def test_cli_rejects_what_is_not_ported(argv, tmp_path):
+    """td2-fa, --parallel, and loading a reference checkpoint (here PSP-101's)."""
     from tdnet_tpu_torch.cli.test import main
+    ckpt = tmp_path / "psp101.pkl"
+    ckpt.write_bytes(b"")
+    argv = [str(ckpt) if a == "CHECKPOINT" else a for a in argv]
     with pytest.raises(NotImplementedError, match="not ported"):
         main(argv + ["--device", "cpu"])
