@@ -24,9 +24,13 @@ Phases (any failure exits non-zero):
    run twice a step, and 18,721 x 2,145), f32, dropout off and on with one
    seed: the output to 1e-5 x max|output| and dq, dk, dv from a seeded dy to
    atol 2e-4 / rtol 1e-3; the keep rate within 0.9 +- 1e-3 (uniform scores,
-   v of ones: each output row counts its kept keys); kernel, plain and
-   ``F.scaled_dot_product_attention`` (scale 1/8, no dropout) times, forward
-   and backward;
+   v of ones: each output row counts its kept keys); the backward (3xTF32 on
+   the tensor cores) bitwise equal across two runs; at each hop, kernel,
+   plain and ``F.scaled_dot_product_attention`` (scale 1/8, no dropout)
+   times, forward and backward, the kernels that the kernel's and SDPA's
+   backward run with their device times (from a ``torch.profiler`` trace),
+   and the backward's bound both ways (f32 on the CUDA cores, 3xTF32 on the
+   tensor cores);
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
    backward (from a seeded dy) bit-identical, the same mask; keep rate within
    0.9 +- 1e-3;
@@ -123,10 +127,12 @@ GRAD_RTOL = 1e-3     # kernel path vs plain path, per gradient tensor, x max|gra
 GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
 NOISE_LIMIT = 1e-2   # the largest 2 x run-to-run / max|grad| allowed above the floor
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): bytes/s of HBM3,
-# FLOP/s of f32 on the CUDA cores and of bf16 on the tensor cores
+# FLOP/s of f32 on the CUDA cores and of bf16 on the tensor cores; f32 products in
+# 3xTF32 on the tensor cores take three TF32 products each
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32X3 = 495e12 / 3
 BATCHED = (2, 700, 130)   # (n, Lq, Lkv): the batch axis of the kernel's grid
 D_K, D_V = 64, 512
 N_FRAMES = 12
@@ -384,6 +390,34 @@ def _fwd_bwd(fn, q, k, v, dy, **kw):
     return [out.detach()] + [t.grad for t in leaves]
 
 
+def _train_attention_times(q, k, v, dy, k2, p2) -> dict:
+    """(forward ms, backward ms) of the kernel, the plain version and SDPA."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    times = {}
+    for name, fn, kw in (("kernel", k2, dict(dropout_rate=0.1, seed=SEED)),
+                         ("plain", p2, dict(dropout_rate=0.1, seed=SEED)),
+                         ("sdpa", None, {})):
+        if fn is None:
+            fwd = lambda: F.scaled_dot_product_attention(*leaves, scale=1.0 / 8.0)
+        else:
+            fwd = lambda: fn(*leaves, temperature=8.0, **kw)
+        out = fwd()
+        bwd = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
+        times[name] = (median_ms(fwd), median_ms(bwd))
+        if name != "plain":   # the kernels each backward runs, from a profiler trace
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                bwd()
+                torch.cuda.synchronize()
+            rows = sorted((r for r in prof.key_averages()
+                           if r.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda r: -r.self_device_time_total)
+            log(f"[7] {name} backward kernels (device ms): " + "; ".join(
+                f"{r.key[:90]} {r.self_device_time_total / 1e3:.3f}" for r in rows))
+        del out
+    return times
+
+
 def phase_train_attention(card: str) -> dict:
     """K2 against its plain version; returns the kernels entries' numbers."""
     from tdnet_tpu_torch.kernels.propagation_attention_train import (
@@ -391,7 +425,8 @@ def phase_train_attention(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     log(f"[7] training attention kernel vs plain ({card}); tolerances: output 1e-5 x "
-        f"max|output|, dq/dk/dv atol 2e-4 rtol 1e-3, keep rate 0.9 +- 1e-3")
+        f"max|output|, dq/dk/dv atol 2e-4 rtol 1e-3, keep rate 0.9 +- 1e-3; the backward "
+        f"bitwise equal across two runs")
     res = dict(fwd_err=0.0, bwd_err=0.0)
     for lq, lkv in TRAIN_SHAPES:
         q, k = (torch.randn(1, n, D_K, generator=gen).to(dev) for n in (lq, lkv))
@@ -405,14 +440,20 @@ def phase_train_attention(card: str) -> dict:
             g_err = max((a - b).abs().max().item() for a, b in zip(got[1:], want[1:]))
             ok = f_err <= f_tol and all(torch.allclose(a, b, atol=2e-4, rtol=1e-3)
                                         for a, b in zip(got[1:], want[1:]))
+            again = _fwd_bwd(k2, q, k, v, dy, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
             log(f"[7] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
-                f"(tol {f_tol:.3e}), dq/dk/dv max abs err {g_err:.3e}")
+                f"(tol {f_tol:.3e}), dq/dk/dv max abs err {g_err:.3e}, second backward "
+                f"{'bitwise equal' if same else 'DIFFERENT'}")
             if not ok:
                 raise AssertionError(f"K2 disagrees with its plain version at {lq}x{lkv} "
                                      f"dropout {rate}")
+            if not same:
+                raise AssertionError(f"K2's backward is not deterministic at {lq}x{lkv} "
+                                     f"dropout {rate}")
             res["fwd_err"] = max(res["fwd_err"], f_err)
             res["bwd_err"] = max(res["bwd_err"], g_err)
-            del got, want
+            del got, want, again
         # keep rate: uniform scores (q = 0) and v of ones make o_i = kept_i / (0.9 Lkv)
         ones = torch.ones(1, lkv, 128, device=dev)
         o = k2(torch.zeros_like(q), k, ones, temperature=8.0, dropout_rate=0.1, seed=SEED + 17)
@@ -421,31 +462,26 @@ def phase_train_attention(card: str) -> dict:
         log(f"[7] {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {lq * lkv} elements")
         if abs(rate - 0.9) > 1e-3:
             raise AssertionError(f"K2 keep rate {rate} outside 0.9 +- 1e-3")
+        del o, ones
 
-    # times at the last hop, the largest
-    lq, lkv = TRAIN_SHAPES[-1]
-    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    times = {}
-    for name, fn, kw in (("kernel", k2, dict(dropout_rate=0.1, seed=SEED)),
-                         ("plain", p2, dict(dropout_rate=0.1, seed=SEED)),
-                         ("sdpa", None, {})):
-        if fn is None:
-            fwd = lambda: F.scaled_dot_product_attention(*leaves, scale=1.0 / 8.0)
-        else:
-            fwd = lambda: fn(*leaves, temperature=8.0, **kw)
-        out = fwd()
-        times[name] = (median_ms(fwd),
-                       median_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)))
-        del out
-    log(f"[7] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
-        f"{times['kernel'][1]:.3f}, plain {times['plain'][0]:.3f} / {times['plain'][1]:.3f}, "
-        f"F.scaled_dot_product_attention (no dropout) {times['sdpa'][0]:.3f} / "
-        f"{times['sdpa'][1]:.3f}")
-    io = 4 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, f32
-    fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_F32)
-    bwd_b = bound(2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_F32)
-    log(f"[7] bounds: forward {fwd_b['bound_ms']:.3f} ms, backward {bwd_b['bound_ms']:.3f} ms "
-        f"(by operations at {PEAK_F32 / 1e12:.0f} TFLOP/s f32)")
+        times = _train_attention_times(q, k, v, dy, k2, p2)
+        log(f"[7] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
+            f"{times['kernel'][1]:.3f}, plain {times['plain'][0]:.3f} / "
+            f"{times['plain'][1]:.3f}, F.scaled_dot_product_attention (no dropout) "
+            f"{times['sdpa'][0]:.3f} / {times['sdpa'][1]:.3f}")
+        io = 4 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, f32
+        fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_F32)
+        bwd_flops, bwd_bytes = 2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq
+        bwd_b = bound(bwd_flops, bwd_bytes, PEAK_TF32X3)
+        bwd_b32 = bound(bwd_flops, bwd_bytes, PEAK_F32)
+        log(f"[7] {lq} x {lkv} bounds: forward {fwd_b['bound_ms']:.3f} ms (by operations at "
+            f"{PEAK_F32 / 1e12:.0f} TFLOP/s f32), backward {bwd_flops / 1e9:.2f} GFLOP: "
+            f"{bwd_b['bound_ms']:.3f} ms in 3xTF32 on the tensor cores "
+            f"({PEAK_TF32X3 / 1e12:.0f} TFLOP/s), {bwd_b32['bound_ms']:.3f} ms in f32 on the "
+            f"CUDA cores; the kernel's backward at "
+            f"{bwd_flops / times['kernel'][1] / 1e9:.1f} TFLOP/s")
+        del q, k, v, dy
+    # the kernels entries report the last hop, the largest
     return {
         "fwd": dict(max_abs_err=res["fwd_err"], ms=times["kernel"][0],
                     plain_ms=times["plain"][0], library_ms=times["sdpa"][0], **fwd_b),

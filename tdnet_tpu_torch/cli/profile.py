@@ -55,7 +55,7 @@ REPEATS = 7
 FAMILIES = (
     ("K4 fused stem", ("stem_bf16", "stem_f32")),
     ("K5 dilated conv", ("dil_conv_f32",)),
-    ("K2 training attention backward", ("dq_f32", "dkdv_f32", "rowdot_f32", "sum_parts")),
+    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "sum_parts")),
     ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
     # in a train step this family is K2's forward, which runs K1's f32 kernels
     ("K1 propagation attention", ("stats_f32", "pv_f32", "fc_f32",

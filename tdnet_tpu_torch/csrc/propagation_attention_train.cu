@@ -1,38 +1,68 @@
-// Training propagation attention for Hopper (sm_90a), f32 on the CUDA cores:
-//   forward  o = dropout(softmax(q k^T * scale)) v,
-//   backward dq, dk, dv, with the dropout mask regenerated, never stored.
+// Training propagation attention for Hopper (sm_90a), f32:
+//   forward  o = dropout(softmax(q k^T * scale)) v, on the CUDA cores;
+//   backward dq, dk, dv, on the tensor cores in error-compensated TF32 (3xTF32), with the
+//            dropout mask regenerated, never stored; the scores s as the forward forms them.
 //
 // Replaces the TPU kernels tdnet_tpu/kernels/propagation_attention_train.py:
 // _fwd_kernel and _bwd_kernel, reached through fused_propagation_attention_train.
 //
 // Shapes of the TD4-PSP18 training recipe (769x1537, kv_stride 3): three hops per step,
 // 2,145 x 2,145, 2,145 x 2,145 and 18,721 x 2,145 (Lq x Lkv), d_k 64, d_v 512.
-// At the last hop the forward is 2 Lq Lkv (64 + 512) = 46 GFLOP and the backward
-// (dq, dk, dv and the recomputed scores) at least 2 Lq Lkv (2 * 512 + 3 * 64) = 98 GFLOP,
-// against 2 x 38 MB of q-side tensors: bound by arithmetic (67 TFLOP/s f32 on the
-// CUDA cores: 0.7 and 1.5 ms).
 //
-// Design. The TPU kernel holds all of K and V in VMEM and carries dk and dv in f32
-// across a sequential q grid. On Hopper V alone is 4.4 MB in f32 and blocks run in
-// parallel, so nothing is carried between blocks:
-//   forward   stats_f32 (row max m and sum l) then pv_f32<DROP> (attention_f32.cuh):
-//             p = exp(s - m) / l exactly, the mask applied to p, d_v split over blocks
-//             of 128 columns. m and l are saved for the backward.
-//   backward  rowdot:  D_i = dy_i . o_i, the softmax-VJP term: with o = (p * keep / (1 -
-//                      rate)) v, sum_j dp_ij p_ij = dy_i . o_i, dropout or not;
-//             dq pass: q-major. A block owns 64 q rows and a range of key chunks;
-//                      per chunk it recomputes s and p, forms dpd = dy v^T over all of
-//                      d_v in 64-column steps, ds = p (mask(dpd) - D), dq += ds k.
-//                      Key ranges are split over blocks (partials summed afterwards) so
-//                      that the card has several waves of blocks at Lq = 2,145.
-//             dkdv pass: KV-major. A block owns 64 keys, one 128-column slice of d_v and
-//                      a range of q chunks; per chunk it recomputes s^T and p, then
-//                      dv += pd^T dy[:, slice] and, since ds is linear in dpd, the
-//                      slice's share of dk += ds_slice^T q, with the -p D term added by
-//                      slice 0 only. Partials over q ranges and slices are summed after.
-//             sum_parts: the partials summed in a fixed order (no atomics).
-// The mask is a pure function of (seed, (b * Lq + i) * Lkv + j) (dropout_hash.cuh), so
-// the forward, both backward passes and the plain PyTorch version draw the same bits.
+// Forward: stats_f32 (row max m and sum l) then pv_f32<DROP> (attention_f32.cuh): p =
+// exp(s - m) / l exactly, the mask applied to p, d_v split over blocks of 128 columns, f32
+// FMAs. m and l are saved for the backward. 2 Lq Lkv (64 + 512) FLOP: 46 GFLOP at the last
+// hop, 0.69 ms at 67 TFLOP/s f32.
+//
+// Backward. With s = scale q k^T, p = exp(s - m) / l, keep the mask, pd = keep ? p / (1 -
+// rate) : 0 and D_i = dy_i . o_i (= sum_j dp_ij p_ij, dropout or not):
+//   dv = pd^T dy,  dpd = dy v^T,  ds = p (keep ? dpd / (1 - rate) : 0 - D),
+//   dk = scale ds^T q,  dq = scale ds k.
+// The least work is 2 (3 * 64 + 2 * 512) = 2,432 FLOP per (i, j): s, dpd, dv, dk, dq once
+// each. That is 11.19 GFLOP at 2,145 x 2,145 and 97.66 GFLOP at 18,721 x 2,145, 120.0 a
+// step, against about 96 MB of inputs and outputs at the last hop (0.03 ms at 3.35 TB/s):
+// bound by arithmetic. The products dpd, dv, dk and dq (2,304 of the 2,432 FLOP) run on
+// mma.sync m16n8k8 tf32 in 3xTF32: each operand x is split into hi = rna_tf32(x) and lo =
+// rna_tf32(x - hi), and a b accumulates as a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms
+// first, which keeps f32 accuracy (TF32 alone keeps about 3 digits). Three products a
+// product put the bound at 495 / 3 = 165 TFLOP/s: 0.068 ms at 2,145 x 2,145 and 0.592 ms
+// at 18,721 x 2,145.
+// Two rules keep sum_j ds_ij at zero to rounding, as softmax's invariance makes it in
+// exact arithmetic (the gradient of a bias shared by all keys, such as w_ks's, is that
+// sum): s is recomputed on the CUDA cores in the forward's order (score_tile), so p is the
+// forward's p to the bit; and the tensor core, which truncates as it accumulates, sums
+// only short chains (2 k-steps of dpd, a 64-row chunk of dv and dk, 32 keys of dq) in a
+// fresh accumulator that is then added in round-to-nearest f32. With s in 3xTF32 and
+// dpd in one chain the gradient of w_ks's bias was 100 times the plain version's.
+//
+// Design (the TPU kernel holds K and V in VMEM and carries dk and dv across a sequential q
+// grid; here blocks run in parallel):
+//   rowdot_f32  D = rowsum(dy * o), one warp a row.
+//   dkdv_tc     KV-major, each (i, j) done once. A block owns 32 keys and all of d_v: v
+//               [32, d_v] and k [32, 64] stay in shared memory, dv [32, d_v] in registers
+//               (64 a thread at d_v 512), dk [32, 64] too. It walks a range of 64-row q
+//               chunks; per chunk: s^T = k q^T (FMAs), p from the saved m and l, the mask from
+//               dropout_hash.cuh, pd^T to shared memory; dy streamed in 128-column pieces
+//               (cp.async, double-buffered; the next chunk's q and first piece load during
+//               the last piece), per piece dpd^T += v_piece dy_piece^T and dv[:, piece] +=
+//               pd^T dy_piece; then ds^T to shared memory and to an f32 scratch ds [n, Lq,
+//               Lds] (Lds = Lkv rounded up to 32; 163 MB at the last hop), and dk += ds^T q.
+//               pd^T and ds^T are split into TF32 hi and lo once, as they are written.
+//               8 warps: warp w owns keys 16 (w % 2) and q columns 16 (w / 2) of s and dpd,
+//               dv columns 16 w of each piece for all 32 keys, and dk columns 16 (w / 2)
+//               of keys 16 (w % 2). Shared memory 217,600 bytes at d_v 512 and 198
+//               registers a thread (ptxas): one block (8 warps) an SM.
+//   dq_tc       dq = scale ds k, a 3xTF32 GEMM: 64 rows x 64 columns a block, 32 keys a
+//               step, double-buffered; 99 registers a thread: 2 blocks an SM.
+//   sum_parts   Lkv = 2,145 gives 68 key blocks against 132 SMs, so q ranges are split over
+//               blocks (and key ranges for dq at small Lq); the dk, dv and dq partials are
+//               summed in a fixed order. No atomics: two runs give the same bits.
+// Tiles that a warp reads in the mma's A layout (v, pd^T, ds^T: row g, column t of each
+// 8 x 4 quad) have a row stride of 4 mod 32 words; q and dy, read both as (row g, column t)
+// and as (row t, column g), have a stride of 8 mod 32 and swap their 4-word halves on rows
+// with bit 2 set: both patterns are free of bank conflicts. The mask is a pure function of
+// (seed, (b * Lq + i) * Lkv + j) (dropout_hash.cuh), so the forward, the backward and the
+// plain PyTorch version draw the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,14 +72,162 @@
 
 namespace {
 
-constexpr int VS = BD + 1;  // padded row stride of the 128-wide slice tiles
-constexpr size_t DQ_SMEM = sizeof(float) * (5 * 64 * KS);
-constexpr size_t DKDV_SMEM = sizeof(float) * (4 * 64 * KS + 2 * 64 * VS + 3 * 64);
-
 struct Drop {
   uint32_t seed, threshold;
   float inv_keep;
 };
+
+constexpr int BKV = 32;         // keys per block of dkdv_tc
+constexpr int PIECE = 128;      // dy columns per streamed piece
+constexpr int AS = DK + 4;      // row stride of the A-layout 64-wide tiles (k, pd^T, ds^T)
+constexpr int QS = DK + 8;      // row stride of the swizzled q tile
+constexpr int YS = PIECE + 8;   // row stride of the swizzled dy piece
+constexpr int GM = 64;          // dq_tc: rows of dq per block
+constexpr int GK = BKV;         // dq_tc: keys per step (one dkdv_tc key block)
+constexpr int GAS = GK + 4;     // dq_tc: row stride of the ds tile (A layout)
+
+template <int NP>  // d_v = 128 NP
+constexpr size_t kv_smem() {
+  return sizeof(float) *
+         (BKV * (NP * PIECE + 4) + 5 * BKV * AS + 2 * BQ * QS + 2 * BQ * YS + 2 * 3 * BQ);
+}
+
+// ---- 3xTF32 on mma.sync.m16n8k8: in a warp, g = lane / 4 and t = lane % 4. A (16 x 8,
+// row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, col): b0
+// (t, g), b1 (t + 4, g); C (16 x 8): c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8, 2t, 2t + 1).
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// cvt.rna.tf32.f32 for finite x (round to nearest, ties away from zero, 10 mantissa bits
+// kept) in two integer operations: the cvt instruction compiles to a longer sequence.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32: hi = rna_tf32(x); lo's register holds x - hi plus half a TF32 ulp,
+// of which the tensor core reads only the upper 19 bits, that is rna_tf32(x - hi) (the
+// rounding CUTLASS's 3xTF32 path uses). Only an mma operand may take lo.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32, the small products first
+__device__ __forceinline__ void mma3(float c[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// c += t, then t = 0. The tensor core truncates as it accumulates, which biases a long
+// chain of products into one accumulator; a chain of a few k-steps summed in a fresh
+// accumulator and added in round-to-nearest f32 keeps long sums unbiased.
+__device__ __forceinline__ void flush(float c[4], float t[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c[i] += t[i];
+    t[i] = 0.f;
+  }
+}
+
+// Fragments from per-thread pointers, so that a k-step's loads are a pointer plus a
+// constant. A rows [r0, r0 + 16) x columns [c0, c0 + 8) of a row-major tile t of stride s:
+// p = a_ptr(t, s, r0) + c0.
+__device__ __forceinline__ int a_offset(int s, int r0) {
+  return (r0 + ((threadIdx.x & 31) >> 2)) * s + (threadIdx.x & 3);
+}
+
+__device__ __forceinline__ const float* a_ptr(const float* t, int s, int r0) {
+  return t + a_offset(s, r0);
+}
+
+__device__ __forceinline__ void load_a(FragA& f, const float* p, int s) {
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * s], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * s + 4], f.hi[3], f.lo[3]);
+}
+
+// The same from a tile stored split, hi and lo at the same offset of two arrays.
+__device__ __forceinline__ void load_a_split(FragA& f, const uint32_t* hi, const uint32_t* lo,
+                                             int s) {
+  const int o[4] = {0, 8 * s, 4, 8 * s + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = hi[o[i]];
+    f.lo[i] = lo[o[i]];
+  }
+}
+
+// Swizzled tiles store element (r, c) at r * s + (c ^ (r & 4)): the 4-word halves of each
+// 8 words swap on rows with bit 2 set. B (k0.. + 8) x (n0.. + 8) comes from the element
+// offsets o[0] + step, o[1] + step of a thread, for n0 and k0 multiples of 8:
+//   tile stored [n][k] (nk_offsets(s, n0)): step = k0;
+//   tile stored [k][n] (kn_offsets(s, n0)): step = k0 * s.
+__device__ __forceinline__ void nk_offsets(int o[2], int s, int n0) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  o[0] = (n0 + g) * s + q + (g & 4);
+  o[1] = (n0 + g) * s + q + 4 - (g & 4);
+}
+
+__device__ __forceinline__ void kn_offsets(int o[2], int s, int n0) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  o[0] = q * s + n0 + g;
+  o[1] = (q + 4) * s + n0 + (g ^ 4);
+}
+
+__device__ __forceinline__ void load_b(FragB& f, const float* t, const int o[2], int step) {
+  split(t[o[0] + step], f.hi[0], f.lo[0]);
+  split(t[o[1] + step], f.hi[1], f.lo[1]);
+}
+
+__device__ __forceinline__ int swz(int r, int c, int s) { return r * s + (c ^ (r & 4)); }
+
+// ---- cp.async
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + ROWS) x columns [col0, col0 + W) of a row-major [len, ld] matrix into
+// a shared tile of stride S (swizzled with SWZ), 16 bytes a copy; rows past len are zero.
+template <int ROWS, int W, int S, bool SWZ>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int ld, int row0,
+                                           int col0, int len) {
+  constexpr int V = W / 4;
+  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
+    const int r = i / V, c = (i % V) * 4, gr = row0 + r;
+    const bool ok = gr < len;
+    cp_async16(dst + (SWZ ? swz(r, c, S) : r * S + c), src + (size_t)(ok ? gr : 0) * ld + col0 + c,
+               ok);
+  }
+}
 
 // D[r] = sum_c dy[r, c] o[r, c]; one warp per row.
 __global__ void __launch_bounds__(THREADS)
@@ -66,202 +244,307 @@ rowdot_f32(const float* __restrict__ dy, const float* __restrict__ o, float* __r
   if (lane == 0) d[row] = s;
 }
 
-// Partial dq of 64 q rows over key chunks [c_begin, c_end) of split blockIdx.y:
-// dq_part[split, b, r, :] = scale * sum_j ds_rj k_j.
-template <bool DROP>
-__global__ void __launch_bounds__(THREADS)
-dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       const float* __restrict__ dy, const float* __restrict__ row_max,
-       const float* __restrict__ row_sum, const float* __restrict__ dsum,
-       float* __restrict__ dq_part, int n, int lq, int lkv, int dv, float scale,
-       int chunks_per_split, Drop drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + 64 * KS;
-  float* dys = ks + 64 * KS;
-  float* vs = dys + 64 * KS;
-  float* dss = vs + 64 * KS;
-  const int b = blockIdx.z, split = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int k_begin = split * chunks_per_split * BK;
-  const int k_end = min(lkv, k_begin + chunks_per_split * BK);
+// Keys [32 blockIdx.x, + 32) of batch blockIdx.z over the q chunks of range blockIdx.y:
+//   dv_part[range, b, key, :] = sum_r pd_rk dy_r,  dk_part[range, b, key, :] = scale sum_r ds_rk q_r,
+// and ds[b, r, key] for every r of the range (keys past lkv get 0).
+template <int NP, bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+        const float* __restrict__ dy, const float* __restrict__ row_max,
+        const float* __restrict__ row_sum, const float* __restrict__ dsum,
+        float* __restrict__ ds, float* __restrict__ dk_part, float* __restrict__ dv_part, int n,
+        int lq, int lkv, int lds, float scale, int chunks_per_split, Drop drop) {
+  constexpr int DV = NP * PIECE, VT = DV + 4;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* vs = smem_tc;          // [BKV][VT]
+  float* ks = vs + BKV * VT;    // [BKV][AS]
+  // [BKV][AS] each: pd^T and ds^T of the chunk, split into TF32 hi and lo once
+  uint32_t* pdh = reinterpret_cast<uint32_t*>(ks + BKV * AS);
+  uint32_t* pdl = pdh + BKV * AS;
+  uint32_t* dsh = pdl + BKV * AS;
+  uint32_t* dsl = dsh + BKV * AS;
+  float* qs = reinterpret_cast<float*>(dsl + BKV * AS);  // [2][BQ][QS], swizzled
+  float* ys = qs + 2 * BQ * QS; // [2][BQ][YS], swizzled
+  float* st = ys + 2 * BQ * YS; // [2][3][BQ]: the chunk's m, l and D
+  const int key0 = blockIdx.x * BKV, range = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const int mw = warp & 1, nw = warp >> 1;
+  const int c_begin = range * chunks_per_split;
+  const int c_end = min((lq + BQ - 1) / BQ, c_begin + chunks_per_split);
   q += (size_t)b * lq * DK;
   k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * dv;
-  dy += (size_t)b * lq * dv;
-  load_rows64(qs, q, q0, lq);
-
-  float mrow[4], lrow[4], drow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    mrow[i] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
-    lrow[i] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
-    drow[i] = r < lq ? dsum[(size_t)b * lq + r] : 0.f;
-  }
-  float acc[4][4];
-  zero_tile(acc);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows64(ks, k, k0, lkv);
-    __syncthreads();
-    float s[4][4], g[4][4];
-    score_tile(qs, ks, scale, s);
-    zero_tile(g);
-    for (int c0 = 0; c0 < dv; c0 += 64) {  // g = dy v^T over all of d_v
-      __syncthreads();
-      load_tile_f32<64>(dys, KS, dy, dv, q0, c0, lq);
-      load_tile_f32<64>(vs, KS, v, dv, k0, c0, lkv);
-      __syncthreads();
-      tile_dot_acc<64>(dys, KS, vs, KS, g);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = key < k_end ? expf(s[i][j] - mrow[i]) / lrow[i] : 0.f;
-        float dp = g[i][j];
-        if (DROP) {
-          const uint64_t idx = (uint64_t)((size_t)b * lq + q0 + ty * 4 + i) * lkv + key;
-          dp = tdnet_keep(drop.seed, idx, drop.threshold) ? dp * drop.inv_keep : 0.f;
-        }
-        dss[(ty * 4 + i) * KS + tx + 16 * j] = p * (dp - drow[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {  // acc += ds (64 x 64 keys) k (64 keys x 64)
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dss[(ty * 4 + i) * KS + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[kk * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
-    }
-  }
-  float* out = dq_part + ((size_t)split * n + b) * lq * DK;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= lq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[(size_t)r * DK + tx + 16 * j] = acc[i][j] * scale;
-  }
-}
-
-// Partial dv and dk of 64 keys, d_v slice blockIdx.y, over q chunks of split blockIdx.z:
-//   dv_part[qs, b, key, slice cols] = sum_r pd_rk dy_r[slice]
-//   dk_part[qs * slices + slice, b, key, :] = scale * sum_r ds_rk(slice) q_r
-template <bool DROP>
-__global__ void __launch_bounds__(THREADS)
-dkdv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-         const float* __restrict__ dy, const float* __restrict__ row_max,
-         const float* __restrict__ row_sum, const float* __restrict__ dsum,
-         float* __restrict__ dk_part, float* __restrict__ dv_part, int n, int lq, int lkv,
-         int dv, float scale, int chunks_per_split, Drop drop) {
-  extern __shared__ float smem[];
-  float* ks = smem;            // [64 keys][KS]
-  float* qs = ks + 64 * KS;    // [64 q][KS]
-  float* pds = qs + 64 * KS;   // [64 keys][KS]: pd^T
-  float* dss = pds + 64 * KS;  // [64 keys][KS]: ds^T (this slice's share)
-  float* vs = dss + 64 * KS;   // [64 keys][VS]: v[:, slice]
-  float* dys = vs + 64 * VS;   // [64 q][VS]: dy[:, slice]
-  float* ms = dys + 64 * VS;   // the q chunk's m, l and D
-  float* ls = ms + 64;
-  float* ds_ = ls + 64;
-  const int slice = blockIdx.y, slices = gridDim.y, qsplit = blockIdx.z / n,
-            b = blockIdx.z % n;
-  const int key0 = blockIdx.x * BK, d0 = slice * BD;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q_begin = qsplit * chunks_per_split * BQ;
-  const int q_end = min(lq, q_begin + chunks_per_split * BQ);
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * dv;
-  dy += (size_t)b * lq * dv;
+  v += (size_t)b * lkv * DV;
+  dy += (size_t)b * lq * DV;
   row_max += (size_t)b * lq;
   row_sum += (size_t)b * lq;
   dsum += (size_t)b * lq;
-  load_rows64(ks, k, key0, lkv);
-  load_tile_f32<BD>(vs, VS, v, dv, key0, d0, lkv);
+  ds += (size_t)b * lq * lds;
 
-  float dva[4][8], dka[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dva[i][j] = 0.f;
-  zero_tile(dka);
+  auto stage_q = [&](int c, int buf) {
+    stage_tile<BQ, DK, QS, true>(qs + buf * BQ * QS, q, DK, c * BQ, 0, lq);
+    if (threadIdx.x < 3 * BQ) {
+      const int which = threadIdx.x / BQ, r = c * BQ + threadIdx.x % BQ;
+      const float* src = which == 0 ? row_max : which == 1 ? row_sum : dsum;
+      cp_async4(st + buf * 3 * BQ + threadIdx.x, src + (r < lq ? r : 0), r < lq);
+    }
+  };
+  auto stage_y = [&](int c, int piece, int buf) {
+    stage_tile<BQ, PIECE, YS, true>(ys + buf * BQ * YS, dy, DV, c * BQ, piece * PIECE, lq);
+  };
+  stage_tile<BKV, DV, VT, false>(vs, v, DV, key0, 0, lkv);
+  stage_tile<BKV, DK, AS, false>(ks, k, DK, key0, 0, lkv);
+  stage_q(c_begin, 0);
+  stage_y(c_begin, 0, 0);
+  cp_commit();
 
-  for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-    __syncthreads();
-    load_rows64(qs, q, q0, lq);
-    load_tile_f32<BD>(dys, VS, dy, dv, q0, d0, lq);
-    if (threadIdx.x < 64) {
-      const int r = q0 + threadIdx.x;
-      ms[threadIdx.x] = r < lq ? row_max[r] : 0.f;
-      ls[threadIdx.x] = r < lq ? row_sum[r] : 1.f;
-      ds_[threadIdx.x] = r < lq ? dsum[r] : 0.f;
-    }
-    __syncthreads();
-    float st[4][4], g[4][4];  // rows: keys 4 ty + i; columns: q rows tx + 16 j
-    score_tile(ks, qs, scale, st);
-    zero_tile(g);
-    tile_dot_acc<BD>(vs, VS, dys, VS, g);  // g = v[:, slice] dy[:, slice]^T
+  // per-thread fragment pointers and offsets
+  const float* va = a_ptr(vs, VT, 16 * mw);
+  const int pa = a_offset(AS, 0);  // + 16 m AS: key tile m of pd^T and ds^T
+  int y_nk[2][2], y_kn[2][2], q_kn[2][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, r = q0 + c;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = key0 + ty * 4 + i;
-        const float p = (r < q_end && key < lkv) ? expf(st[i][j] - ms[c]) / ls[c] : 0.f;
-        float pd = p, dp = g[i][j];
-        if (DROP) {
-          const uint64_t idx = (uint64_t)((size_t)b * lq + r) * lkv + key;
-          const bool kept = tdnet_keep(drop.seed, idx, drop.threshold);
-          pd = kept ? p * drop.inv_keep : 0.f;
-          dp = kept ? dp * drop.inv_keep : 0.f;
-        }
-        pds[(ty * 4 + i) * KS + c] = pd;
-        dss[(ty * 4 + i) * KS + c] = p * (dp - (slice == 0 ? ds_[c] : 0.f));
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BQ; ++kk) {
-      float a[4], e[4], bd[8], bq[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = pds[(ty * 4 + i) * KS + kk];
-        e[i] = dss[(ty * 4 + i) * KS + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bd[j] = dys[kk * VS + tx + 16 * j];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bq[j] = qs[kk * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dva[i][j] = fmaf(a[i], bd[j], dva[i][j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dka[i][j] = fmaf(e[i], bq[j], dka[i][j]);
-      }
-    }
+  for (int j = 0; j < 2; ++j) {
+    nk_offsets(y_nk[j], YS, 16 * nw + 8 * j);
+    kn_offsets(y_kn[j], YS, 16 * warp + 8 * j);
+    kn_offsets(q_kn[j], QS, 16 * nw + 8 * j);
   }
-  float* dvo = dv_part + ((size_t)qsplit * n + b) * lkv * dv;
-  float* dko = dk_part + ((size_t)(qsplit * slices + slice) * n + b) * lkv * DK;
+
+  float dva[NP][2][2][4] = {}, dka[2][4] = {};
+  for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+    const int q0 = c * BQ;
+    const float* qt = qs + (it & 1) * BQ * QS;
+    const float* sm = st + (it & 1) * 3 * BQ;
+    cp_wait_all();
+    __syncthreads();
+
+    // s^T: keys 16 mw.., q columns 16 nw.., on the CUDA cores in the forward's order
+    // (score_tile: one fmaf a depth step from 0, then the scale), so that p is the
+    // forward's p to the bit and sum_j ds_ij vanishes to rounding as in exact arithmetic
+    float sa[2][4] = {};
+    {
+      const float* k0r = ks + (16 * mw + g) * AS;
+#pragma unroll 4
+      for (int d0 = 0; d0 < DK; d0 += 4) {
+        float4 kv[2], qv[2][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = key0 + ty * 4 + i;
+        for (int h = 0; h < 2; ++h) kv[h] = *reinterpret_cast<const float4*>(k0r + 8 * h * AS + d0);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int col = 16 * nw + 8 * j + 2 * t4 + c2;
+            qv[j][c2] = *reinterpret_cast<const float4*>(qt + swz(col, d0, QS));
+          }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 a = kv[e >> 1], b = qv[j][e & 1];
+            float acc = sa[j][e];
+            acc = fmaf(b.x, a.x, acc);
+            acc = fmaf(b.y, a.y, acc);
+            acc = fmaf(b.z, a.z, acc);
+            acc = fmaf(b.w, a.w, acc);
+            sa[j][e] = acc;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[j][e] *= scale;
+    }
+    float p[2][4];
+    uint32_t keep = 0u;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = 16 * mw + g + 8 * (e >> 1), col = 16 * nw + 8 * j + 2 * t4 + (e & 1);
+        const int key = key0 + kr, r = q0 + col;
+        const bool valid = key < lkv && r < lq;
+        const float pv = valid ? expf(sa[j][e] - sm[col]) / sm[BQ + col] : 0.f;
+        float pd = pv;
+        if (DROP) {
+          const bool kept =
+              valid && tdnet_keep(drop.seed, ((uint64_t)b * lq + r) * lkv + key, drop.threshold);
+          keep |= (uint32_t)kept << (4 * j + e);
+          pd = kept ? pv * drop.inv_keep : 0.f;
+        }
+        p[j][e] = pv;
+        split(pd, pdh[kr * AS + col], pdl[kr * AS + col]);
+      }
+
+    float ga[2][4] = {};  // dpd^T, the tiles of sa
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+      const int buf = (it * NP + pc) & 1;
+      cp_wait_all();
+      __syncthreads();  // this piece landed, pd^T written, the other buffer free
+      if (pc + 1 < NP) {
+        stage_y(c, pc + 1, buf ^ 1);
+      } else if (c + 1 < c_end) {
+        stage_q(c + 1, (it + 1) & 1);
+        stage_y(c + 1, 0, buf ^ 1);
+      }
+      cp_commit();
+      const float* yt = ys + buf * BQ * YS;
+      // dpd^T += v[:, piece] dy_piece^T, two k-steps a fresh accumulator
+#pragma unroll 2
+      for (int c0 = 0; c0 < PIECE; c0 += 16) {
+        float tg[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 16; kk += 8) {
+          FragA a;
+          load_a(a, va + pc * PIECE + c0 + kk, VT);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            FragB bf;
+            load_b(bf, yt, y_nk[j], c0 + kk);
+            mma3(tg[j], a, bf);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) flush(ga[j], tg[j]);
+      }
+      // dv[:, piece] += pd^T dy_piece: all 32 keys, columns 16 w.. of the piece; the
+      // chunk's 8 k-steps in a fresh accumulator
+      float tv[2][2][4] = {};
+#pragma unroll 2
+      for (int r0 = 0; r0 < BQ; r0 += 8) {
+        FragA a[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) load_a_split(a[m], pdh + pa + 16 * m * AS + r0,
+                                                 pdl + pa + 16 * m * AS + r0, AS);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          FragB bf;
+          load_b(bf, yt, y_kn[j], r0 * YS);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma3(tv[m][j], a[m], bf);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) flush(dva[pc][m][j], tv[m][j]);
+    }
+
+    // ds = p (mask(dpd) - D)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = 16 * mw + g + 8 * (e >> 1), col = 16 * nw + 8 * j + 2 * t4 + (e & 1);
+        const int r = q0 + col;
+        float dp = ga[j][e];
+        if (DROP) dp = (keep >> (4 * j + e)) & 1u ? dp * drop.inv_keep : 0.f;
+        const float dsv = p[j][e] * (dp - sm[2 * BQ + col]);
+        split(dsv, dsh[kr * AS + col], dsl[kr * AS + col]);
+        if (r < lq) ds[(size_t)r * lds + key0 + kr] = dsv;
+      }
+    __syncthreads();
+    // dk += ds^T q: keys 16 mw.., dk columns 16 nw..; the chunk in a fresh accumulator
+    float tk[2][4] = {};
+#pragma unroll 2
+    for (int r0 = 0; r0 < BQ; r0 += 8) {
+      FragA a;
+      load_a_split(a, dsh + pa + 16 * mw * AS + r0, dsl + pa + 16 * mw * AS + r0, AS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        FragB bf;
+        load_b(bf, qt, q_kn[j], r0 * QS);
+        mma3(tk[j], a, bf);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) flush(dka[j], tk[j]);
+  }
+
+  float* dvo = dv_part + ((size_t)range * n + b) * lkv * DV;
+  float* dko = dk_part + ((size_t)range * n + b) * lkv * DK;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 16 * m + g + 8 * h;
+      if (key >= lkv) continue;
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<float2*>(dvo + (size_t)key * DV + pc * PIECE + 16 * warp + 8 * j +
+                                     2 * t4) =
+              make_float2(dva[pc][m][j][2 * h], dva[pc][m][j][2 * h + 1]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 16 * mw + g + 8 * h;
     if (key >= lkv) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dvo[(size_t)key * dv + d0 + tx + 16 * j] = dva[i][j];
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<float2*>(dko + (size_t)key * DK + 16 * nw + 8 * j + 2 * t4) =
+          make_float2(dka[j][2 * h] * scale, dka[j][2 * h + 1] * scale);
+  }
+}
+
+// dq_part[split, b, r, :] = scale sum over the 32-key steps of split blockIdx.y of
+// ds[b, r, keys] k[b, keys, :], for rows [64 blockIdx.x, + 64). Warp w: rows 16 (w % 4),
+// columns 32 (w / 4).
+__global__ void __launch_bounds__(THREADS)
+dq_tc(const float* __restrict__ ds, const float* __restrict__ k, float* __restrict__ dq_part,
+      int n, int lq, int lkv, int lds, float scale, int steps_per_split) {
+  __shared__ __align__(16) float as[2][GM * GAS];  // ds rows x 32 keys
+  __shared__ __align__(16) float bs[2][GK * QS];   // 32 keys x 64, swizzled
+  const int r0 = blockIdx.x * GM, split = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const int mw = warp & 3, nw = warp >> 2;
+  const int s_begin = split * steps_per_split;
+  const int s_end = min(lds / GK, s_begin + steps_per_split);
+  ds += (size_t)b * lq * lds;
+  k += (size_t)b * lkv * DK;
+  auto stage = [&](int s, int buf) {
+    stage_tile<GM, GK, GAS, false>(as[buf], ds, lds, r0, s * GK, lq);
+    stage_tile<GK, DK, QS, true>(bs[buf], k, DK, s * GK, 0, lkv);
+  };
+  stage(s_begin, 0);
+  cp_commit();
+  const float* a0p = a_ptr(as[0], GAS, 16 * mw);
+  int b_kn[4][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dko[(size_t)key * DK + tx + 16 * j] = dka[i][j] * scale;
+  for (int j = 0; j < 4; ++j) kn_offsets(b_kn[j], QS, 32 * nw + 8 * j);
+  float acc[4][4] = {};
+  for (int s = s_begin, it = 0; s < s_end; ++s, ++it) {
+    cp_wait_all();
+    __syncthreads();
+    if (s + 1 < s_end) {
+      stage(s + 1, (it + 1) & 1);
+      cp_commit();
+    }
+    const float* at = a0p + (it & 1) * GM * GAS;
+    const float* bt = bs[it & 1];
+    float tq[4][4] = {};  // the step's 4 k-steps in a fresh accumulator
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 8) {
+      FragA a;
+      load_a(a, at + kk, GAS);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragB bf;
+        load_b(bf, bt, b_kn[j], kk * QS);
+        mma3(tq[j], a, bf);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) flush(acc[j], tq[j]);
+  }
+  float* out = dq_part + ((size_t)split * n + b) * lq * DK;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * mw + g + 8 * h;
+    if (r >= lq) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(out + (size_t)r * DK + 32 * nw + 8 * j + 2 * t4) =
+          make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
   }
 }
 
@@ -283,6 +566,7 @@ int sum_into(const float* parts, float* out, int nparts, size_t count, cudaStrea
   return (int)cudaGetLastError();
 }
 
+
 template <bool DROP>
 int forward(const float* q, const float* k, const float* v, float* o, float* row_max,
             float* row_sum, int n, int lq, int lkv, int dv, float scale, Drop drop,
@@ -300,45 +584,58 @@ int forward(const float* q, const float* k, const float* v, float* o, float* row
   return (int)cudaGetLastError();
 }
 
-template <bool DROP>
+
+template <int NP, bool DROP>
 int backward(const float* q, const float* k, const float* v, const float* o, const float* dy,
-             const float* row_max, const float* row_sum, float* dsum, float* dq, float* dk,
-             float* dv_out, float* dq_part, float* dk_part, float* dv_part, int n, int lq,
-             int lkv, int dv, float scale, int ksplit, int qsplit, Drop drop, cudaStream_t st) {
+             const float* row_max, const float* row_sum, float* dsum, float* ds, float* dq,
+             float* dk, float* dv_out, float* dq_part, float* dk_part, float* dv_part, int n,
+             int lq, int lkv, float scale, int q_per, int k_per, Drop drop, cudaStream_t st) {
+  constexpr int DV = NP * PIECE;
   const int rows = n * lq;
   rowdot_f32<<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, st>>>(dy, o, dsum, rows,
-                                                                            dv);
+                                                                            DV);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int kchunks = (lkv + BK - 1) / BK, qchunks = (lq + BQ - 1) / BQ;
-  err = cudaFuncSetAttribute(dq_f32<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DQ_SMEM);
+  const int key_blocks = (lkv + BKV - 1) / BKV, lds = key_blocks * BKV;
+  const int qsplit = ((lq + BQ - 1) / BQ + q_per - 1) / q_per;
+  const int ksplit = (key_blocks + k_per - 1) / k_per;
+  constexpr size_t smem = kv_smem<NP>();
+  err = cudaFuncSetAttribute(dkdv_tc<NP, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 g_dq(qchunks, ksplit, n);
-  dq_f32<DROP><<<g_dq, THREADS, DQ_SMEM, st>>>(q, k, v, dy, row_max, row_sum, dsum, dq_part, n,
-                                                lq, lkv, dv, scale,
-                                                (kchunks + ksplit - 1) / ksplit, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(dkdv_f32<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DKDV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int slices = dv / BD;
-  const dim3 g_kv(kchunks, slices, qsplit * n);
-  dkdv_f32<DROP><<<g_kv, THREADS, DKDV_SMEM, st>>>(q, k, v, dy, row_max, row_sum, dsum, dk_part,
-                                                    dv_part, n, lq, lkv, dv, scale,
-                                                    (qchunks + qsplit - 1) / qsplit, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  dkdv_tc<NP, DROP><<<dim3(key_blocks, qsplit, n), THREADS, smem, st>>>(
+      q, k, v, dy, row_max, row_sum, dsum, ds, dk_part, dv_part, n, lq, lkv, lds, scale, q_per,
+      drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dq_tc<<<dim3((lq + GM - 1) / GM, ksplit, n), THREADS, 0, st>>>(ds, k, dq_part, n, lq, lkv, lds,
+                                                                 scale, k_per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   if ((err = (cudaError_t)sum_into(dq_part, dq, ksplit, (size_t)n * lq * DK, st)) != cudaSuccess)
     return (int)err;
-  if ((err = (cudaError_t)sum_into(dk_part, dk, qsplit * slices, (size_t)n * lkv * DK, st)) !=
-      cudaSuccess)
+  if ((err = (cudaError_t)sum_into(dk_part, dk, qsplit, (size_t)n * lkv * DK, st)) != cudaSuccess)
     return (int)err;
-  return sum_into(dv_part, dv_out, qsplit, (size_t)n * lkv * dv, st);
+  return sum_into(dv_part, dv_out, qsplit, (size_t)n * lkv * DV, st);
+}
+
+template <bool DROP>
+int backward_dv(int dv, const float* q, const float* k, const float* v, const float* o,
+                const float* dy, const float* row_max, const float* row_sum, float* dsum,
+                float* ds, float* dq, float* dk, float* dv_out, float* dq_part, float* dk_part,
+                float* dv_part, int n, int lq, int lkv, float scale, int q_per, int k_per,
+                Drop drop, cudaStream_t st) {
+#define TDNET_BWD(NP)                                                                         \
+  backward<NP, DROP>(q, k, v, o, dy, row_max, row_sum, dsum, ds, dq, dk, dv_out, dq_part,     \
+                     dk_part, dv_part, n, lq, lkv, scale, q_per, k_per, drop, st)
+  switch (dv) {
+    case 128: return TDNET_BWD(1);
+    case 256: return TDNET_BWD(2);
+    case 384: return TDNET_BWD(3);
+    case 512: return TDNET_BWD(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TDNET_BWD
 }
 
 }  // namespace
@@ -362,28 +659,28 @@ int tdnet_attention_train_fwd(const void* q, const void* k, const void* v, void*
                         row_sum, n, lq, lkv, dv, scale, drop, st);
 }
 
-// The backward of the call above, given its o and stats and the upstream dy [n, lq, dv].
-// Scratch: dsum [n, lq], dq_part [ksplit, n, lq, 64], dk_part [qsplit * dv / 128, n, lkv, 64],
-// dv_part [qsplit, n, lkv, dv]. Outputs dq [n, lq, 64], dk [n, lkv, 64], dv [n, lkv, dv].
+
+// The backward of the call above, given its o and stats and the upstream dy [n, lq, dv],
+// dv in {128, 256, 384, 512}. Scratch: dsum [n, lq], ds [n, lq, lds] with lds = lkv rounded
+// up to 32, dq_part [ksplit, n, lq, 64], dk_part [qsplit, n, lkv, 64], dv_part [qsplit, n,
+// lkv, dv], where qsplit = ceil(ceil(lq / 64) / q_per) and ksplit = ceil((lds / 32) / k_per)
+// (q_per 64-row q chunks, k_per 32-key steps a split). Outputs dq [n, lq, 64], dk [n, lkv,
+// 64], dv [n, lkv, dv].
 int tdnet_attention_train_bwd(const void* q, const void* k, const void* v, const void* o,
-                              const void* dy, const void* stats, void* dsum, void* dq, void* dk,
-                              void* dv_out, void* dq_part, void* dk_part, void* dv_part, int n,
-                              int lq, int lkv, int dv, float scale, int ksplit, int qsplit,
-                              unsigned int seed, unsigned int drop_threshold, float inv_keep,
-                              void* stream) {
+                              const void* dy, const void* stats, void* dsum, void* ds, void* dq,
+                              void* dk, void* dv_out, void* dq_part, void* dk_part,
+                              void* dv_part, int n, int lq, int lkv, int dv, float scale,
+                              int q_per, int k_per, unsigned int seed,
+                              unsigned int drop_threshold, float inv_keep, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* row_max = (const float*)stats;
   const float* row_sum = row_max + (size_t)n * lq;
   const Drop drop{seed, drop_threshold, inv_keep};
-  if (drop_threshold)
-    return backward<true>((const float*)q, (const float*)k, (const float*)v, (const float*)o,
-                          (const float*)dy, row_max, row_sum, (float*)dsum, (float*)dq,
-                          (float*)dk, (float*)dv_out, (float*)dq_part, (float*)dk_part,
-                          (float*)dv_part, n, lq, lkv, dv, scale, ksplit, qsplit, drop, st);
-  return backward<false>((const float*)q, (const float*)k, (const float*)v, (const float*)o,
-                         (const float*)dy, row_max, row_sum, (float*)dsum, (float*)dq,
-                         (float*)dk, (float*)dv_out, (float*)dq_part, (float*)dk_part,
-                         (float*)dv_part, n, lq, lkv, dv, scale, ksplit, qsplit, drop, st);
+  auto run = drop_threshold ? backward_dv<true> : backward_dv<false>;
+  return run(dv, (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+             (const float*)dy, row_max, row_sum, (float*)dsum, (float*)ds, (float*)dq,
+             (float*)dk, (float*)dv_out, (float*)dq_part, (float*)dk_part, (float*)dv_part, n, lq,
+             lkv, scale, q_per, k_per, drop, st);
 }
 
 const char* tdnet_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

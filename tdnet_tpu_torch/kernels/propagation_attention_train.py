@@ -11,12 +11,16 @@ for bit. f32 only.
 ``propagation_attention_train`` takes the plain version (autograd) for CPU
 tensors and the kernels for CUDA tensors;
 ``propagation_attention_train.launches`` and ``.backward_launches`` count
-the kernel's forward and backward launches.
+the kernel's forward and backward launches. The backward runs on the tensor
+cores in 3xTF32 and takes d_v up to 512; ``backward_plan`` sizes its grid and
+scratch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +31,11 @@ from tdnet_tpu_torch.ops.dropout_mask import keep_mask, keep_threshold
 SOURCES = ("propagation_attention_train.cu",)
 D_K = 64        # the key width the kernel takes
 DV_TILE = 128   # d_v must be a multiple of the kernel's column slice
-BLOCK = 64      # q rows and keys per tile
+DV_MAX = 512    # the backward keeps a block's dv [32, d_v] in registers
+Q_CHUNK = 64    # q rows a step of the backward's KV-major pass
+KEY_BLOCK = 32  # keys a block of the KV-major pass, and a step of the dq pass
+DQ_ROWS = 64    # dq rows a block of the dq pass
+MAX_QSPLIT = 16
 
 
 def propagation_attention_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,7 +55,7 @@ def build() -> ctypes.CDLL:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.tdnet_attention_train_fwd.argtypes = [p] * 5 + [i] * 4 + [f, u, u, f, p]
     lib.tdnet_attention_train_fwd.restype = ctypes.c_int
-    lib.tdnet_attention_train_bwd.argtypes = [p] * 13 + [i] * 4 + [f, i, i, u, u, f, p]
+    lib.tdnet_attention_train_bwd.argtypes = [p] * 14 + [i] * 4 + [f, i, i, u, u, f, p]
     lib.tdnet_attention_train_bwd.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
@@ -82,15 +90,44 @@ def _drop_args(rate: float, seed: int) -> tuple[int, int, float]:
     return seed & 0xFFFFFFFF, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _splits(n: int, lq: int, lkv: int, dv: int, device) -> tuple[int, int]:
-    """How many ranges of key chunks (dq pass) and of q chunks (dk/dv pass) the
-    backward splits over blocks, so that each pass has about four blocks per
-    SM; the partial results are summed after."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    qchunks, kchunks = -(-lq // BLOCK), -(-lkv // BLOCK)
-    ksplit = min(kchunks, max(1, -(-4 * sms // (qchunks * n))))
-    qsplit = min(qchunks, max(1, -(-4 * sms // (kchunks * (dv // DV_TILE) * n))))
-    return ksplit, qsplit
+class BackwardPlan(NamedTuple):
+    """The backward's grid and scratch shapes (see the C interface)."""
+    q_per: int      # 64-row q chunks a block of the KV-major pass walks
+    qsplit: int     # q ranges: dk and dv partials
+    k_per: int      # 32-key steps a block of the dq pass walks
+    ksplit: int     # key ranges: dq partials
+    ds: tuple       # [n, Lq, Lkv rounded up to 32]
+    dq_part: tuple  # [ksplit, n, Lq, 64]
+    dk_part: tuple  # [qsplit, n, Lkv, 64]
+    dv_part: tuple  # [qsplit, n, Lkv, d_v]
+
+
+@functools.lru_cache(maxsize=64)
+def backward_plan(n: int, lq: int, lkv: int, dv: int, sms: int) -> BackwardPlan:
+    """Split the backward over the card's ``sms`` SMs.
+
+    The KV-major pass runs one block an SM, a block per 32 keys and q range:
+    the q ranges are chosen to minimise waves x (chunks a block + 2), with at
+    most 16 ranges (the 2 stands for a block's set-up and write-out). The dq
+    pass splits its keys until it has two blocks an SM.
+    """
+    if dv % DV_TILE or not DV_TILE <= dv <= DV_MAX:
+        raise ValueError(f"the backward takes d_v in 128, 256, 384, 512, got {dv}")
+    ceil = lambda a, b: -(-a // b)
+    key_blocks, qchunks = ceil(lkv, KEY_BLOCK), ceil(lq, Q_CHUNK)
+    cost = lambda per: (ceil(key_blocks * n * ceil(qchunks, per), sms) * (per + 2), -per)
+    q_per = min(range(ceil(qchunks, MAX_QSPLIT), qchunks + 1), key=cost)
+    qsplit = ceil(qchunks, q_per)
+    k_per = ceil(key_blocks, max(1, ceil(2 * sms, ceil(lq, DQ_ROWS) * n)))
+    ksplit = ceil(key_blocks, k_per)
+    return BackwardPlan(q_per, qsplit, k_per, ksplit, ds=(n, lq, key_blocks * KEY_BLOCK),
+                        dq_part=(ksplit, n, lq, D_K), dk_part=(qsplit, n, lkv, D_K),
+                        dv_part=(qsplit, n, lkv, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int | None) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _err(lib, err: int, what: str) -> None:
@@ -125,18 +162,16 @@ class _AttentionTrainKernel(torch.autograd.Function):
         lib = build()
         n, lq, _ = q.shape
         lkv, dv = v.shape[1], v.shape[2]
-        ksplit, qsplit = _splits(n, lq, lkv, dv, q.device)
-        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)
+        plan = backward_plan(n, lq, lkv, dv, _sm_count(q.device.index))
+        new = lambda shape: torch.empty(shape, dtype=torch.float32, device=q.device)
         dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dsum = new(n, lq)
-        dq_part = new(ksplit, n, lq, D_K)
-        dk_part = new(qsplit * (dv // DV_TILE), n, lkv, D_K)
-        dv_part = new(qsplit, n, lkv, dv)
+        dsum, ds = new((n, lq)), new(plan.ds)
+        dq_part, dk_part, dv_part = new(plan.dq_part), new(plan.dk_part), new(plan.dv_part)
         _err(lib, lib.tdnet_attention_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dy.data_ptr(),
-            stats.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
-            dq_part.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), n, lq, lkv, dv,
-            ctx.scale, ksplit, qsplit, *ctx.drop,
+            stats.data_ptr(), dsum.data_ptr(), ds.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv_.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), n, lq,
+            lkv, dv, ctx.scale, plan.q_per, plan.k_per, *ctx.drop,
             torch.cuda.current_stream(q.device).cuda_stream), "backward")
         propagation_attention_train.backward_launches += 1
         return dq, dk, dv_, None, None, None

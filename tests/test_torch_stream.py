@@ -98,7 +98,9 @@ def test_synthetic_frames_pan_a_seeded_scene():
     ("void at::native::(anonymous namespace)::adaptive_average_pool<float>(float const*, ...)",
      "adaptive pool"),
     ("Memcpy DtoD (Device -> Device)", "other"),
-    ("void (anonymous namespace)::dkdv_f32<true>(float const*, ...)",
+    ("void (anonymous namespace)::dkdv_tc<4, true>(float const*, ...)",
+     "K2 training attention backward"),
+    ("(anonymous namespace)::dq_tc(float const*, float const*, float*, ...)",
      "K2 training attention backward"),
     ("void (anonymous namespace)::pv_f32<true>(float const*, ...)", "K1 propagation attention"),
     ("(anonymous namespace)::dropout_vec4(float4 const*, ...)", "K3 dropout"),
