@@ -10,7 +10,11 @@ Phases (any failure exits non-zero):
 2. the propagation-attention kernel (K1) against its plain PyTorch version at
    the streaming hop shapes (and a ragged batch of 2), f32 (TF32 off) and
    bf16, with and without the fc; max abs error and the median time of each
-   (CUDA events), and ``F.scaled_dot_product_attention`` at the TD2 hop;
+   (CUDA events), and the kernels each f32 call runs with their device times
+   (a ``torch.profiler`` trace); at the TD2 hop with the fc,
+   ``F.scaled_dot_product_attention`` followed by ``torch.addmm`` (the same
+   function), SDPA alone, and the bound both ways (f32 on the CUDA cores,
+   3xTF32 on the tensor cores);
 3. TD4-PSP18 at 769x1537 in f32 through ``Streamer`` on seeded random weights
    and 12 seeded synthetic frames, against the same stream with the plain
    attention (1e-3 x max|logits|); 3 kernel launches per warm frame; latency,
@@ -28,9 +32,9 @@ Phases (any failure exits non-zero):
    the tensor cores) bitwise equal across two runs; at each hop, kernel,
    plain and ``F.scaled_dot_product_attention`` (scale 1/8, no dropout)
    times, forward and backward, the kernels that the kernel's and SDPA's
-   backward run with their device times (from a ``torch.profiler`` trace),
-   and the backward's bound both ways (f32 on the CUDA cores, 3xTF32 on the
-   tensor cores);
+   forward and backward run with their device times (from a
+   ``torch.profiler`` trace), and the forward's and the backward's bounds
+   both ways (f32 on the CUDA cores, 3xTF32 on the tensor cores);
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
    backward (from a seeded dy) bit-identical, the same mask; keep rate within
    0.9 +- 1e-3;
@@ -97,8 +101,9 @@ Phases (any failure exits non-zero):
 The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward, K2 backward, K3, K4
 per dtype (at the TD2 stem shape) and K5 forward and dgrad (at 512->512 d4),
-each with launches, error, times, library time and bound; the last line is
-``{"ok": true, "device": {...}}``.
+each with launches, error, times, library time and bound (K1's library time
+is SDPA followed by ``torch.addmm``, with SDPA alone beside it); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -195,6 +200,33 @@ def phase_build() -> None:
     propagation_attention.build()
 
 
+def device_kernels(fn) -> str:
+    """The kernels one call of ``fn`` runs, with their device ms, from a
+    ``torch.profiler`` trace of its second call: the first is the tracer's
+    warm-up step (a trace started at a call dropped its first launches)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    traced = []
+    with torch.profiler.profile(
+            activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = sorted((r for r in traced[0] if r.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r.self_device_time_total)
+    return "; ".join(f"{r.key[:90]} {r.self_device_time_total / 1e3:.3f}" for r in rows)
+
+
+def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
+    """The forward's bound both ways: every product in f32 on the CUDA cores,
+    and in 3xTF32 on the tensor cores (the card's rate for f32-accurate
+    products, and K1's route for p v and the fc)."""
+    flops = 2 * n * lq * lkv * (D_K + D_V) + (2 * n * lq * D_V * D_V if fc else 0)
+    return dict(flops=flops, f32=bound(flops, nbytes, PEAK_F32),
+                tf32x3=bound(flops, nbytes, PEAK_TF32X3))
+
+
 def phase_kernel(card: str) -> dict:
     from tdnet_tpu_torch.kernels.propagation_attention import (
         fused_propagation_attention, propagation_attention_plain)
@@ -225,24 +257,37 @@ def phase_kernel(card: str) -> dict:
                 if not (got.shape == ref.shape and np.isfinite(err) and err <= tol):
                     raise AssertionError(f"kernel disagrees at {n}x{lq}x{lkv} {dtype} fc={fc}: "
                                          f"max abs err {err} > {tol}")
-                ms = median_ms(lambda: fused_propagation_attention(
-                    t["q"], t["k"], t["v"], temperature=8.0, **fkw))
+                run = lambda: fused_propagation_attention(t["q"], t["k"], t["v"],
+                                                          temperature=8.0, **fkw)
+                ms = median_ms(run)
                 plain_ms = median_ms(lambda: propagation_attention_plain(
                     t["q"], t["k"], t["v"], temperature=8.0, **fkw))
                 name = "bf16" if dtype == torch.bfloat16 else "f32"
                 log(f"[2] n={n} {lq:6d} x {lkv:5d} {name:4s} fc={int(fc)}  max_abs_err {err:.3e} "
                     f"(tol {tol:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+                if dtype == torch.float32:
+                    log(f"[2]   kernels (device ms): {device_kernels(run)}")
                 if (n, lq, lkv) == HEADLINE and fc:
-                    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-                        t["q"], t["k"], t["v"], scale=1.0 / 8.0))
-                    flops = 2 * n * lq * lkv * (D_K + D_V) + 2 * n * lq * D_V * D_V
+                    sdpa = lambda: F.scaled_dot_product_attention(
+                        t["q"], t["k"], t["v"], scale=1.0 / 8.0)
+                    sdpa_ms = median_ms(sdpa)
+                    # the same function as the kernel with the fc: SDPA, then addmm
+                    lib_ms = median_ms(lambda: torch.addmm(t["b"], sdpa().view(-1, D_V), t["w"]))
                     nbytes = t["q"].element_size() * (
                         n * lq * (D_K + D_V) + n * lkv * (D_K + D_V) + D_V * D_V + D_V)
-                    headline[name] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        **bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32))
-                    log(f"[2]   F.scaled_dot_product_attention (no fc) {lib_ms:.3f} ms; bound "
-                        f"{headline[name]['bound_ms']:.3f} ms by {headline[name]['bound_by']}")
+                    b = attention_bounds(n, lq, lkv, fc, nbytes)
+                    kernel_bound = b["tf32x3"] if dtype == torch.float32 else \
+                        bound(b["flops"], nbytes, PEAK_BF16)
+                    headline[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          library_ms=lib_ms, library_sdpa_ms=sdpa_ms,
+                                          **kernel_bound)
+                    log(f"[2]   F.scaled_dot_product_attention then torch.addmm (the fc) "
+                        f"{lib_ms:.3f} ms, SDPA alone {sdpa_ms:.3f} ms; {b['flops'] / 1e9:.2f} "
+                        f"GFLOP, bound {kernel_bound['bound_ms']:.3f} ms by "
+                        f"{kernel_bound['bound_by']}" + (
+                            f" in 3xTF32 on the tensor cores ({PEAK_TF32X3 / 1e12:.0f} TFLOP/s), "
+                            f"{b['f32']['bound_ms']:.3f} ms in f32 on the CUDA cores"
+                            if dtype == torch.float32 else " in bf16"))
             del t, ref_in
     return headline
 
@@ -404,16 +449,9 @@ def _train_attention_times(q, k, v, dy, k2, p2) -> dict:
         out = fwd()
         bwd = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
         times[name] = (median_ms(fwd), median_ms(bwd))
-        if name != "plain":   # the kernels each backward runs, from a profiler trace
-            acts = [torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                bwd()
-                torch.cuda.synchronize()
-            rows = sorted((r for r in prof.key_averages()
-                           if r.device_type == torch.autograd.DeviceType.CUDA),
-                          key=lambda r: -r.self_device_time_total)
-            log(f"[7] {name} backward kernels (device ms): " + "; ".join(
-                f"{r.key[:90]} {r.self_device_time_total / 1e3:.3f}" for r in rows))
+        if name != "plain":   # the kernels each forward and backward runs
+            log(f"[7] {name} forward kernels (device ms): {device_kernels(fwd)}")
+            log(f"[7] {name} backward kernels (device ms): {device_kernels(bwd)}")
         del out
     return times
 
@@ -470,12 +508,16 @@ def phase_train_attention(card: str) -> dict:
             f"{times['plain'][1]:.3f}, F.scaled_dot_product_attention (no dropout) "
             f"{times['sdpa'][0]:.3f} / {times['sdpa'][1]:.3f}")
         io = 4 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, f32
-        fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_F32)
+        fwd_bs = attention_bounds(1, lq, lkv, False, io)
+        fwd_b = fwd_bs["tf32x3"]   # the card's rate for f32-accurate products
         bwd_flops, bwd_bytes = 2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq
         bwd_b = bound(bwd_flops, bwd_bytes, PEAK_TF32X3)
         bwd_b32 = bound(bwd_flops, bwd_bytes, PEAK_F32)
-        log(f"[7] {lq} x {lkv} bounds: forward {fwd_b['bound_ms']:.3f} ms (by operations at "
-            f"{PEAK_F32 / 1e12:.0f} TFLOP/s f32), backward {bwd_flops / 1e9:.2f} GFLOP: "
+        log(f"[7] {lq} x {lkv} bounds: forward {fwd_bs['flops'] / 1e9:.2f} GFLOP: "
+            f"{fwd_b['bound_ms']:.3f} ms in 3xTF32 on the tensor cores, "
+            f"{fwd_bs['f32']['bound_ms']:.3f} ms in f32 on the CUDA cores; the kernel's "
+            f"forward at {fwd_bs['flops'] / times['kernel'][0] / 1e9:.1f} TFLOP/s; backward "
+            f"{bwd_flops / 1e9:.2f} GFLOP: "
             f"{bwd_b['bound_ms']:.3f} ms in 3xTF32 on the tensor cores "
             f"({PEAK_TF32X3 / 1e12:.0f} TFLOP/s), {bwd_b32['bound_ms']:.3f} ms in f32 on the "
             f"CUDA cores; the kernel's backward at "

@@ -55,10 +55,10 @@ REPEATS = 7
 FAMILIES = (
     ("K4 fused stem", ("stem_bf16", "stem_f32")),
     ("K5 dilated conv", ("dil_conv_f32",)),
-    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "sum_parts")),
+    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32")),
     ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
-    # in a train step this family is K2's forward, which runs K1's f32 kernels
-    ("K1 propagation attention", ("stats_f32", "pv_f32", "fc_f32",
+    # in a train step this family is K2's forward: stats_f32, shared with K1, and pv_fma
+    ("K1 propagation attention", ("stats_f32", "pv_tc", "fc_tc", "pv_fma",
                                   "stats_bf16", "pv_bf16", "fc_bf16")),
     ("convolutions (cuDNN)", ("conv", "xmma", "cutlass", "cudnn", "gemm",
                               "nchwToNhwc", "nhwcToNchw")),
@@ -69,7 +69,12 @@ FAMILIES = (
 )
 
 
-def kernel_family(name: str) -> str:
+def kernel_family(name: str, train: bool = False) -> str:
+    """The family of a kernel name. ``sum_parts`` sums the partial outputs of K1's
+    f32 key ranges and of K2's backward: a stream runs only the first, a train
+    step only the second."""
+    if "sum_parts" in name:
+        return "K2 training attention backward" if train else "K1 propagation attention"
     for family, fragments in FAMILIES:
         if any(f in name for f in fragments):
             return family
@@ -81,13 +86,13 @@ def smi(query: str) -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def device_breakdown(prof, n_frames: int):
+def device_breakdown(prof, n_frames: int, train: bool = False):
     """(device ms per frame, ms per frame by family, the 12 longest kernels)."""
     kernels = [r for r in prof.key_averages()
                if r.device_type == torch.autograd.DeviceType.CUDA]
     families: dict[str, float] = {}
     for r in kernels:
-        fam = kernel_family(r.key)
+        fam = kernel_family(r.key, train)
         families[fam] = families.get(fam, 0.0) + r.self_device_time_total / 1e3 / n_frames
     total = sum(families.values())
     top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:12]
@@ -168,7 +173,7 @@ def profile_train(conv_wgrad: str, out: str | None, shapes: bool, steps: int = 8
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / traced
     after = smi("clocks.sm,power.draw,temperature.gpu")
-    device_ms, families, top = device_breakdown(prof, traced)
+    device_ms, families, top = device_breakdown(prof, traced, train=True)
     write_tables(prof, out, f"profile_td4-psp18-train_float32_{conv_wgrad}", shapes, 80)
     return {"model": "td4-psp18-train", "dtype": "float32", "conv_wgrad": conv_wgrad,
             "in_size": [769, 1537],

@@ -1,12 +1,22 @@
-// f32 tiles of the propagation attention on the CUDA cores, shared by the inference
-// kernel (propagation_attention.cu, K1) and the training kernel
+// The f32 propagation attention's shared part, for the inference kernel's f32 path
+// (propagation_attention.cu, K1) and the training kernel's forward
 // (propagation_attention_train.cu, K2):
-//   stats_f32: each q row's max m and sum l = sum_j exp(s_ij - m) over all keys;
-//   pv_f32:    o = p v with p = exp(s - m) / l exact (no rescaling), optionally with
-//              dropout: p -> keep ? p / (1 - rate) : 0, the mask from dropout_hash.cuh.
-// Blocks of 256 threads as 16 x 16; a thread owns 4 rows (4 ty + i) and the columns
-// tx + 16 j of a 64-wide tile. Keys are walked in chunks of 64; d_v is split over
-// blocks of 128 columns. Ragged q and key edges are masked; nothing is padded.
+//   stats_f32: each q row's max m and sum l = sum_j exp(s_ij - m) over all keys, on the CUDA
+//              cores (blocks of 256 threads as 16 x 16; a thread owns rows 4 ty + i and keys
+//              tx + 16 j of a 64 x 64 score tile);
+//   chunk_p:   p = exp(s - m) / l exact (no rescaling), optionally with dropout (p -> keep ?
+//              p / (1 - rate) : 0, the mask from dropout_hash.cuh), for a 64 x 32 tile of the
+//              PV passes: K1's pv_tc (p v in 3xTF32 on the tensor cores) and K2's pv_fma (p v
+//              on the CUDA cores in the order of a plain f32 GEMM);
+//   sum_parts: partial outputs summed in a fixed order, float4s: K1's key ranges and the
+//              q and key ranges of K2's backward. No atomics: two runs give the same bits.
+//
+// s stays on the CUDA cores, each score one fmaf a depth step from 0 in depth order and then
+// the scale, in stats_f32, both PV passes and K2's backward alike: p is the same to the bit
+// in all of them, sum_j p_ij agrees with the saved l, and the gradient of a bias shared by
+// all keys (sum_j ds_ij, zero in exact arithmetic) stays at rounding level; s from TF32
+// products broke that (PERF.md, run W1). The score is 64 of the 64 + d_v FLOP pairs of an
+// element. Ragged q and key edges are masked; nothing is padded.
 
 #pragma once
 
@@ -15,20 +25,22 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int DK = 64;  // key width the kernels take
 constexpr int BQ = 64;  // q rows per block
 constexpr int BK = 64;  // keys per chunk
-constexpr int BD = 128; // d_v columns per PV block
+constexpr int BD = 128; // d_v columns per block of K1's bf16 kernels
+
+constexpr int PK = 32;  // keys per chunk of the PV passes (and depth per chunk of K1's fc)
 
 constexpr int THREADS = 256;
-constexpr int KS = DK + 1; // padded row stride of 64-wide tiles
-constexpr int PS = BK + 1; // padded row stride of the p tile
+constexpr int KS = DK + 1; // padded row stride of stats_f32's 64-wide tiles
+constexpr int TS = DK + 4; // row stride of the PV passes' q and k tiles: 4 mod 32 words
 
 constexpr size_t STATS_SMEM = sizeof(float) * (2 * 64 * KS);
-constexpr size_t PV_SMEM = sizeof(float) * (2 * 64 * KS + BQ * PS + BK * BD);
 
 // Merge two (max, sum of exp(s - max)) pairs; an empty pair has max -inf.
 __device__ __forceinline__ void merge_stats(float& m, float& l, float mo, float lo) {
@@ -145,81 +157,122 @@ stats_f32(const float* __restrict__ q, const float* __restrict__ k, float* __res
   }
 }
 
-// o[b, r, d0 : d0 + 128] = sum_j p_rj v[b, j, d0 : d0 + 128]. With DROP, p_rj is kept
-// when tdnet_keep(seed, (b * lq + r) * lkv + j, threshold) and then scaled by inv_keep.
-template <bool DROP>
-__global__ void __launch_bounds__(THREADS)
-pv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       const float* __restrict__ row_max, const float* __restrict__ row_sum,
-       float* __restrict__ o, int lq, int lkv, int dv, float scale, uint32_t seed,
-       uint32_t threshold, float inv_keep) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + 64 * KS;
-  float* ps = ks + 64 * KS;  // [BQ][PS]: p rows by key
-  float* vs = ps + BQ * PS;  // [BK][BD]
-  const int b = blockIdx.z, d0 = blockIdx.y * BD, q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * dv;
-  o += (size_t)b * lq * dv;
-  load_rows64(qs, q, q0, lq);
-
-  float mrow[4], lrow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    mrow[i] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
-    lrow[i] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
+// Rows [row0, row0 + ROWS) x columns [col0, col0 + W) of a row-major [len, ld] matrix into
+// a shared tile of stride S (swizzled with SWZ), 16 bytes a copy; rows past len are zero.
+template <int ROWS, int W, int S, bool SWZ>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int ld, int row0,
+                                           int col0, int len) {
+  constexpr int V = W / 4;
+  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
+    const int r = i / V, c = (i % V) * 4, gr = row0 + r;
+    const bool ok = gr < len;
+    cp_async16(dst + (SWZ ? swz(r, c, S) : r * S + c), src + (size_t)(ok ? gr : 0) * ld + col0 + c,
+               ok);
   }
-  float acc[4][8];
+}
+
+// s[i][j] = scale * q[4 ty + i] . k[tx + 16 j] over a 64 x 32 tile (ty = tid / 16, tx =
+// tid % 16), bit for bit as score_tile forms it (one fmaf a depth step from 0, in depth
+// order, then the scale), from float4 reads of tiles of row stride TS.
+__device__ __forceinline__ void score_tile_pv(const float* qs, const float* ks, float scale,
+                                              float s[4][2]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < lkv; k0 += BK) {
-    __syncthreads();
-    load_rows64(ks, k, k0, lkv);
-    load_tile_f32<BD>(vs, BD, v, dv, k0, d0, lkv);
-    __syncthreads();
-    float s[4][4];
-    score_tile(qs, ks, scale, s);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = key < lkv ? expf(s[i][j] - mrow[i]) / lrow[i] : 0.f;
-        if (DROP) {
-          const uint64_t idx = (uint64_t)((size_t)b * lq + q0 + ty * 4 + i) * lkv + key;
-          p = tdnet_keep(seed, idx, threshold) ? p * inv_keep : 0.f;
-        }
-        ps[(ty * 4 + i) * PS + tx + 16 * j] = p;
-      }
-    }
-    __syncthreads();
+    for (int j = 0; j < 2; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[8];
+  for (int d = 0; d < DK; d += 4) {
+    float4 x[4], y[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ps[(ty * 4 + i) * PS + kk];
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * TS + d);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = vs[kk * BD + tx + 16 * j];
+    for (int j = 0; j < 2; ++j)
+      y[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * TS + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+      for (int j = 0; j < 2; ++j) {
+        float acc = s[i][j];
+        acc = fmaf(x[i].x, y[j].x, acc);
+        acc = fmaf(x[i].y, y[j].y, acc);
+        acc = fmaf(x[i].z, y[j].z, acc);
+        acc = fmaf(x[i].w, y[j].w, acc);
+        s[i][j] = acc;
+      }
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[i][j] *= scale;
+}
+
+// This thread's rows 4 ty + i of stats (row max and sum; 0 and 1 past lq).
+__device__ __forceinline__ void load_row_stats(float mrow[4], float lrow[4],
+                                               const float* row_max, const float* row_sum,
+                                               int lq, int q0) {
+  const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
-    if (r >= lq) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[(size_t)r * dv + d0 + tx + 16 * j] = acc[i][j];
+    mrow[i] = r < lq ? row_max[r] : 0.f;
+    lrow[i] = r < lq ? row_sum[r] : 1.f;
   }
+}
+
+// p[i][j] for this thread's rows 4 ty + i and keys k0 + tx + 16 j of a 32-key chunk: the
+// chunk's scores as score_tile_pv forms them, p = exp(s - m) / l (0 past lkv) and, with
+// DROP, p kept when tdnet_keep(seed, (b * lq + r) * lkv + key, threshold) and then scaled by
+// inv_keep. The same expression as K2's backward, so p is the same to the bit in both.
+template <bool DROP>
+__device__ __forceinline__ void chunk_p(float p[4][2], const float* qs, const float* ks,
+                                        float scale, const float mrow[4], const float lrow[4],
+                                        int b, int lq, int lkv, int q0, int k0, uint32_t seed,
+                                        uint32_t threshold, float inv_keep) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[4][2];
+  score_tile_pv(qs, ks, scale, s);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = k0 + tx + 16 * j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float pv = key < lkv ? expf(s[i][j] - mrow[i]) / lrow[i] : 0.f;
+      if (DROP) {
+        const uint64_t idx = (uint64_t)((size_t)b * lq + q0 + ty * 4 + i) * lkv + key;
+        pv = tdnet_keep(seed, idx, threshold) ? pv * inv_keep : 0.f;
+      }
+      p[i][j] = pv;
+    }
+  }
+}
+
+// out[i] = sum_p parts[p * count + i], summed in order p = 0, 1, ...; 4 floats a thread.
+__global__ void __launch_bounds__(THREADS)
+sum_parts(const float4* __restrict__ parts, float4* __restrict__ out, int nparts,
+          size_t count4) {
+  for (size_t i = blockIdx.x * (size_t)THREADS + threadIdx.x; i < count4;
+       i += (size_t)gridDim.x * THREADS) {
+    float4 s = parts[i];
+    for (int p = 1; p < nparts; ++p) {
+      const float4 x = parts[(size_t)p * count4 + i];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    out[i] = s;
+  }
+}
+
+// sum_parts over `count` floats (a multiple of 4; parts and out 16-byte aligned).
+int sum_into(const float* parts, float* out, int nparts, size_t count, cudaStream_t st) {
+  if (count % 4) return (int)cudaErrorInvalidValue;
+  const size_t count4 = count / 4, blocks = (count4 + THREADS - 1) / THREADS;
+  sum_parts<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(
+      reinterpret_cast<const float4*>(parts), reinterpret_cast<float4*>(out), nparts, count4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // Training propagation attention for Hopper (sm_90a), f32:
-//   forward  o = dropout(softmax(q k^T * scale)) v, on the CUDA cores;
-//   backward dq, dk, dv, on the tensor cores in error-compensated TF32 (3xTF32), with the
-//            dropout mask regenerated, never stored; the scores s as the forward forms them.
+//   forward  o = dropout(softmax(q k^T * scale)) v, on the CUDA cores, each output summed
+//            over the keys in order as a plain f32 GEMM sums it;
+//   backward dq, dk, dv, on the tensor cores in error-compensated TF32 (3xTF32, tf32x3.cuh),
+//            with the dropout mask regenerated, never stored; the scores s as the forward
+//            forms them.
 //
 // Replaces the TPU kernels tdnet_tpu/kernels/propagation_attention_train.py:
 // _fwd_kernel and _bwd_kernel, reached through fused_propagation_attention_train.
@@ -9,10 +11,23 @@
 // Shapes of the TD4-PSP18 training recipe (769x1537, kv_stride 3): three hops per step,
 // 2,145 x 2,145, 2,145 x 2,145 and 18,721 x 2,145 (Lq x Lkv), d_k 64, d_v 512.
 //
-// Forward: stats_f32 (row max m and sum l) then pv_f32<DROP> (attention_f32.cuh): p =
-// exp(s - m) / l exactly, the mask applied to p, d_v split over blocks of 128 columns, f32
-// FMAs. m and l are saved for the backward. 2 Lq Lkv (64 + 512) FLOP: 46 GFLOP at the last
-// hop, 0.69 ms at 67 TFLOP/s f32.
+// Forward: stats_f32 (row max m and sum l; attention_f32.cuh, shared with K1's f32 path),
+// then pv_fma: p = exp(s - m) / l exactly (chunk_p), the mask applied to p, o = p v with one
+// fmaf a key from 0 in key order; m and l are saved for the backward. 2 Lq Lkv (64 + 512)
+// FLOP, 46.26 GFLOP at the last hop: 0.690 ms at 67 TFLOP/s f32 on the CUDA cores (0.280 ms
+// with p v in 3xTF32 at 495 / 3 TFLOP/s); the 38 MB of inputs and output take 0.011 ms at
+// 3.35 TB/s, so arithmetic bounds it; the card's bound for f32-accurate products is the
+// 3xTF32 one. A block owns 64 q rows and 128, 256 or 512 columns (column_width in
+// kernels/grid.py), so s is formed once per that many columns, and p v runs from register
+// tiles of 8 rows x 4, 8 or 16 columns fed by float4 reads, 16 to 64 FMAs a shared-memory
+// read. p v on the tensor cores in 3xTF32 (as K1's pv_tc) is the open redesign.
+// Why p v stays on the CUDA cores here while K1's f32 path runs it in 3xTF32: the train
+// step's check (chip_smoke.py phase 9) holds every gradient of the kernel path to 1e-3 of
+// the plain path's, from the recipe's seeded initial state. A p v in 3xTF32 lies 7.4e-7 rms
+// from the plain path's cuBLAS GEMM (itself 7.0e-7 from float64; the 3xTF32 one 2.4e-7),
+// and with dropout off that moved a few head ReLUs across zero: path 1's LayerNorm bias
+// gradient went to 19x its limit, with the kernel's forward values and the plain backward
+// alike (PERF.md, runs D2-D4). Summed in the GEMM's order, the kernel lies 1.0e-7 from it.
 //
 // Backward. With s = scale q k^T, p = exp(s - m) / l, keep the mask, pd = keep ? p / (1 -
 // rate) : 0 and D_i = dy_i . o_i (= sum_j dp_ij p_ij, dropout or not):
@@ -56,7 +71,8 @@
 //               step, double-buffered; 99 registers a thread: 2 blocks an SM.
 //   sum_parts   Lkv = 2,145 gives 68 key blocks against 132 SMs, so q ranges are split over
 //               blocks (and key ranges for dq at small Lq); the dk, dv and dq partials are
-//               summed in a fixed order. No atomics: two runs give the same bits.
+//               summed in a fixed order (attention_f32.cuh). No atomics: two runs give
+//               the same bits.
 // Tiles that a warp reads in the mma's A layout (v, pd^T, ds^T: row g, column t of each
 // 8 x 4 quad) have a row stride of 4 mod 32 words; q and dy, read both as (row g, column t)
 // and as (row t, column g), have a stride of 8 mod 32 and swap their 4-word halves on rows
@@ -69,6 +85,7 @@
 #include <stdint.h>
 
 #include "attention_f32.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -92,141 +109,123 @@ constexpr size_t kv_smem() {
          (BKV * (NP * PIECE + 4) + 5 * BKV * AS + 2 * BQ * QS + 2 * BQ * YS + 2 * 3 * BQ);
 }
 
-// ---- 3xTF32 on mma.sync.m16n8k8: in a warp, g = lane / 4 and t = lane % 4. A (16 x 8,
-// row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, col): b0
-// (t, g), b1 (t + 4, g); C (16 x 8): c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8, 2t, 2t + 1).
+// ---- the forward's PV pass
 
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
+constexpr int PT = BQ + 4;  // row stride of pv_fma's p tile, stored by key
 
-// cvt.rna.tf32.f32 for finite x (round to nearest, ties away from zero, 10 mantissa bits
-// kept) in two integer operations: the cvt instruction compiles to a longer sequence.
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+// pv_fma's shared memory: q, k (two buffers), p by key, v (two buffers of PK x CW)
+template <int CW>
+constexpr size_t fma_smem() {
+  return sizeof(float) * ((BQ + 2 * PK) * TS + PK * PT + 2 * PK * CW);
 }
 
-// x = hi + lo, both TF32: hi = rna_tf32(x); lo's register holds x - hi plus half a TF32 ulp,
-// of which the tensor core reads only the upper 19 bits, that is rna_tf32(x - hi) (the
-// rounding CUTLASS's 3xTF32 path uses). Only an mma operand may take lo.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
+// o[b, r, d0 + c] = sum_j p_rj v[b, j, d0 + c] for rows [64 blockIdx.x, + 64), columns
+// [d0, d0 + CW) with d0 = CW blockIdx.y, batch blockIdx.z, with p and the mask from chunk_p.
+// Each output is one fmaf a key, from 0 and in key order, as a plain f32 GEMM sums it: the
+// train step's forward then rounds as its plain path does (see the note at the top). Per
+// 32-key chunk k and v stream in by cp.async, double-buffered, and p is stored by key; warp w
+// owns rows 8 w.. and lane l columns 4 l + 128 g (g < CW / 128), 8 x 4 CW / 128 outputs.
+template <int CW, bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+pv_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+       const float* __restrict__ row_max, const float* __restrict__ row_sum,
+       float* __restrict__ o, int lq, int lkv, int dv, float scale, Drop drop) {
+  constexpr int NG = CW / 128;
+  extern __shared__ __align__(16) float smem_fma[];
+  float* qs = smem_fma;        // [BQ][TS]
+  float* ks = qs + BQ * TS;    // [2][PK][TS]
+  float* pt = ks + 2 * PK * TS; // [PK][PT]: p by key
+  float* vs = pt + PK * PT;    // [2][PK][CW]
+  const int q0 = blockIdx.x * BQ, d0 = blockIdx.y * CW, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = (lkv + PK - 1) / PK;
+  q += (size_t)b * lq * DK;
+  k += (size_t)b * lkv * DK;
+  v += (size_t)b * lkv * dv;
+  o += (size_t)b * lq * dv;
 
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+  auto stage_kv = [&](int c, int buf) {
+    stage_tile<PK, DK, TS, false>(ks + buf * PK * TS, k, DK, c * PK, 0, lkv);
+    stage_tile<PK, CW, CW, false>(vs + buf * PK * CW, v, dv, c * PK, d0, lkv);
+  };
+  stage_tile<BQ, DK, TS, false>(qs, q, DK, q0, 0, lq);
+  stage_kv(0, 0);
+  cp_commit();
 
-// c += a b in 3xTF32, the small products first
-__device__ __forceinline__ void mma3(float c[4], const FragA& a, const FragB& b) {
-  mma_tf32(c, a.lo, b.hi);
-  mma_tf32(c, a.hi, b.lo);
-  mma_tf32(c, a.hi, b.hi);
-}
-
-// c += t, then t = 0. The tensor core truncates as it accumulates, which biases a long
-// chain of products into one accumulator; a chain of a few k-steps summed in a fresh
-// accumulator and added in round-to-nearest f32 keeps long sums unbiased.
-__device__ __forceinline__ void flush(float c[4], float t[4]) {
+  float mrow[4], lrow[4];
+  load_row_stats(mrow, lrow, row_max + (size_t)b * lq, row_sum + (size_t)b * lq, lq, q0);
+  float acc[8][4 * NG] = {};
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    cp_wait_all();
+    __syncthreads();  // chunk c landed; the last chunk's p and buffers are free
+    if (c + 1 < chunks) stage_kv(c + 1, buf ^ 1);
+    cp_commit();
+    float p[4][2];
+    chunk_p<DROP>(p, qs, ks + buf * PK * TS, scale, mrow, lrow, b, lq, lkv, q0, c * PK,
+                  drop.seed, drop.threshold, drop.inv_keep);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    c[i] += t[i];
-    t[i] = 0.f;
-  }
-}
-
-// Fragments from per-thread pointers, so that a k-step's loads are a pointer plus a
-// constant. A rows [r0, r0 + 16) x columns [c0, c0 + 8) of a row-major tile t of stride s:
-// p = a_ptr(t, s, r0) + c0.
-__device__ __forceinline__ int a_offset(int s, int r0) {
-  return (r0 + ((threadIdx.x & 31) >> 2)) * s + (threadIdx.x & 3);
-}
-
-__device__ __forceinline__ const float* a_ptr(const float* t, int s, int r0) {
-  return t + a_offset(s, r0);
-}
-
-__device__ __forceinline__ void load_a(FragA& f, const float* p, int s) {
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * s], f.hi[1], f.lo[1]);
-  split(p[4], f.hi[2], f.lo[2]);
-  split(p[8 * s + 4], f.hi[3], f.lo[3]);
-}
-
-// The same from a tile stored split, hi and lo at the same offset of two arrays.
-__device__ __forceinline__ void load_a_split(FragA& f, const uint32_t* hi, const uint32_t* lo,
-                                             int s) {
-  const int o[4] = {0, 8 * s, 4, 8 * s + 4};
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f.hi[i] = hi[o[i]];
-    f.lo[i] = lo[o[i]];
+      for (int i = 0; i < 4; ++i) pt[(tx + 16 * j) * PT + ty * 4 + i] = p[i][j];
+    __syncthreads();  // p written
+    const float* vt = vs + buf * PK * CW + 4 * lane;
+#pragma unroll 4
+    for (int kk = 0; kk < PK; ++kk) {
+      const float4 pa = *reinterpret_cast<const float4*>(pt + kk * PT + 8 * warp);
+      const float4 pb = *reinterpret_cast<const float4*>(pt + kk * PT + 8 * warp + 4);
+      const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 x = *reinterpret_cast<const float4*>(vt + kk * CW + 128 * g);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          acc[r][4 * g] = fmaf(pr[r], x.x, acc[r][4 * g]);
+          acc[r][4 * g + 1] = fmaf(pr[r], x.y, acc[r][4 * g + 1]);
+          acc[r][4 * g + 2] = fmaf(pr[r], x.z, acc[r][4 * g + 2]);
+          acc[r][4 * g + 3] = fmaf(pr[r], x.w, acc[r][4 * g + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + 8 * warp + r;
+    if (row >= lq) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      *reinterpret_cast<float4*>(o + (size_t)row * dv + d0 + 4 * lane + 128 * g) =
+          make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2], acc[r][4 * g + 3]);
   }
 }
 
-// Swizzled tiles store element (r, c) at r * s + (c ^ (r & 4)): the 4-word halves of each
-// 8 words swap on rows with bit 2 set. B (k0.. + 8) x (n0.. + 8) comes from the element
-// offsets o[0] + step, o[1] + step of a thread, for n0 and k0 multiples of 8:
-//   tile stored [n][k] (nk_offsets(s, n0)): step = k0;
-//   tile stored [k][n] (kn_offsets(s, n0)): step = k0 * s.
-__device__ __forceinline__ void nk_offsets(int o[2], int s, int n0) {
-  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
-  o[0] = (n0 + g) * s + q + (g & 4);
-  o[1] = (n0 + g) * s + q + 4 - (g & 4);
+template <int CW, bool DROP>
+int launch_fma(const float* q, const float* k, const float* v, const float* row_max,
+               const float* row_sum, float* o, int n, int lq, int lkv, int dv, float scale,
+               Drop drop, cudaStream_t st) {
+  constexpr size_t smem = fma_smem<CW>();
+  cudaError_t err = cudaFuncSetAttribute(pv_fma<CW, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pv_fma<CW, DROP><<<dim3((lq + BQ - 1) / BQ, dv / CW, n), THREADS, smem, st>>>(
+      q, k, v, row_max, row_sum, o, lq, lkv, dv, scale, drop);
+  return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ void kn_offsets(int o[2], int s, int n0) {
-  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
-  o[0] = q * s + n0 + g;
-  o[1] = (q + 4) * s + n0 + (g ^ 4);
-}
-
-__device__ __forceinline__ void load_b(FragB& f, const float* t, const int o[2], int step) {
-  split(t[o[0] + step], f.hi[0], f.lo[0]);
-  split(t[o[1] + step], f.hi[1], f.lo[1]);
-}
-
-__device__ __forceinline__ int swz(int r, int c, int s) { return r * s + (c ^ (r & 4)); }
-
-// ---- cp.async
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + ROWS) x columns [col0, col0 + W) of a row-major [len, ld] matrix into
-// a shared tile of stride S (swizzled with SWZ), 16 bytes a copy; rows past len are zero.
-template <int ROWS, int W, int S, bool SWZ>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src, int ld, int row0,
-                                           int col0, int len) {
-  constexpr int V = W / 4;
-  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
-    const int r = i / V, c = (i % V) * 4, gr = row0 + r;
-    const bool ok = gr < len;
-    cp_async16(dst + (SWZ ? swz(r, c, S) : r * S + c), src + (size_t)(ok ? gr : 0) * ld + col0 + c,
-               ok);
-  }
+template <bool DROP>
+int forward(const float* q, const float* k, const float* v, float* o, float* row_max,
+            float* row_sum, int n, int lq, int lkv, int dv, float scale, int cols, Drop drop,
+            cudaStream_t st) {
+  if ((cols != 128 && cols != 256 && cols != 512) || dv % cols) return (int)cudaErrorInvalidValue;
+  stats_f32<<<dim3((lq + BQ - 1) / BQ, 1, n), THREADS, STATS_SMEM, st>>>(q, k, row_max, row_sum,
+                                                                       lq, lkv, scale);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+#define TDNET_FMA(CW) \
+  launch_fma<CW, DROP>(q, k, v, row_max, row_sum, o, n, lq, lkv, dv, scale, drop, st)
+  return cols == 512 ? TDNET_FMA(512) : cols == 256 ? TDNET_FMA(256) : TDNET_FMA(128);
+#undef TDNET_FMA
 }
 
 // D[r] = sum_c dy[r, c] o[r, c]; one warp per row.
@@ -548,43 +547,6 @@ dq_tc(const float* __restrict__ ds, const float* __restrict__ k, float* __restri
   }
 }
 
-// out[i] = sum_p parts[p * count + i], summed in order p = 0, 1, ...
-__global__ void __launch_bounds__(THREADS)
-sum_parts(const float* __restrict__ parts, float* __restrict__ out, int nparts, size_t count) {
-  for (size_t i = blockIdx.x * (size_t)THREADS + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * THREADS) {
-    float s = 0.f;
-    for (int p = 0; p < nparts; ++p) s += parts[(size_t)p * count + i];
-    out[i] = s;
-  }
-}
-
-int sum_into(const float* parts, float* out, int nparts, size_t count, cudaStream_t st) {
-  const int blocks = (int)((count + THREADS - 1) / THREADS < 4096 ? (count + THREADS - 1) / THREADS
-                                                                  : 4096);
-  sum_parts<<<blocks, THREADS, 0, st>>>(parts, out, nparts, count);
-  return (int)cudaGetLastError();
-}
-
-
-template <bool DROP>
-int forward(const float* q, const float* k, const float* v, float* o, float* row_max,
-            float* row_sum, int n, int lq, int lkv, int dv, float scale, Drop drop,
-            cudaStream_t st) {
-  const dim3 g_rows((lq + BQ - 1) / BQ, 1, n);
-  stats_f32<<<g_rows, THREADS, STATS_SMEM, st>>>(q, k, row_max, row_sum, lq, lkv, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(pv_f32<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)PV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g_pv((lq + BQ - 1) / BQ, dv / BD, n);
-  pv_f32<DROP><<<g_pv, THREADS, PV_SMEM, st>>>(q, k, v, row_max, row_sum, o, lq, lkv, dv,
-                                                scale, drop.seed, drop.threshold, drop.inv_keep);
-  return (int)cudaGetLastError();
-}
-
-
 template <int NP, bool DROP>
 int backward(const float* q, const float* k, const float* v, const float* o, const float* dy,
              const float* row_max, const float* row_sum, float* dsum, float* ds, float* dq,
@@ -643,20 +605,20 @@ int backward_dv(int dv, const float* q, const float* k, const float* v, const fl
 extern "C" {
 
 // q [n, lq, 64], k [n, lkv, 64], v [n, lkv, dv], out o [n, lq, dv]; stats [2, n, lq] f32
-// (row max, row sum; kept for the backward). drop_threshold 0: no dropout. All f32,
-// contiguous; dv % 128 == 0. Returns the first CUDA error, 0 if there is none.
+// (row max, row sum; kept for the backward). drop_threshold 0: no dropout. The PV pass takes
+// column blocks of `cols` (128, 256 or 512, dividing dv). All f32, contiguous, 16-byte
+// aligned. Returns the first CUDA error, 0 if there is none.
 int tdnet_attention_train_fwd(const void* q, const void* k, const void* v, void* o, void* stats,
-                              int n, int lq, int lkv, int dv, float scale, unsigned int seed,
-                              unsigned int drop_threshold, float inv_keep, void* stream) {
+                              int n, int lq, int lkv, int dv, float scale, int cols,
+                              unsigned int seed, unsigned int drop_threshold, float inv_keep,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* row_max = (float*)stats;
   float* row_sum = row_max + (size_t)n * lq;
   const Drop drop{seed, drop_threshold, inv_keep};
-  if (drop_threshold)
-    return forward<true>((const float*)q, (const float*)k, (const float*)v, (float*)o, row_max,
-                         row_sum, n, lq, lkv, dv, scale, drop, st);
-  return forward<false>((const float*)q, (const float*)k, (const float*)v, (float*)o, row_max,
-                        row_sum, n, lq, lkv, dv, scale, drop, st);
+  auto run = drop_threshold ? forward<true> : forward<false>;
+  return run((const float*)q, (const float*)k, (const float*)v, (float*)o, row_max, row_sum, n,
+             lq, lkv, dv, scale, cols, drop, st);
 }
 
 

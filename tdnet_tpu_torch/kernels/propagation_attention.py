@@ -10,22 +10,30 @@ dtype, then the fc accumulated in f32 and cast to v's dtype).
 
 ``fused_propagation_attention`` takes the plain version for CPU tensors and
 the kernel for CUDA tensors; ``fused_propagation_attention.launches`` counts
-the calls that went to the kernel.
+the calls that went to the kernel. In f32 the kernel forms the scores on the
+CUDA cores (``csrc/attention_f32.cuh``, shared with the training kernel's
+forward) and p v and the fc on the tensor cores in 3xTF32, f32's accuracy;
+``forward_plan`` sizes that PV pass's grid and scratch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.grid import FC_FIXED, Q_BLOCK, column_width, sm_count
 from tdnet_tpu_torch.ops.attention import scaled_dot_attention
 
 SOURCES = ("propagation_attention.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 D_K = 64        # the key width the kernel takes
 DV_TILE = 128   # d_v must be a multiple of the kernel's column tile
+KEY_CHUNK = 32  # keys a chunk (one 3xTF32 chain) of the f32 PV pass
+MAX_RANGES = 8  # key ranges of the f32 PV pass at most
 
 
 def propagation_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -38,12 +46,43 @@ def propagation_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return (torch.matmul(o.float(), fc_w.float()) + fc_b.float()).to(v.dtype)
 
 
+class ForwardPlan(NamedTuple):
+    """The f32 PV pass's grid and scratch (``attention_f32`` in csrc/attention_f32.cuh)."""
+    cols: int     # d_v columns a block of the PV pass owns
+    fc_cols: int  # d_v columns a block of K1's fc owns
+    k_per: int    # 32-key chunks a key range
+    ranges: int   # key ranges, whose partial outputs are summed in order
+    parts: tuple | None   # [ranges, n, Lq, d_v] partial outputs; None for one range
+
+
+@functools.lru_cache(maxsize=64)
+def forward_plan(n: int, lq: int, lkv: int, dv: int, sms: int) -> ForwardPlan:
+    """Split the f32 PV pass over the card's ``sms`` SMs.
+
+    A block owns 64 q rows and 512 columns (the largest of 512, 256 and 128
+    that divides d_v), one block an SM. The keys split into at most 8 ranges,
+    chosen to minimise waves x (chunks a block + 2), the 2 standing for a
+    block's set-up and write-out, as ``propagation_attention_train.backward_plan``
+    chooses. K1's fc takes ``grid.column_width`` of its rows.
+    """
+    ceil = lambda a, b: -(-a // b)
+    cols = max(c for c in (DV_TILE, 2 * DV_TILE, 4 * DV_TILE) if dv % c == 0)
+    chunks = ceil(lkv, KEY_CHUNK)
+    blocks = ceil(lq, Q_BLOCK) * n * (dv // cols)
+    cost = lambda per: (ceil(blocks * ceil(chunks, per), sms) * (per + 2), -per)
+    k_per = min(range(ceil(chunks, MAX_RANGES), chunks + 1), key=cost)
+    ranges = ceil(chunks, k_per)
+    fc_cols = column_width(ceil(n * lq, Q_BLOCK), dv, sms, FC_FIXED)
+    return ForwardPlan(cols, fc_cols, k_per, ranges,
+                       (ranges, n, lq, dv) if ranges > 1 else None)
+
+
 def build() -> ctypes.CDLL:
     """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
     lib = load_library("propagation_attention", SOURCES)
     fn = lib.tdnet_propagation_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
@@ -98,11 +137,18 @@ def fused_propagation_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     out = torch.empty((n, lq, dv), dtype=v.dtype, device=v.device)
     stats = torch.empty((2, n, lq), dtype=torch.float32, device=v.device)
     o_tmp = torch.empty_like(out) if fc_w is not None else None
+    cols, fc_cols, k_per, o_parts = 0, 0, 0, None   # the bf16 kernels take no plan
+    if v.dtype == torch.float32:
+        plan = forward_plan(n, lq, lkv, dv, sm_count(v.device.index))
+        cols, fc_cols, k_per = plan.cols, plan.fc_cols, plan.k_per
+        if plan.parts:
+            o_parts = torch.empty(plan.parts, dtype=torch.float32, device=v.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = lib.tdnet_propagation_attention(
-        ptr(q), ptr(k), ptr(v), ptr(fc_w), ptr(fc_b), ptr(o_tmp), ptr(out), ptr(stats),
-        n, lq, lkv, dv, 1.0 / temperature, _DTYPE_CODE[v.dtype], stream)
+        ptr(q), ptr(k), ptr(v), ptr(fc_w), ptr(fc_b), ptr(o_tmp), ptr(out), ptr(o_parts),
+        ptr(stats), n, lq, lkv, dv, 1.0 / temperature, cols, fc_cols, k_per,
+        _DTYPE_CODE[v.dtype], stream)
     if err != 0:
         msg = lib.tdnet_cuda_error_string(err).decode()
         raise RuntimeError(f"propagation attention kernel failed: CUDA error {err}: {msg}")

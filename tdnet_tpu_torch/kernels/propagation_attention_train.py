@@ -11,9 +11,12 @@ for bit. f32 only.
 ``propagation_attention_train`` takes the plain version (autograd) for CPU
 tensors and the kernels for CUDA tensors;
 ``propagation_attention_train.launches`` and ``.backward_launches`` count
-the kernel's forward and backward launches. The backward runs on the tensor
-cores in 3xTF32 and takes d_v up to 512; ``backward_plan`` sizes its grid and
-scratch.
+the kernel's forward and backward launches. The forward runs on the CUDA
+cores, shares the scores and p with K1's f32 path (``csrc/attention_f32.cuh``)
+and sums p v over the keys in order as a plain f32 GEMM does; its blocks take
+``grid.column_width`` columns. The backward runs on the
+tensor cores in 3xTF32 and is sized by ``backward_plan``. Both take d_v 128,
+256, 384 or 512: the backward keeps a block's dv [32, d_v] in registers.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.grid import FORWARD_FIXED, Q_BLOCK, column_width, sm_count
 from tdnet_tpu_torch.ops.attention import attention_train
 from tdnet_tpu_torch.ops.dropout_mask import keep_mask, keep_threshold
 
@@ -53,7 +57,7 @@ def build() -> ctypes.CDLL:
     """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
     lib = load_library("propagation_attention_train", SOURCES)
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.tdnet_attention_train_fwd.argtypes = [p] * 5 + [i] * 4 + [f, u, u, f, p]
+    lib.tdnet_attention_train_fwd.argtypes = [p] * 5 + [i] * 4 + [f, i, u, u, f, p]
     lib.tdnet_attention_train_fwd.restype = ctypes.c_int
     lib.tdnet_attention_train_bwd.argtypes = [p] * 14 + [i] * 4 + [f, i, i, u, u, f, p]
     lib.tdnet_attention_train_bwd.restype = ctypes.c_int
@@ -68,8 +72,8 @@ def _check(q, k, v) -> None:
             raise ValueError(f"tensors on {t.device} and {q.device}")
         if t.dtype != torch.float32:
             raise ValueError(f"the training kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the training kernel takes contiguous tensors")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the training kernel takes contiguous, 16-byte aligned tensors")
         if t.dim() != 3:
             raise ValueError("q, k and v are [n, L, d]")
     n, lq, dk = q.shape
@@ -79,8 +83,14 @@ def _check(q, k, v) -> None:
         raise ValueError(f"the kernel takes d_k = {D_K}, got {dk} and {dkk}")
     if nk != n or nv != n or lkv_v != lkv:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if dv % DV_TILE or lq < 1 or lkv < 1:
-        raise ValueError(f"the kernel takes d_v % {DV_TILE} == 0 and nonempty q, k")
+    _check_dv(dv)
+    if lq < 1 or lkv < 1:
+        raise ValueError("the kernel takes nonempty q and k")
+
+
+def _check_dv(dv: int) -> None:
+    if dv % DV_TILE or not DV_TILE <= dv <= DV_MAX:
+        raise ValueError(f"the backward takes d_v in 128, 256, 384, 512, got {dv}")
 
 
 def _drop_args(rate: float, seed: int) -> tuple[int, int, float]:
@@ -111,8 +121,7 @@ def backward_plan(n: int, lq: int, lkv: int, dv: int, sms: int) -> BackwardPlan:
     most 16 ranges (the 2 stands for a block's set-up and write-out). The dq
     pass splits its keys until it has two blocks an SM.
     """
-    if dv % DV_TILE or not DV_TILE <= dv <= DV_MAX:
-        raise ValueError(f"the backward takes d_v in 128, 256, 384, 512, got {dv}")
+    _check_dv(dv)
     ceil = lambda a, b: -(-a // b)
     key_blocks, qchunks = ceil(lkv, KEY_BLOCK), ceil(lq, Q_CHUNK)
     cost = lambda per: (ceil(key_blocks * n * ceil(qchunks, per), sms) * (per + 2), -per)
@@ -123,11 +132,6 @@ def backward_plan(n: int, lq: int, lkv: int, dv: int, sms: int) -> BackwardPlan:
     return BackwardPlan(q_per, qsplit, k_per, ksplit, ds=(n, lq, key_blocks * KEY_BLOCK),
                         dq_part=(ksplit, n, lq, D_K), dk_part=(qsplit, n, lkv, D_K),
                         dv_part=(qsplit, n, lkv, dv))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int | None) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _err(lib, err: int, what: str) -> None:
@@ -143,12 +147,13 @@ class _AttentionTrainKernel(torch.autograd.Function):
         lib = build()
         n, lq, _ = q.shape
         lkv, dv = v.shape[1], v.shape[2]
+        cols = column_width(-(-lq // Q_BLOCK) * n, dv, sm_count(v.device.index), FORWARD_FIXED)
         o = torch.empty((n, lq, dv), dtype=v.dtype, device=v.device)
         stats = torch.empty((2, n, lq), dtype=torch.float32, device=v.device)
         drop = _drop_args(dropout_rate, seed)
         _err(lib, lib.tdnet_attention_train_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), stats.data_ptr(),
-            n, lq, lkv, dv, 1.0 / temperature, *drop,
+            n, lq, lkv, dv, 1.0 / temperature, cols, *drop,
             torch.cuda.current_stream(v.device).cuda_stream), "forward")
         propagation_attention_train.launches += 1
         ctx.save_for_backward(q, k, v, o, stats)
@@ -162,7 +167,7 @@ class _AttentionTrainKernel(torch.autograd.Function):
         lib = build()
         n, lq, _ = q.shape
         lkv, dv = v.shape[1], v.shape[2]
-        plan = backward_plan(n, lq, lkv, dv, _sm_count(q.device.index))
+        plan = backward_plan(n, lq, lkv, dv, sm_count(q.device.index))
         new = lambda shape: torch.empty(shape, dtype=torch.float32, device=q.device)
         dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         dsum, ds = new((n, lq)), new(plan.ds)

@@ -102,7 +102,12 @@ def test_synthetic_frames_pan_a_seeded_scene():
      "K2 training attention backward"),
     ("(anonymous namespace)::dq_tc(float const*, float const*, float*, ...)",
      "K2 training attention backward"),
-    ("void (anonymous namespace)::pv_f32<true>(float const*, ...)", "K1 propagation attention"),
+    ("void (anonymous namespace)::pv_tc<512>(float const*, ...)", "K1 propagation attention"),
+    ("void (anonymous namespace)::pv_fma<256, true>(float const*, ...)",
+     "K1 propagation attention"),
+    ("(anonymous namespace)::sum_parts(float4 const*, float4*, int, unsigned long)",
+     "K1 propagation attention"),
+    ("void (anonymous namespace)::fc_tc<256>(float const*, ...)", "K1 propagation attention"),
     ("(anonymous namespace)::dropout_vec4(float4 const*, ...)", "K3 dropout"),
     ("void (anonymous namespace)::tc::stem_bf16(__nv_bfloat16 const*, ...)", "K4 fused stem"),
     ("void (anonymous namespace)::cc::stem_f32(float const*, ...)", "K4 fused stem"),
@@ -110,6 +115,14 @@ def test_synthetic_frames_pan_a_seeded_scene():
 ])
 def test_kernel_family(name, family):
     assert kernel_family(name) == family
+
+
+def test_kernel_family_in_a_train_step():
+    # the partial sums are K2's backward's in a train step, where K1 does not run
+    name = "(anonymous namespace)::sum_parts(float4 const*, float4*, int, unsigned long)"
+    assert kernel_family(name, train=True) == "K2 training attention backward"
+    assert kernel_family("void (anonymous namespace)::pv_fma<512, true>(float const*, ...)",
+                         train=True) == "K1 propagation attention"
 
 
 def test_chip_smoke_imports_nothing_of_jax():
