@@ -38,7 +38,8 @@ Phases (any failure exits non-zero):
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
    backward (from a seeded dy) bit-identical, the same mask; keep rate within
    0.9 +- 1e-3;
-   kernel, plain and ``F.dropout`` times;
+   kernel, plain and ``F.dropout`` times, and the device time of K3's and
+   ``F.dropout``'s kernels from one ``torch.profiler`` trace of both;
 9. the TD4-PSP18 full training recipe at 769x1537, batch 1, f32: seeded
    student and ResNet-101 teacher, OHEM, KD, AdaOptimizer; a warm-up step and
    8 steps with pos_id 0-3, every loss finite, 3 launches a step of each of K2
@@ -81,8 +82,12 @@ Phases (any failure exits non-zero):
     layer4 shapes (97x193 grid; 256->512 d4, 512->512 d4 and d8), f32 with
     TF32 off: forward and dgrad to 5e-5 x max|ref|, and the autograd
     function's output, dx and dW against ``F.conv2d`` autograd (dW 1e-4 x
-    max|ref|: a sum over 18,721 pixels); kernel, plain and cuDNN times
-    (``F.conv2d``, ``torch.nn.grad.conv2d_input``) and the bound;
+    max|ref|: a sum over 18,721 pixels); two identical calls bitwise equal,
+    forward and dgrad; kernel, plain and cuDNN times (``F.conv2d``,
+    ``torch.nn.grad.conv2d_input``) and the bound both ways (3xTF32 on the
+    tensor cores, the kernels line's, and f32 on the CUDA cores); at 512->512
+    d4 the kernels that K5's and cuDNN's forward and dgrad run, with their
+    device times (one trace of both) and the prep passes' share;
 14. the phase-9 recipe with ``conv_wgrad="kernel"``: a warm-up step and 4
     steps, every loss finite, 16 forward and 16 dgrad K5 launches a step,
     ms/step and peak memory; then, from phase 9's initial state, dropout off
@@ -102,8 +107,8 @@ The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward, K2 backward, K3, K4
 per dtype (at the TD2 stem shape) and K5 forward and dgrad (at 512->512 d4),
 each with launches, error, times, library time and bound (K1's library time
-is SDPA followed by ``torch.addmm``, with SDPA alone beside it); the last line
-is ``{"ok": true, "device": {...}}``.
+is SDPA followed by ``torch.addmm``, with SDPA alone beside it; K3 and K5 add
+their device time); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -200,22 +205,42 @@ def phase_build() -> None:
     propagation_attention.build()
 
 
-def device_kernels(fn) -> str:
-    """The kernels one call of ``fn`` runs, with their device ms, from a
-    ``torch.profiler`` trace of its second call: the first is the tracer's
-    warm-up step (a trace started at a call dropped its first launches)."""
+def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
+    """The kernels that one call of each of ``fns`` runs, with their device
+    ms, from a ``torch.profiler`` trace: one warm-up step (a trace started at
+    a call dropped its first launches), then ``steps`` traced steps,
+    averaged; the profiler's own step rows left out. A trace that holds no
+    kernel, or in which a kernel's launches are not a multiple of ``steps``
+    (a trace can lack one step's launches), is taken again, up to twice
+    more; if the last is still such a trace, it is logged and None
+    is returned: the device time is then not measured."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    traced = []
-    with torch.profiler.profile(
-            activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
-            on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    rows = sorted((r for r in traced[0] if r.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda r: -r.self_device_time_total)
-    return "; ".join(f"{r.key[:90]} {r.self_device_time_total / 1e3:.3f}" for r in rows)
+    for _ in range(3):
+        traced = []
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=steps),
+                on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+            for _ in range(1 + steps):
+                for fn in fns:
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [(r.key, r.self_device_time_total / 1e3, r.count) for r in traced[0]
+                if r.device_type == torch.autograd.DeviceType.CUDA
+                and not r.key.startswith("ProfilerStep")]
+        if rows and all(count % steps == 0 for _, _, count in rows):
+            return sorted(((key, ms / steps) for key, ms, _ in rows), key=lambda r: -r[1])
+    log(f"device time not measured: the third trace of {steps} steps held launches "
+        f"{[(key[:40], count) for key, _, count in rows]}")
+    return None
+
+
+def device_kernels(fn) -> str:
+    """``device_rows`` of ``fn`` as one line."""
+    rows = device_rows(fn)
+    if rows is None:
+        return "not measured"
+    return "; ".join(f"{key[:90]} {ms:.3f}" for key, ms in rows)
 
 
 def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
@@ -533,6 +558,7 @@ def phase_train_attention(card: str) -> dict:
 
 def phase_dropout(card: str) -> dict:
     """K3 against its plain version; returns the kernels entry's numbers."""
+    from tdnet_tpu_torch.cli.profile import kernel_family
     from tdnet_tpu_torch.kernels.dropout import dropout, dropout_plain
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -567,7 +593,18 @@ def phase_dropout(card: str) -> dict:
     b = bound(0, 2 * 4 * rows * D_V, PEAK_F32)
     log(f"[8] [{rows}, {D_V}] ms: kernel {ms:.4f}, plain {plain_ms:.4f}, F.dropout {lib_ms:.4f}; "
         f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+    # one trace of both, split by kernel name
+    traced = device_rows(lambda: dropout(x, 0.1, SEED), lambda: F.dropout(x, 0.1, training=True))
+    device_ms = None
+    if traced is not None:
+        dev = {"kernel": [r for r in traced if kernel_family(r[0], train=True) == "K3 dropout"]}
+        dev["F.dropout"] = [r for r in traced if r not in dev["kernel"]]
+        device_ms = sum(t for _, t in dev["kernel"])
+        log(f"[8] [{rows}, {D_V}] device ms, one trace: " + "; ".join(
+            f"{name} {sum(t for _, t in r):.4f} ({', '.join(f'{k[:60]} {t:.4f}' for k, t in r)})"
+            for name, r in dev.items()))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                device_ms=device_ms, **b)
 
 
 def plain_train_kernels():
@@ -764,12 +801,13 @@ def phase_psp101(card: str) -> dict:
 def phase_dilated_conv(card: str) -> dict:
     """K5 against its plain version and cuDNN; returns the kernels entries'
     numbers (at ``K5_HEADLINE``) for the forward and the dgrad."""
-    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil, dilated_conv_plain
+    from tdnet_tpu_torch.cli.profile import kernel_family
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil, dgrad_weights, dilated_conv_plain
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 3)
     h, w = K5_GRID
     log(f"[13] dilated conv kernel vs plain and cuDNN ({card}) at {h}x{w}; tolerances: output "
-        f"and dx 5e-5, dW 1e-4 x max|ref|")
+        f"and dx 5e-5, dW 1e-4 x max|ref|; two identical calls bitwise equal")
     errs = dict(fwd=0.0, dgrad=0.0)
     head = {}
     for ci, co, d in K5_SHAPES:
@@ -783,10 +821,9 @@ def phase_dilated_conv(card: str) -> dict:
         xc, wc = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
         yc = F.conv2d(xc, wc, padding=d, dilation=d)
         yc.backward(dy)
-        w_flip = torch.flip(wt, (2, 3)).transpose(0, 1)
         checks = {  # name: (got, want, fraction of max|want|)
             "fwd vs plain": (y, dilated_conv_plain(x, wt, d, d), 5e-5),
-            "dgrad vs plain": (xg.grad, dilated_conv_plain(dy, w_flip, d, d), 5e-5),
+            "dgrad vs plain": (xg.grad, dilated_conv_plain(dy, dgrad_weights(wt), d, d), 5e-5),
             "fwd vs cuDNN": (y, yc, 5e-5),
             "dx vs cuDNN": (xg.grad, xc.grad, 5e-5),
             "dW vs cuDNN": (wg.grad, wc.grad, 1e-4)}
@@ -801,27 +838,56 @@ def phase_dilated_conv(card: str) -> dict:
                 part = name.split()[0]
                 errs[part] = max(errs[part], err)
         log(f"[13] {ci}->{co} d{d} max abs err: " + ", ".join(f"{k} {v}" for k, v in found.items()))
-        del y, yc, checks
+        del yc, checks
 
         x_dg = x.clone().requires_grad_(True)
         y_dg = conv2d_dil(x_dg, wt, d, d)   # only x needs a gradient: the backward is the dgrad
+        dgrad = lambda: torch.autograd.grad(y_dg, x_dg, dy, retain_graph=True)[0]
+        with torch.no_grad():
+            repeats = dict(fwd=torch.equal(conv2d_dil(x, wt, d, d), y.detach()))
+        repeats["dgrad"] = torch.equal(dgrad(), xg.grad)
+        if not all(repeats.values()):
+            raise AssertionError(f"[13] K5 {ci}->{co} d{d}: two calls differ: {repeats}")
+        del y
         with torch.no_grad():
             t = dict(fwd=(median_ms(lambda: conv2d_dil(x, wt, d, d)),
                           median_ms(lambda: dilated_conv_plain(x, wt, d, d)),
                           median_ms(lambda: F.conv2d(x, wt, padding=d, dilation=d))))
         t["dgrad"] = (
-            median_ms(lambda: torch.autograd.grad(y_dg, x_dg, dy, retain_graph=True)),
-            median_ms(lambda: dilated_conv_plain(dy, torch.flip(wt, (2, 3)).transpose(0, 1), d, d)),
+            median_ms(dgrad),
+            median_ms(lambda: dilated_conv_plain(dy, dgrad_weights(wt), d, d)),
             median_ms(lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=d, dilation=d)))
-        del y_dg, x_dg
-        b = bound(2 * h * w * 9 * ci * co, 4 * (ci * h * w + co * h * w + 9 * ci * co), PEAK_F32)
+        flops, nbytes = 2 * h * w * 9 * ci * co, 4 * (ci * h * w + co * h * w + 9 * ci * co)
+        b, b32 = bound(flops, nbytes, PEAK_TF32X3), bound(flops, nbytes, PEAK_F32)
         for part in ("fwd", "dgrad"):
             log(f"[13] {ci}->{co} d{d} {part:5s} ms: kernel {t[part][0]:.3f}, plain "
-                f"{t[part][1]:.3f}, cuDNN {t[part][2]:.3f}; bound {b['bound_ms']:.3f} ms by "
-                f"{b['bound_by']}")
+                f"{t[part][1]:.3f}, cuDNN {t[part][2]:.3f}; bound {b['bound_ms']:.3f} ms "
+                f"(3xTF32 tensor cores) by {b['bound_by']}, {b32['bound_ms']:.3f} ms (f32 CUDA "
+                f"cores); bitwise repeat {repeats[part]}")
         if (ci, co, d) == K5_HEADLINE:
-            head = {part: dict(ms=t[part][0], plain_ms=t[part][1], library_ms=t[part][2], **b)
-                    for part in ("fwd", "dgrad")}
+            traces = dict(
+                fwd=(lambda: conv2d_dil(x, wt, d, d),
+                     lambda: F.conv2d(x, wt, padding=d, dilation=d)),
+                dgrad=(dgrad, lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=d,
+                                                                 dilation=d)))
+            device = {}
+            for part, (kernel_fn, cudnn_fn) in traces.items():
+                both = device_rows(kernel_fn, cudnn_fn)   # one trace, split by name
+                device[part] = None
+                if both is None:
+                    continue
+                rows = [r for r in both if kernel_family(r[0], train=True) == "K5 dilated conv"]
+                rows_c = [r for r in both if r not in rows]
+                device[part] = sum(ms for _, ms in rows)
+                prep = sum(ms for k, ms in rows if "prep_" in k)
+                log(f"[13] {ci}->{co} d{d} {part} device ms: kernel {device[part]:.3f} (prep "
+                    f"{prep:.3f}, {prep / max(device[part], 1e-9):.1%}): "
+                    f"{'; '.join(f'{k[:70]} {ms:.3f}' for k, ms in rows)}")
+                log(f"[13] {ci}->{co} d{d} {part} device ms: cuDNN {sum(ms for _, ms in rows_c):.3f}: "
+                    f"{'; '.join(f'{k[:70]} {ms:.3f}' for k, ms in rows_c)}")
+            head = {part: dict(ms=t[part][0], device_ms=device[part], plain_ms=t[part][1],
+                               library_ms=t[part][2], **b) for part in ("fwd", "dgrad")}
+        del y_dg, x_dg
     return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
 
 
@@ -882,7 +948,8 @@ def compare_with_f64(make_loss_of, loss_fn, model, model64, start, teachers, fra
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         _, g_det = run(model, teachers[0], frames, "cudnn")
-    plain_k5 = lambda x, w, p, d, counter: dilated_conv.dilated_conv_plain(x, w, p, d)
+    plain_k5 = lambda x, w, p, d, counter, flip=False: dilated_conv.dilated_conv_plain(
+        x, dilated_conv.dgrad_weights(w) if flip else w, p, d)
     with swapped(dilated_conv, "_forward", plain_k5):
         _, g_plain = run(model, teachers[0], frames, "kernel")
     with plain_train_kernels():

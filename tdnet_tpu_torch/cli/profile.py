@@ -54,7 +54,7 @@ REPEATS = 7
 # fragments its name contains
 FAMILIES = (
     ("K4 fused stem", ("stem_bf16", "stem_f32")),
-    ("K5 dilated conv", ("dil_conv_f32",)),
+    ("K5 dilated conv", ("dil_tc", "prep_input", "prep_weights")),
     ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32")),
     ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
     # in a train step this family is K2's forward: stats_f32, shared with K1, and pv_fma

@@ -1,7 +1,7 @@
 // Error-compensated TF32 (3xTF32) on mma.sync.m16n8k8, and cp.async, shared by the f32
 // attention kernels: the training attention's backward (propagation_attention_train.cu, K2)
 // and the f32 PV and fc passes (attention_f32.cuh, propagation_attention.cu; K1 and K2's
-// forward).
+// forward), and by the dilated conv (dilated_conv.cu, K5).
 //
 // Each f32 operand x splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi); a b accumulates
 // as a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first, which keeps f32 accuracy (TF32
@@ -136,6 +136,12 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace

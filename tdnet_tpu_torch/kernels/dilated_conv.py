@@ -3,21 +3,27 @@
 The residual blocks' 3x3 convs with dilation >= 4 in training, when the
 context asks for them (``Ctx(conv_wgrad="kernel")``; the JAX package's
 ``conv_wgrad="pallas"``, ``tdnet_tpu/kernels/dilated_conv.py``). The CUDA
-kernel is ``csrc/dilated_conv.cu``; ``dilated_conv_plain`` is its plain
-PyTorch version, the same sum of 9 shifted per-tap products as the TPU
-kernel's ``_dil_kernel``.
+kernel is ``csrc/dilated_conv.cu``: an implicit GEMM in 3xTF32 on the tensor
+cores over a padded-width row index, after two prep passes that split x and
+the weights into TF32 hi and lo (``conv_plan`` sizes the scratch; the C side
+checks it against its tiles and sizes the grid). ``dilated_conv_plain`` is
+its plain PyTorch version, the same sum of 9 shifted per-tap products as the
+TPU kernel's ``_dil_kernel``.
 
 ``conv2d_dil`` is one ``torch.autograd.Function`` on both devices: its
 forward is the kernel (CUDA tensors) or the plain version (CPU tensors); its
 backward computes dx with the same forward on dy, the spatially flipped,
-IO-swapped weights and padding d*(k-1) - p (``_pd_bwd``), and dW with
-``ops.conv.tap_wgrad``. ``conv2d_dil.launches`` and ``.backward_launches``
-count the kernel's forward and dgrad launches, where they launch. f32 only.
+IO-swapped weights (the kernel's weight pass flips and swaps them) and
+padding d*(k-1) - p (``_pd_bwd``), and dW with ``ops.conv.tap_wgrad``.
+``conv2d_dil.launches`` and ``.backward_launches`` count the kernel's
+forward and dgrad launches, where they launch. f32 only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -26,7 +32,9 @@ from tdnet_tpu_torch.ops.conv import tap_wgrad
 
 SOURCES = ("dilated_conv.cu",)
 K = 3          # the kernel's taps per axis
-CI_STEP = 8    # input channels per K step of the kernel
+BM = 128       # GEMM rows (padded-width output pixels) a block of the kernel owns
+BN = 128       # output channels a block owns
+BK = 32        # input channels a stage: 4 k-steps of mma m16n8k8, one chain
 
 
 def dilated_conv_plain(x: torch.Tensor, w: torch.Tensor, padding: int,
@@ -46,11 +54,47 @@ def dilated_conv_plain(x: torch.Tensor, w: torch.Tensor, padding: int,
     return out
 
 
+def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
+    """[co, ci, 3, 3] -> the dgrad's [ci, co, 3, 3]: flipped in space, IO-swapped."""
+    return torch.flip(w, (2, 3)).transpose(0, 1)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """The scratch of one kernel call: image [n, cin, h, w] -> [n, cout, ho, wo].
+
+    Output pixel (r, c) is GEMM row r * wp + c for c over the whole padded
+    width ``wp``, and tap (i, j) reads the padded input's rows shifted by
+    i * dil * wp + j * dil. The padded input has ``hr`` rows of ``wp`` pixels
+    (the image's h + 2 pad and zero rows below, for the last row tile's
+    reads) and ``kp`` channels; the weights are ``np_`` x ``kp`` a tap."""
+    wp: int
+    ho: int
+    wo: int
+    hr: int
+    kp: int
+    np_: int
+
+
+@functools.cache
+def conv_plan(cin: int, cout: int, h: int, w: int, pad: int, dil: int) -> ConvPlan:
+    """The scratch sizes of one kernel call (``tdnet_dilated_conv``)."""
+    hp, wp = h + 2 * pad, w + 2 * pad
+    ho, wo = hp - dil * (K - 1), wp - dil * (K - 1)
+    if min(ho, wo) < 1:
+        raise ValueError(f"empty output: {h}x{w}, padding {pad}, dilation {dil}")
+    # the last row tile of BM GEMM rows reads up to its last row + the last tap's offset
+    reach = -(-ho * wp // BM) * BM + (K - 1) * dil * (wp + 1)
+    return ConvPlan(wp=wp, ho=ho, wo=wo, hr=-(-reach // wp), kp=-(-cin // BK) * BK,
+                    np_=-(-cout // BN) * BN)
+
+
+@functools.cache
 def build() -> ctypes.CDLL:
     """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
     lib = load_library("dilated_conv", SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tdnet_dilated_conv.argtypes = [p, p, p] + [i] * 7 + [p]
+    lib.tdnet_dilated_conv.argtypes = [p] * 7 + [i] * 11 + [p]
     lib.tdnet_dilated_conv.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
@@ -69,27 +113,29 @@ def _check(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int) -> Non
         raise ValueError(f"no kernel for device {x.device}")
     if min(x.shape[2], x.shape[3]) + 2 * padding - dilation * (K - 1) < 1:
         raise ValueError(f"empty output: {tuple(x.shape)}, padding {padding}, dilation {dilation}")
-    if x.is_cuda and (x.shape[1] % CI_STEP or w.shape[0] % CI_STEP):
-        raise ValueError(f"the kernel takes ci and co divisible by {CI_STEP} (the forward's "
-                         f"and the dgrad's input channels), got {x.shape[1]} -> {w.shape[0]}")
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int,
-             counter: str) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU tensors; a launch
-    adds one to ``conv2d_dil.<counter>``."""
+def _forward(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, counter: str,
+             flip: bool = False) -> torch.Tensor:
+    """The conv of x with w ([cout, cin, 3, 3]) or, with ``flip``, with
+    ``dgrad_weights(w)`` (w the forward's [cin, cout, 3, 3]): the kernel on
+    CUDA tensors, the plain version on CPU tensors; a launch adds one to
+    ``conv2d_dil.<counter>``."""
     if x.device.type == "cpu":
-        return dilated_conv_plain(x, w, padding, dilation)
-    n, ci, h, wd = x.shape
-    co = w.shape[0]
-    x = x.contiguous()
-    w9 = w.permute(2, 3, 1, 0).reshape(K * K, ci, co).contiguous()
-    d = dilation
-    y = torch.empty((n, co, h + 2 * padding - 2 * d, wd + 2 * padding - 2 * d),
-                    dtype=x.dtype, device=x.device)
+        return dilated_conv_plain(x, dgrad_weights(w) if flip else w, padding, dilation)
+    n, cin, h, wd = x.shape
+    cout = w.shape[0] if not flip else w.shape[1]
+    plan = conv_plan(cin, cout, h, wd, padding, dilation)
+    x, w = x.contiguous(), w.contiguous()
+    scratch = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)
+    xh, xl = (scratch(n, plan.hr * plan.wp, plan.kp) for _ in range(2))
+    wh, wl = (scratch(K * K, plan.np_, plan.kp) for _ in range(2))
+    y = scratch(n, cout, plan.ho, plan.wo)
     lib = build()
-    err = lib.tdnet_dilated_conv(x.data_ptr(), w9.data_ptr(), y.data_ptr(), n, ci, co, h, wd,
-                                 padding, d, torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.tdnet_dilated_conv(x.data_ptr(), w.data_ptr(), xh.data_ptr(), xl.data_ptr(),
+                                 wh.data_ptr(), wl.data_ptr(), y.data_ptr(), n, cin, cout, h,
+                                 wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
+                                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dilated conv kernel failed: CUDA error {err}: "
                            f"{lib.tdnet_cuda_error_string(err).decode()}")
@@ -112,11 +158,9 @@ class _DilatedConv(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # the dgrad is the same conv of dy with the flipped, IO-swapped kernel, laid
-            # out by copies: read in place, transposed, by the kernel, the weights made
-            # the train step's dgrad launches 14% longer (PERF.md)
-            dx = _forward(dy, torch.flip(w, (2, 3)).transpose(0, 1), d * (K - 1) - p, d,
-                          "backward_launches")
+            # the same conv of dy with the flipped, IO-swapped kernel: the kernel's weight
+            # pass reads w as it is and writes the flipped layout
+            dx = _forward(dy, w, d * (K - 1) - p, d, "backward_launches", flip=True)
         if ctx.needs_input_grad[1]:
             dw = tap_wgrad(x, dy, p, d, K)
         return dx, dw, None, None

@@ -16,6 +16,7 @@ kernel's forward and backward launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +33,7 @@ def dropout_plain(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     return torch.where(keep, x * inv_keep, torch.zeros((), dtype=x.dtype))
 
 
+@functools.cache
 def build() -> ctypes.CDLL:
     """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
     lib = load_library("dropout", SOURCES)
@@ -43,14 +45,20 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _rate_args(rate: float) -> tuple[int, float]:
+    """(keep threshold, 1 / (1 - rate)) of a rate."""
+    return keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
 def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"the dropout kernel takes contiguous float32, got {x.dtype}")
     lib = build()
     y = torch.empty_like(x)
+    threshold, inv_keep = _rate_args(rate)
     err = lib.tdnet_dropout(x.data_ptr(), y.data_ptr(), x.numel(), seed & 0xFFFFFFFF,
-                            keep_threshold(rate), 1.0 / (1.0 - rate),
-                            torch.cuda.current_stream(x.device).cuda_stream)
+                            threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout kernel failed: CUDA error {err}: "
                            f"{lib.tdnet_cuda_error_string(err).decode()}")

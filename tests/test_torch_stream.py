@@ -111,7 +111,14 @@ def test_synthetic_frames_pan_a_seeded_scene():
     ("(anonymous namespace)::dropout_vec4(float4 const*, ...)", "K3 dropout"),
     ("void (anonymous namespace)::tc::stem_bf16(__nv_bfloat16 const*, ...)", "K4 fused stem"),
     ("void (anonymous namespace)::cc::stem_f32(float const*, ...)", "K4 fused stem"),
-    ("void (anonymous namespace)::dil_conv_f32(float const*, ...)", "K5 dilated conv"),
+    ("(anonymous namespace)::dil_tc(float const*, float const*, float const*, ...)",
+     "K5 dilated conv"),
+    ("(anonymous namespace)::prep_input(float const*, float*, float*, int, ...)",
+     "K5 dilated conv"),
+    ("(anonymous namespace)::prep_weights(float const*, float*, float*, int, ...)",
+     "K5 dilated conv"),
+    ("void at::native::(anonymous namespace)::fused_dropout_kernel_vec<float, float, ...>",
+     "other"),
 ])
 def test_kernel_family(name, family):
     assert kernel_family(name) == family

@@ -46,6 +46,7 @@ from tdnet_tpu_torch.kernels.propagation_attention_train import (
     DQ_ROWS, D_K, KEY_BLOCK, MAX_QSPLIT, Q_CHUNK, _check, backward_plan,
     propagation_attention_train_plain)
 from tdnet_tpu_torch.ops.dropout_mask import keep_mask
+from tf32_emulation import rna_tf32, round_toward_zero
 
 N, LQ, LKV, DV = 1, 96, 80, 256
 TEMPERATURE, RATE, SEED = 8.0, 0.1, 11
@@ -55,20 +56,6 @@ SMS = 132   # the H100's SM count: the plan splits q over 2 ranges and keys over
 KERNEL_CHAINS = dict(dpd=2, dv=Q_CHUNK // 8, dk=Q_CHUNK // 8, dq=KEY_BLOCK // 8)
 ONE_CHAIN = dict(dpd=10**6, dv=10**6, dk=10**6, dq=10**6)
 FWD_CHAIN = KEY_CHUNK // 8   # k-steps a fresh accumulator sums in K1's p v and fc: 4
-
-
-def rna_tf32(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: keep 10 mantissa bits, ties away from zero."""
-    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    u = (u + 0x1000) & 0xFFFFE000
-    u = torch.where(u >= 2**31, u - 2**32, u)
-    return u.to(torch.int32).view(torch.float32)
-
-
-def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32, truncated: the tensor core's accumulator."""
-    f = x.float()
-    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
 def three_tf32(a, b):

@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from tdnet_tpu.kernels import propagation_attention_train as jax_pat
-from tdnet_tpu_torch.kernels.dropout import dropout, dropout_plain
+from tdnet_tpu_torch.kernels.dropout import _rate_args, dropout, dropout_plain
 from tdnet_tpu_torch.kernels.propagation_attention_train import (
     propagation_attention_train, propagation_attention_train_plain)
 from tdnet_tpu_torch.nn import Ctx
@@ -165,6 +165,16 @@ def test_dropout_plain_formula_and_backward():
     dy = torch.from_numpy(rng.randn(700, 96).astype(np.float32))
     y.backward(dy)
     assert torch.equal(x.grad, torch.where(keep, dy * inv, torch.zeros(())))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25, 0.5])
+def test_kernel_rate_args_are_the_plain_versions(rate):
+    """The threshold and scale the kernel is launched with, cached a rate,
+    are the mask's threshold and the scale of ``dropout_plain``."""
+    threshold, inv_keep = _rate_args(rate)
+    assert threshold == keep_threshold(rate)
+    assert np.float32(inv_keep) == np.float32(1.0 / (1.0 - rate))
+    assert _rate_args(rate) is _rate_args(rate)
 
 
 def test_ctx_dropout_routes_and_switches_off():
