@@ -28,13 +28,18 @@ Phases (any failure exits non-zero):
    run twice a step, and 18,721 x 2,145), f32, dropout off and on with one
    seed: the output to 1e-5 x max|output| and dq, dk, dv from a seeded dy to
    atol 2e-4 / rtol 1e-3; the keep rate within 0.9 +- 1e-3 (uniform scores,
-   v of ones: each output row counts its kept keys); the backward (3xTF32 on
-   the tensor cores) bitwise equal across two runs; at each hop, kernel,
-   plain and ``F.scaled_dot_product_attention`` (scale 1/8, no dropout)
-   times, forward and backward, the kernels that the kernel's and SDPA's
-   forward and backward run with their device times (from a
-   ``torch.profiler`` trace), and the forward's and the backward's bounds
-   both ways (f32 on the CUDA cores, 3xTF32 on the tensor cores);
+   v of ones: each output row counts its kept keys); the forward and the
+   backward (3xTF32 on the tensor cores) bitwise equal across two runs; each
+   forward's rms distance from a float64 forward, kernel and plain, reported,
+   not held to a bound (the kernel sums p v in key order, as cuBLAS's FFMA
+   GEMM does at the last hop, where the two lie equally far; at 2,145 x 2,145
+   cuBLAS splits the keys and lies closer); at each hop, kernel, plain and
+   ``F.scaled_dot_product_attention`` (scale 1/8, no dropout) times, forward
+   and backward, the kernels that the kernel's and SDPA's forward and
+   backward run with their device times (from a ``torch.profiler`` trace),
+   and the forward's and the backward's bounds both ways (f32 on the CUDA
+   cores, 3xTF32 on the tensor cores); both hops' forward times beside
+   SDPA's on one line;
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
    backward (from a seeded dy) bit-identical, the same mask; keep rate within
    0.9 +- 1e-3;
@@ -44,18 +49,29 @@ Phases (any failure exits non-zero):
    student and ResNet-101 teacher, OHEM, KD, AdaOptimizer; a warm-up step and
    8 steps with pos_id 0-3, every loss finite, 3 launches a step of each of K2
    forward, K2 backward, K3 forward and K3 backward; ms/step and peak memory;
-   then the loss and every gradient of the kernel path against the plain path
-   (K2 and K3 both swapped for their plain versions) from the recipe's seeded
-   initial state (the same in every run: the state after the timed steps
-   carries the nondeterministic backward's noise, and with it whether a ReLU
-   input sits within an f32 rounding of zero and flips between the paths),
-   dropout off and then on (the same masks): the loss to 1e-4 relative; each
-   gradient to 1e-3 x max(max|grad|, 1e-5 x the run's largest max|grad|), the
-   floor for gradients that vanish in exact arithmetic (such as a bias before
-   a BatchNorm), plus twice the kernel path's own run-to-run difference
-   (cuDNN's and the upsampling's backward are nondeterministic); that
-   run-to-run term must stay within 1e-2 x max|grad| on every gradient above
-   the floor;
+   then, from the recipe's seeded initial state at pos_id 1 (the same in
+   every run: the state after the timed steps carries the nondeterministic
+   backward's noise, and with it whether a ReLU input sits within an f32
+   rounding of zero and flips between the paths), dropout off and then on
+   (the same masks), one float64 run (the cuDNN path in float64, K2 and K3
+   swapped for their plain versions, which take float64), which phase 14
+   reuses, and the kernel path held by two rules, each a gate:
+   - against float64, beside the plain path (K2 and K3 swapped for their
+     plain versions): both losses to 1e-4 relative of float64's, and each
+     gradient of the kernel path no farther from float64 than twice the
+     plain path's distance plus 1e-3 x max(max|grad|, floor), the floor
+     1e-5 x the float64 run's largest max|grad| (for gradients that vanish
+     in exact arithmetic, such as a bias before a BatchNorm);
+   - against the plain path: each gradient to 1e-3 x max(max|grad|, floor)
+     plus twice the kernel path's own run-to-run difference (cuDNN's and the
+     upsampling's backward are nondeterministic), which must stay within
+     1e-2 x max|grad| on every gradient above the floor.
+   A forward that rounds otherwise than the plain path's GEMM flips some
+   ReLUs and fails the second rule while it passes the first; the first
+   alone passes a forward off by 1e-3 on one 64-row q block of the last hop
+   (PERF.md, run A1), which the second flags. So phase 9 also runs that
+   perturbed kernel path (the probe, ``PROBE_EPS``) and fails if its check
+   does not flag it; the probe's share of each rule's limit is printed;
 10. the fused deep-base stem tail (K4) against its plain version (the unfused
     cuDNN conv / BN / ReLU / max-pool sequence) at the TD2-PSP50 stem shape
     [1, 64, 513, 1025], the PSP-101 one [1, 64, 385, 769] and a small ragged
@@ -91,14 +107,14 @@ Phases (any failure exits non-zero):
 14. the phase-9 recipe with ``conv_wgrad="kernel"``: a warm-up step and 4
     steps, every loss finite, 16 forward and 16 dgrad K5 launches a step,
     ms/step and peak memory; then, from phase 9's initial state, dropout off
-    and on, the loss and every gradient of the K5 path and of the default
-    cuDNN path, each against the cuDNN path in float64 (K2 and K3 swapped for
-    their plain versions, which take float64; the same masks): the losses to
-    1e-4 relative, and each K5 gradient no farther from float64 than twice the
-    cuDNN one plus 1e-3 x max(max|grad|, floor). Phase 9's rule does not
-    apply here: K5 and cuDNN sum layer4's convs in other orders, and at
-    random init f32 gradients of the recipe move by up to a few percent of
-    max|grad| when one ReLU flips, on both paths alike. The evidence is
+    and on, the loss and every gradient of the K5 path against phase 9's
+    float64 run, beside the default cuDNN path, by phase 9's float64 rule:
+    the losses to 1e-4 relative, and each K5 gradient no farther from float64
+    than twice the cuDNN one plus 1e-3 x max(max|grad|, floor). Phase 9's
+    kernel-vs-plain rule does not apply here: K5 and cuDNN sum layer4's convs
+    in other orders, and at random init f32 gradients of the recipe move by
+    up to a few percent of max|grad| when one ReLU flips, on both paths
+    alike. The evidence is
     printed beside it: the farthest gradient from float64 of two more f32
     variants, deterministic cuDNN and K5's plain version on the card, and
     how many gradients' limits the cuDNN term dominates and how many K5
@@ -119,6 +135,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -133,9 +150,17 @@ STEM_SHAPES = [(513, 1025), (385, 769), (21, 35)]   # K4's input (H, W): TD2, PS
 K5_GRID = (97, 193)                                 # the recipe's c4 grid at 769x1537
 K5_SHAPES = [(256, 512, 4), (512, 512, 4), (512, 512, 8)]   # layer4's (ci, co, dilation)
 K5_HEADLINE = (512, 512, 4)
-GRAD_RTOL = 1e-3     # kernel path vs plain path, per gradient tensor, x max|grad|
+GRAD_RTOL = 1e-3     # per gradient tensor, x max(max|grad|, floor), in phases 9 and 14
 GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
+LOSS_RTOL = 1e-4     # each f32 path's loss against the float64 run's
 NOISE_LIMIT = 1e-2   # the largest 2 x run-to-run / max|grad| allowed above the floor
+POS_ID = 1           # the path whose step phases 9 and 14 compare
+# phase 9's probe: K2's forward off by a relative PROBE_EPS on one 64-row q block (the 147th
+# of 293) of the recipe's last hop, the smallest of 1e-4, 1e-3 and 1e-2 that the
+# kernel-vs-plain rule flagged with dropout off and on (PERF.md, run A1)
+PROBE_EPS = 1e-3
+PROBE_LQ = TRAIN_SHAPES[-1][0]   # the last hop's q rows
+PROBE_ROWS = slice(146 * 64, 147 * 64)
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): bytes/s of HBM3,
 # FLOP/s of f32 on the CUDA cores and of bf16 on the tensor cores; f32 products in
 # 3xTF32 on the tensor cores take three TF32 products each
@@ -488,9 +513,10 @@ def phase_train_attention(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     log(f"[7] training attention kernel vs plain ({card}); tolerances: output 1e-5 x "
-        f"max|output|, dq/dk/dv atol 2e-4 rtol 1e-3, keep rate 0.9 +- 1e-3; the backward "
-        f"bitwise equal across two runs")
+        f"max|output|, dq/dk/dv atol 2e-4 rtol 1e-3, keep rate 0.9 +- 1e-3; the forward and "
+        f"the backward bitwise equal across two runs")
     res = dict(fwd_err=0.0, bwd_err=0.0)
+    hop_ms = {}
     for lq, lkv in TRAIN_SHAPES:
         q, k = (torch.randn(1, n, D_K, generator=gen).to(dev) for n in (lq, lkv))
         v = torch.randn(1, lkv, D_V, generator=gen).to(dev)
@@ -504,16 +530,25 @@ def phase_train_attention(card: str) -> dict:
             ok = f_err <= f_tol and all(torch.allclose(a, b, atol=2e-4, rtol=1e-3)
                                         for a, b in zip(got[1:], want[1:]))
             again = _fwd_bwd(k2, q, k, v, dy, **kw)
-            same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+            same = [torch.equal(got[0], again[0]),
+                    all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))]
+            with torch.no_grad():
+                o64 = p2(q.double(), k.double(), v.double(), **kw)
+            rms = lambda o: ((o.double() - o64).pow(2).mean().sqrt()
+                             / o64.pow(2).mean().sqrt()).item()
+            d_kernel, d_plain = rms(got[0]), rms(want[0])
             log(f"[7] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
-                f"(tol {f_tol:.3e}), dq/dk/dv max abs err {g_err:.3e}, second backward "
-                f"{'bitwise equal' if same else 'DIFFERENT'}")
+                f"(tol {f_tol:.3e}), dq/dk/dv max abs err {g_err:.3e}; second forward / "
+                f"backward {' / '.join('bitwise equal' if x else 'DIFFERENT' for x in same)}; "
+                f"forward's rms distance from float64 over its rms: kernel {d_kernel:.3e}, "
+                f"plain {d_plain:.3e}")
             if not ok:
                 raise AssertionError(f"K2 disagrees with its plain version at {lq}x{lkv} "
                                      f"dropout {rate}")
-            if not same:
-                raise AssertionError(f"K2's backward is not deterministic at {lq}x{lkv} "
-                                     f"dropout {rate}")
+            if not all(same):
+                raise AssertionError(f"K2 is not deterministic at {lq}x{lkv} dropout {rate}: "
+                                     f"forward / backward repeat {same}")
+            del o64
             res["fwd_err"] = max(res["fwd_err"], f_err)
             res["bwd_err"] = max(res["bwd_err"], g_err)
             del got, want, again
@@ -547,7 +582,10 @@ def phase_train_attention(card: str) -> dict:
             f"({PEAK_TF32X3 / 1e12:.0f} TFLOP/s), {bwd_b32['bound_ms']:.3f} ms in f32 on the "
             f"CUDA cores; the kernel's backward at "
             f"{bwd_flops / times['kernel'][1] / 1e9:.1f} TFLOP/s")
+        hop_ms[lq, lkv] = times
         del q, k, v, dy
+    log("[7] forward ms, kernel / F.scaled_dot_product_attention: " + "; ".join(
+        f"{lq} x {lkv} {t['kernel'][0]:.3f} / {t['sdpa'][0]:.3f}" for (lq, lkv), t in hop_ms.items()))
     # the kernels entries report the last hop, the largest
     return {
         "fwd": dict(max_abs_err=res["fwd_err"], ms=times["kernel"][0],
@@ -630,49 +668,177 @@ def _loss_and_grads(model, loss_of, frames, labels, pos_id, teacher):
                          if p.grad is not None}
 
 
-def compare_paths(loss_of, model, start, frames, labels, teacher, use_dropout: bool) -> None:
-    """The kernel path's loss and gradients against the plain path's from the
-    state ``start`` and the same step generator (so the same dropout masks)."""
-    pos_id = 1
+class F64Verdict(NamedTuple):
+    """What ``against_f64`` found; ``problem`` is empty where the rule holds."""
+    problem: str
+    rel: float          # the larger of the two paths' losses' relative distances from float64
+    floor: float        # GRAD_FLOOR x the largest max|grad| of the float64 run
+    worst: tuple        # (the largest distance / limit, its gradient)
+    plain_term: int     # gradients whose limit is mostly twice the plain path's distance
+    beyond: int         # gradients of the path beyond GRAD_RTOL x max(max|grad|, floor)
+    dists: dict         # gradient -> (the path's and the plain path's distance, its limit)
+
+
+def against_f64(path, plain, ref) -> F64Verdict:
+    """Hold a path's (loss, gradients) to the float64 run ``ref`` beside the
+    plain f32 path's: both losses within LOSS_RTOL of float64's, and each
+    gradient of the path no farther from float64 than twice the plain path's
+    distance plus GRAD_RTOL x max(max|grad|, floor). Two f32 paths that
+    round otherwise flip different ReLU inputs that lie within an f32 rounding
+    of zero, and at random init one flip moves a gradient by percents of
+    max|grad|; float64 tells a path that is as accurate as the plain one from
+    a faulty one, which a comparison of the two f32 paths cannot."""
+    (loss_k, gk), (loss_p, gp), (loss_d, gd) = path, plain, ref
+    rel = max(abs(loss_k - loss_d), abs(loss_p - loss_d)) / abs(loss_d)
+    problem = "" if rel <= LOSS_RTOL else f"losses {loss_k} and {loss_p}, float64 {loss_d}"
+    if set(gk) != set(gd) or set(gp) != set(gd):
+        missing = sorted(set(gd) ^ set(gk) | set(gd) ^ set(gp))
+        return F64Verdict(f"gradient sets differ on {missing[:3]}", rel, 0.0, (np.inf, ""), 0,
+                          0, {})
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in gd.values())
+    worst, plain_term, beyond, dists = (0.0, ""), 0, 0, {}
+    for k, g in gd.items():
+        scale = max(g.abs().max().item(), floor)
+        g = g.to(gk[k].device)
+        e_k, e_p = ((x[k].double() - g).abs().max().item() for x in (gk, gp))
+        limit = 2 * e_p + GRAD_RTOL * scale
+        if not e_k <= limit and not problem:
+            problem = (f"gradient {k}: {e_k:.3e} from float64, the plain path {e_p:.3e}, "
+                       f"max(max|grad|, floor) {scale:.3e}")
+        worst = max(worst, (e_k / limit, k))
+        plain_term += 2 * e_p > GRAD_RTOL * scale
+        beyond += e_k > GRAD_RTOL * scale
+        dists[k] = (e_k, e_p, limit)
+    return F64Verdict(problem, rel, floor, worst, plain_term, beyond, dists)
+
+
+def describe(v: F64Verdict) -> str:
+    return (f"worst {v.worst[0]:.3f} of its limit ({v.worst[1]}); the plain term dominates "
+            f"{v.plain_term} of {len(v.dists)} limits, {v.beyond} gradients lie beyond "
+            f"{GRAD_RTOL:g} x max(max|grad|, floor {v.floor:.2e}); losses' largest rel "
+            f"{v.rel:.2e}")
+
+
+def f64_references(loss_fn, model, start, teacher, frames, labels) -> dict:
+    """The float64 run that phases 9 and 14 hold the f32 paths to, dropout
+    off and on: the loss and gradients (on the host) from ``start`` at
+    ``POS_ID``, the cuDNN path in float64 with K2 and K3 swapped for their
+    plain versions (which take float64), the same step generator and so the
+    same masks as the f32 paths."""
+    from tdnet_tpu_torch.train.trainer import make_loss_of
+    model64, teacher64 = copy.deepcopy(model).double(), copy.deepcopy(teacher).double()
+    refs = {}
+    with plain_train_kernels():
+        for use_dropout in (False, True):
+            model64.load_state_dict(start)
+            loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad="cudnn")
+            loss, grads = _loss_and_grads(model64, loss_of, frames.double(), labels, POS_ID,
+                                          teacher64)
+            refs[use_dropout] = (loss, {k: g.cpu() for k, g in grads.items()})
+    return refs
+
+
+def kernel_vs_plain(got, plain, noise) -> dict:
+    """Phase 9's rule before it also held the paths to float64: each gradient
+    of the kernel path within GRAD_RTOL x max(max|grad|, floor) of the plain
+    path's plus twice the kernel path's run-to-run difference ``noise``.
+    Returns the first gradient beyond it (``problem``, "" for none), the
+    largest share of the limit and how many gradients needed the run-to-run
+    term."""
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in plain.values())
+    problem, worst, needed = "", (0.0, ""), 0
+    for k, g in plain.items():
+        scale = g.abs().max().item()
+        err = (got[k] - g).abs().max().item()
+        tol = GRAD_RTOL * max(scale, floor)
+        if not err <= tol + 2 * noise[k] and not problem:
+            problem = (f"gradient {k}: kernel vs plain {err:.3e}, max|grad| {scale:.3e}, "
+                       f"run-to-run {noise[k]:.3e}")
+        needed += err > tol
+        worst = max(worst, (err / (tol + 2 * noise[k]), k))
+    return dict(problem=problem, worst=worst, needed=needed)
+
+
+def faulty_forward(eps: float):
+    """K2's forward with a relative error ``eps`` on one 64-row q block of
+    the last hop (``PROBE_ROWS`` of ``PROBE_LQ``), its backward untouched: a
+    fault for phase 9's check to flag."""
+    from tdnet_tpu_torch.nn import encoding
+    kernel = encoding.propagation_attention_train
+
+    def faulty(q, k, v, **kw):
+        o = kernel(q, k, v, **kw)
+        if q.shape[1] != PROBE_LQ:
+            return o
+        err = torch.zeros_like(o)
+        err[:, PROBE_ROWS] = eps * o.detach()[:, PROBE_ROWS]
+        return o + err
+
+    return swapped(encoding, "propagation_attention_train", faulty)
+
+
+def check_path(path, plain, ref, noise) -> tuple[str, F64Verdict, dict]:
+    """Phase 9's check of a path's (loss, gradients): ``against_f64`` and
+    ``kernel_vs_plain`` both. Returns the first problem ("" for none) and the
+    two findings."""
+    held, old = against_f64(path, plain, ref), kernel_vs_plain(path[1], plain[1], noise)
+    return held.problem or old["problem"], held, old
+
+
+def compare_paths(loss_of, model, start, frames, labels, teacher, ref, use_dropout: bool,
+                  probes=(PROBE_EPS,)) -> None:
+    """The kernel path's loss and gradients against the float64 run ``ref``
+    and against the plain path's (K2 and K3 swapped for their plain versions),
+    from the state ``start`` and the same step generator (so the same dropout
+    masks): ``check_path``. The kernel path also runs with ``faulty_forward``
+    at each size of ``probes``; the check must flag the first."""
     model.load_state_dict(start)
-    run = lambda: _loss_and_grads(model, loss_of, frames, labels, pos_id, teacher)
+    run = lambda: _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
     loss_a, ga = run()
     loss_b, gb = run()
+    probed = {}
+    for eps in probes:
+        with faulty_forward(eps):
+            probed[eps] = run()
     with plain_train_kernels():
-        loss_p, gp = run()
-    rel = abs(loss_a - loss_p) / abs(loss_p)
-    if set(ga) != set(gp) or not rel <= 1e-4:
-        raise AssertionError(f"[9] kernel-path loss {loss_a} vs plain {loss_p} (rel {rel:.2e})")
-    floor = GRAD_FLOOR * max(g.abs().max().item() for g in gp.values())
-    worst, noisiest, above, needed = (0.0, ""), (0.0, ""), 0, 0
-    for k, g in gp.items():
-        scale = g.abs().max().item()
-        noise = (ga[k] - gb[k]).abs().max().item()
-        err = (ga[k] - g).abs().max().item()
-        tol = GRAD_RTOL * max(scale, floor)
-        if err > tol + 2 * noise:
-            raise AssertionError(f"[9] gradient {k}: kernel vs plain {err:.3e}, max|grad| "
-                                 f"{scale:.3e}, run-to-run {noise:.3e}")
-        needed += err > tol
-        worst = max(worst, (err / tol, k))
-        if scale > floor:
-            above += 1
-            noisiest = max(noisiest, (2 * noise / scale, k))
-    log(f"[9] kernel path vs plain path (dropout {'on' if use_dropout else 'off'}, pos_id "
-        f"{pos_id}): loss {loss_a:.6f} vs {loss_p:.6f} (rel {rel:.2e}); {len(gp)} gradients, "
-        f"{above} above the floor {floor:.2e}; worst {worst[0]:.3f} of {GRAD_RTOL:g} x "
-        f"max(max|grad|, floor) ({worst[1]}), {needed} needing the run-to-run term; largest "
-        f"2 x run-to-run / max|grad| above the floor {noisiest[0]:.2e} ({noisiest[1]}, limit "
-        f"{NOISE_LIMIT:g})")
+        plain = run()
+    noise = {k: (ga[k] - gb[k]).abs().max().item() for k in ga}
+    problem, held, old = check_path((loss_a, ga), plain, ref, noise)
+    setting = f"dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
+    log(f"[9] kernel path vs float64, beside the plain path ({setting}): loss {loss_a:.6f}, "
+        f"plain {plain[0]:.6f}, float64 {ref[0]:.6f}; {describe(held)}")
+    nearest = sorted(held.dists.items(), key=lambda kv: -kv[1][0] / kv[1][2])[:5]
+    log("[9] nearest their limits (kernel / plain distance from float64, limit): " + "; ".join(
+        f"{k} {e_k:.2e} / {e_p:.2e}, {limit:.2e}" for k, (e_k, e_p, limit) in nearest))
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in plain[1].values())
+    noisiest = max((2 * noise[k] / g.abs().max().item(), k) for k, g in plain[1].items()
+                   if g.abs().max().item() > floor)
+    log(f"[9] kernel path vs plain path: worst {old['worst'][0]:.3f} of {GRAD_RTOL:g} x "
+        f"max(max|grad|, floor) + 2 x run-to-run ({old['worst'][1]}), {old['needed']} needing "
+        f"the run-to-run term; largest 2 x run-to-run / max|grad| above the floor "
+        f"{noisiest[0]:.2e} ({noisiest[1]}, limit {NOISE_LIMIT:g})")
+    flagged = {}
+    for eps, x in probed.items():
+        flagged[eps], held_x, old_x = check_path(x, plain, ref, noise)
+        log(f"[9] probe: K2's forward off by {eps:g} on rows {PROBE_ROWS.start}-"
+            f"{PROBE_ROWS.stop - 1} of {PROBE_LQ}: {'flagged' if flagged[eps] else 'PASSED'}; "
+            f"against float64 worst {held_x.worst[0]:.3f} of its limit ({held_x.worst[1]}), "
+            f"against the plain path worst {old_x['worst'][0]:.3f} ({old_x['worst'][1]})")
+    if problem:
+        raise AssertionError(f"[9] kernel path ({setting}): {problem}")
     if noisiest[0] > NOISE_LIMIT:
         raise AssertionError(f"[9] run-to-run difference {noisiest[0]:.2e} x max|grad| on "
                              f"{noisiest[1]} is above {NOISE_LIMIT:g}")
+    if not flagged[probes[0]]:
+        raise AssertionError(f"[9] the check passed K2's forward off by {probes[0]:g} "
+                             f"({setting}): it cannot see such a fault")
 
 
-def phase_train(card: str):
+def phase_train(card: str, probes=(PROBE_EPS,)):
     """The full recipe's train step; returns the recipe (state, its initial
-    state dict, teacher, frames, labels, loss_fn) and the per-kernel launches
-    of the 8 measured steps."""
+    state dict, teacher, frames, labels, loss_fn, the float64 references) and
+    the per-kernel launches of the 8 measured steps. ``probes``: the sizes of
+    ``faulty_forward`` that ``compare_paths`` runs."""
     from tdnet_tpu_torch.kernels.dropout import dropout
     from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
     from tdnet_tpu_torch.train.trainer import make_loss_of, td4_full_recipe
@@ -718,10 +884,15 @@ def phase_train(card: str):
     if launches != [3 * TRAIN_STEPS] * 4:
         raise AssertionError(f"[9] launches {launches}, expected {3 * TRAIN_STEPS} of each")
 
+    t0 = time.perf_counter()
+    refs = f64_references(loss_fn, model, start, teacher, frames, labels)
+    log(f"[9] float64 run from the initial state, dropout off and on: losses "
+        f"{refs[False][0]:.6f} / {refs[True][0]:.6f} ({time.perf_counter() - t0:.1f} s)")
     for use_dropout in (False, True):
         loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout)
-        compare_paths(loss_of, model, start, frames, labels, teacher, use_dropout)
-    return ((state, start, teacher, frames, labels, loss_fn),
+        compare_paths(loss_of, model, start, frames, labels, teacher, refs[use_dropout],
+                      use_dropout, probes)
+    return ((state, start, teacher, frames, labels, loss_fn, refs),
             dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3]))
 
 
@@ -891,7 +1062,7 @@ def phase_dilated_conv(card: str) -> dict:
     return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
 
 
-def phase_train_k5(card: str, state, start, teacher, frames, labels, loss_fn) -> dict:
+def phase_train_k5(card: str, state, start, teacher, frames, labels, loss_fn, refs) -> dict:
     """The recipe with the dilated convs through K5; returns the forward and
     dgrad launches of the measured steps."""
     from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
@@ -923,64 +1094,45 @@ def phase_train_k5(card: str, state, start, teacher, frames, labels, loss_fn) ->
     want = 4 * cfg.path_num * K5_STEPS   # 4 dilated convs in each path's layer4
     if launches != dict(fwd=want, dgrad=want):
         raise AssertionError(f"[14] K5 launches {launches}, expected {want} of each")
-    model64, teacher64 = copy.deepcopy(model).double(), copy.deepcopy(teacher).double()
     for use_dropout in (False, True):
-        compare_with_f64(make_loss_of, loss_fn, model, model64, start, (teacher, teacher64),
-                         frames, labels, use_dropout)
+        compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, labels,
+                         refs[use_dropout], use_dropout)
     return launches
 
 
-def compare_with_f64(make_loss_of, loss_fn, model, model64, start, teachers, frames, labels,
+def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, labels, ref,
                      use_dropout: bool) -> None:
-    """The K5 path's and the cuDNN path's loss and gradients, each against the
-    cuDNN path's in float64, from the state ``start``; beside them, the
-    distances from float64 of deterministic cuDNN and of K5's plain version."""
+    """The K5 path's loss and gradients against phase 9's float64 run ``ref``,
+    beside the cuDNN path's, from the state ``start`` (``against_f64``);
+    beside them, the distances from float64 of deterministic cuDNN and of
+    K5's plain version."""
     from tdnet_tpu_torch.kernels import dilated_conv
-    pos_id = 1
 
-    def run(m, teacher, x, conv_wgrad):
-        m.load_state_dict(start)
+    def run(conv_wgrad):
+        model.load_state_dict(start)
         loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad)
-        return _loss_and_grads(m, loss_of, x, labels, pos_id, teacher)
+        return _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
 
-    loss_k, gk = run(model, teachers[0], frames, "kernel")
-    loss_c, gc = run(model, teachers[0], frames, "cudnn")
+    k5, cudnn = run("kernel"), run("cudnn")
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
-        _, g_det = run(model, teachers[0], frames, "cudnn")
+        _, g_det = run("cudnn")
     plain_k5 = lambda x, w, p, d, counter, flip=False: dilated_conv.dilated_conv_plain(
         x, dilated_conv.dgrad_weights(w) if flip else w, p, d)
     with swapped(dilated_conv, "_forward", plain_k5):
-        _, g_plain = run(model, teachers[0], frames, "kernel")
-    with plain_train_kernels():
-        loss_d, gd = run(model64, teachers[1], frames.double(), "cudnn")
-    rel = max(abs(loss_k - loss_d), abs(loss_c - loss_d)) / abs(loss_d)
-    if set(gk) != set(gd) or set(gc) != set(gd) or not rel <= 1e-4:
-        raise AssertionError(f"[14] losses K5 {loss_k}, cuDNN {loss_c}, float64 {loss_d}")
-    floor = GRAD_FLOOR * max(g.abs().max().item() for g in gd.values())
-    worst = (0.0, "")
-    farthest = {name: (0.0, "") for name in ("cuDNN", "deterministic cuDNN", "plain K5")}
-    cudnn_term, needed = 0, 0
-    for k, g in gd.items():
-        scale = max(g.abs().max().item(), floor)
-        dist = lambda grads: (grads[k].double() - g).abs().max().item()
-        e_k5, e_cudnn = dist(gk), dist(gc)
-        limit = 2 * e_cudnn + GRAD_RTOL * scale
-        if not e_k5 <= limit:
-            raise AssertionError(f"[14] gradient {k}: K5 path {e_k5:.3e} from float64, cuDNN "
-                                 f"path {e_cudnn:.3e}, max(max|grad|, floor) {scale:.3e}")
-        worst = max(worst, (e_k5 / limit, k))
-        for name, e in (("cuDNN", e_cudnn), ("deterministic cuDNN", dist(g_det)),
-                        ("plain K5", dist(g_plain))):
-            farthest[name] = max(farthest[name], (e / scale, k))
-        cudnn_term += 2 * e_cudnn > GRAD_RTOL * scale
-        needed += e_k5 > GRAD_RTOL * scale
-    log(f"[14] K5 path and cuDNN path vs float64 (dropout {'on' if use_dropout else 'off'}, "
-        f"pos_id {pos_id}): loss {loss_k:.6f} / {loss_c:.6f} / {loss_d:.6f} (largest rel "
-        f"{rel:.2e}); {len(gd)} gradients, floor {floor:.2e}; worst K5 gradient "
-        f"{worst[0]:.3f} of its limit ({worst[1]}); the limit is mostly the cuDNN term on "
-        f"{cudnn_term} of {len(gd)}, and {needed} K5 gradients lie beyond {GRAD_RTOL:g} x "
-        f"max(max|grad|, floor)")
+        _, g_plain = run("kernel")
+    held = against_f64(k5, cudnn, ref)
+    log(f"[14] K5 path vs float64, beside the cuDNN path (dropout "
+        f"{'on' if use_dropout else 'off'}, pos_id {POS_ID}): loss {k5[0]:.6f} / {cudnn[0]:.6f} "
+        f"/ {ref[0]:.6f}; {describe(held)}")
+    if held.problem:
+        raise AssertionError(f"[14] K5 path vs float64: {held.problem}")
+    farthest = {}
+    for name, grads in (("cuDNN", cudnn[1]), ("deterministic cuDNN", g_det),
+                        ("plain K5", g_plain)):
+        farthest[name] = max(
+            ((grads[k].double() - g.to(grads[k].device)).abs().max().item()
+             / max(g.abs().max().item(), held.floor), k) for k, g in ref[1].items())
     log("[14] farthest gradient from float64, x max(max|grad|, floor): " + "; ".join(
         f"{name} {e:.2e} ({k})" for name, (e, k) in farthest.items()))
 
