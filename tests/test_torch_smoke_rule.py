@@ -5,8 +5,9 @@ phase 9's probe on the CPU.
 ``against_f64`` holds a path to a float64 run beside the plain f32 path: the
 losses within 1e-4 relative, each gradient no farther from float64 than
 twice the plain path's distance plus 1e-3 x max(max|grad|, floor).
-``kernel_vs_plain`` holds the kernel path to the plain path's gradients
-within 1e-3 x max(max|grad|, floor) plus twice its run-to-run difference.
+``kernel_vs_plain`` holds the kernel path to the plain path: the loss
+within 1e-4 relative, each gradient within 1e-3 x max(max|grad|, floor)
+plus twice its run-to-run difference.
 Phase 9 gates on both (``check_path``): on the card a forward that rounds
 otherwise than the plain path's GEMM flips ReLUs and fails the second while
 it passes the first, and a forward off by 1e-3 on one 64-row q block passes
@@ -79,7 +80,7 @@ def test_the_float64_rule_passes_a_path_closer_to_float64_than_the_plain_path():
     assert held.problem == "", held.problem
     assert held.worst == (pytest.approx(8e-3 / 2.1e-2, rel=1e-3), "ln.bias")
     assert held.plain_term == 1 and held.beyond == 1
-    old = smoke.kernel_vs_plain(kernel, plain, _noise(kernel))
+    old = smoke.kernel_vs_plain((LOSS, kernel), (LOSS, plain), _noise(kernel))
     assert old["problem"].startswith("gradient ln.bias") and old["worst"][0] > 9
 
 
@@ -143,10 +144,32 @@ def test_the_kernel_vs_plain_rule_adds_twice_the_run_to_run_difference():
     ref = _reference()
     plain = _f32_path(ref, 1)
     path = _f32_path(ref, 1, flips={"ln.bias": (0, 2e-3)})
-    assert smoke.kernel_vs_plain(path, plain, _noise(plain, 1e-7))["problem"]
-    found = smoke.kernel_vs_plain(path, plain, {**_noise(plain, 1e-7), "ln.bias": 6e-4})
+    assert smoke.kernel_vs_plain((LOSS, path), (LOSS, plain), _noise(plain, 1e-7))["problem"]
+    found = smoke.kernel_vs_plain((LOSS, path), (LOSS, plain),
+                                  {**_noise(plain, 1e-7), "ln.bias": 6e-4})
     assert found["problem"] == "" and found["needed"] == 1
     assert found["worst"] == (pytest.approx(2e-3 / (1e-3 + 1.2e-3), rel=1e-3), "ln.bias")
+
+
+@pytest.mark.parametrize("rel,ok", [(5e-5, True), (2e-4, False)])
+def test_the_kernel_vs_plain_rule_holds_the_loss_to_1e_4(rel, ok):
+    """The kernel path's loss within 1e-4 relative of the plain path's, the
+    gradients equal: the rule's loss term alone decides."""
+    ref = _reference()
+    path = _f32_path(ref, 2)
+    found = smoke.kernel_vs_plain((LOSS * (1 + rel), path), (LOSS, path), _noise(path))
+    assert (found["problem"] == "") == ok, found["problem"]
+    assert found["problem"].startswith("" if ok else "loss ")
+
+
+@pytest.mark.parametrize("missing_from", ["kernel", "plain"])
+def test_the_kernel_vs_plain_rule_fails_a_gradient_set_missing_a_key(missing_from):
+    ref = _reference()
+    paths = dict(kernel=_f32_path(ref, 2), plain=_f32_path(ref, 1))
+    del paths[missing_from]["conv.weight"]
+    found = smoke.kernel_vs_plain((LOSS, paths["kernel"]), (LOSS, paths["plain"]),
+                                  _noise(paths["kernel"]))
+    assert found["problem"] == "gradient sets differ on ['conv.weight']"
 
 
 def test_the_probe_moves_one_q_block_of_the_last_hop_and_not_its_backward():
