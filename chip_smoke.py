@@ -64,9 +64,10 @@ Phases (any failure exits non-zero):
      in exact arithmetic, such as a bias before a BatchNorm);
    - against the plain path: the loss to 1e-4 relative of the plain path's,
      each gradient to 1e-3 x max(max|grad|, floor) plus twice the kernel
-     path's own run-to-run difference (cuDNN's and the upsampling's
-     backward are nondeterministic), which must stay within
+     path's own run-to-run difference, which must stay within
      1e-2 x max|grad| on every gradient above the floor.
+   Whether the kernel path's two identical steps repeat bit for bit is
+   printed, and where they do not, the largest difference and its gradient.
    A forward that rounds otherwise than the plain path's GEMM flips some
    ReLUs and fails the second rule while it passes the first; the first
    alone passes a forward off by 1e-3 on one 64-row q block of the last hop
@@ -77,8 +78,10 @@ Phases (any failure exits non-zero):
     cuDNN conv / BN / ReLU / max-pool sequence) at the TD2-PSP50 stem shape
     [1, 64, 513, 1025], the PSP-101 one [1, 64, 385, 769] and a small ragged
     one, f32 (TF32 off; 1e-4 x max|ref|) and bf16 (2e-2 x max|ref|: one bf16
-    ulp before a BN can carry through conv2); kernel and plain times and the
-    bound;
+    ulp before a BN can carry through conv2); two calls bitwise equal; kernel
+    and plain times, at the TD2 shape the device time of the kernel and of the
+    plain sequence from one trace, and the bound on the tensor cores (bf16;
+    f32 in 3xTF32, with the CUDA cores' beside it);
 11. TD2-PSP50 at 1025x2049 through ``Streamer(stem_impl="fused")``, in bf16
     and in f32; one K4 launch a frame and K1's launches as in phase 5; in
     each fused run, the stem tail of every frame, fused against plain with
@@ -124,8 +127,9 @@ The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward, K2 backward, K3, K4
 per dtype (at the TD2 stem shape) and K5 forward and dgrad (at 512->512 d4),
 each with launches, error, times, library time and bound (K1's library time
-is SDPA followed by ``torch.addmm``, with SDPA alone beside it; K3 and K5 add
-their device time); the last line is ``{"ok": true, "device": {...}}``.
+is SDPA followed by ``torch.addmm``, with SDPA alone beside it; K3, K4 and K5
+add their device time; K4 f32 its bound on the CUDA cores beside the 3xTF32
+one); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -811,6 +815,12 @@ def compare_paths(loss_of, model, start, frames, labels, teacher, ref, use_dropo
     noise = {k: (ga[k] - gb[k]).abs().max().item() for k in ga}
     problem, held, old = check_path((loss_a, ga), plain, ref, noise)
     setting = f"dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
+    repeat = loss_a == loss_b and all(torch.equal(ga[k], gb[k]) for k in ga)
+    largest = max(noise, key=noise.get)
+    log(f"[9] two identical steps of the kernel path ({setting}): " + (
+        "loss and every gradient bitwise equal" if repeat else
+        f"DIFFER: losses {loss_a!r} / {loss_b!r}, largest gradient difference "
+        f"{noise[largest]:.3e} on {largest}"))
     log(f"[9] kernel path vs float64, beside the plain path ({setting}): loss {loss_a:.6f}, "
         f"plain {plain[0]:.6f}, float64 {ref[0]:.6f}; {describe(held)}")
     nearest = sorted(held.dists.items(), key=lambda kv: -kv[1][0] / kv[1][2])[:5]
@@ -848,9 +858,9 @@ def phase_train(card: str):
     state, step, teacher, frames, labels, loss_fn = td4_full_recipe(seed=SEED)
     model, cfg = state.model, state.model.cfg
     # the paths are compared from the seeded initial state: the state after the
-    # timed steps carries the noise of cuDNN's and the upsampling's
-    # nondeterministic backward, so whether some ReLU input sits within an f32
-    # rounding of zero, and flips between the paths, would change from run to run
+    # timed steps carries the noise of cuDNN's nondeterministic weight gradients,
+    # so whether some ReLU input sits within an f32 rounding of zero, and flips
+    # between the paths, would change from run to run
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     in_size = cfg.in_size
     log(f"[9] TD4-PSP18 full recipe {in_size[0]}x{in_size[1]} b1 f32 ({card}): kv_stride "
@@ -902,10 +912,12 @@ def phase_train(card: str):
 def phase_stem_kernel(card: str) -> dict:
     """K4 against its plain version; returns the kernels entries' numbers (at
     the TD2 stem shape) per dtype."""
+    from tdnet_tpu_torch.cli.profile import kernel_family
     from tdnet_tpu_torch.kernels.fused_stem import fused_stem_plain, fused_stem_tail, stem_tail
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
-    log(f"[10] fused stem kernel vs plain ({card}); tolerances: f32 1e-4, bf16 2e-2 x max|ref|")
+    log(f"[10] fused stem kernel vs plain ({card}); tolerances: f32 1e-4, bf16 2e-2 x max|ref|; "
+        f"two calls bitwise equal")
     head = {}
     for h, w in STEM_SHAPES:
         x = torch.randn(1, 64, h, w, generator=gen).relu_().to(dev)
@@ -924,19 +936,36 @@ def phase_stem_kernel(card: str) -> dict:
             if not (got.shape == ref.shape and np.isfinite(err) and err <= tol):
                 raise AssertionError(f"[10] K4 disagrees at {h}x{w} {dtype}: max abs err {err} "
                                      f"> {tol}")
-            ms = median_ms(lambda: fused_stem_tail(args[0], tail))
+            if not torch.equal(fused_stem_tail(args[0], tail), got):
+                raise AssertionError(f"[10] K4 at {h}x{w} {dtype}: two calls differ")
+            run = lambda: fused_stem_tail(args[0], tail)
+            ms = median_ms(run)
             plain_ms = median_ms(lambda: fused_stem_plain(*args))
             hp, wp = (h + 1) // 2, (w + 1) // 2
             es = got.element_size()
             flops = 2 * h * w * 9 * 64 * (64 + 128)
             nbytes = es * (64 * h * w + 128 * hp * wp + 9 * 64 * (64 + 128)) + 4 * 2 * (64 + 128)
-            b = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            b32 = bound(flops, nbytes, PEAK_F32)
+            # the kernel's route: bf16, or f32 in 3xTF32, on the tensor cores
+            b = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32X3)
             name = "bf16" if dtype == torch.bfloat16 else "f32"
-            log(f"[10] [1, 64, {h}, {w}] {name:4s} max_abs_err {err:.3e} (tol {tol:.3e})  kernel "
-                f"{ms:.3f} ms  plain (cuDNN conv sequence) {plain_ms:.3f} ms  bound "
-                f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+            log(f"[10] [1, 64, {h}, {w}] {name:4s} max_abs_err {err:.3e} (tol {tol:.3e}), bitwise "
+                f"repeat; kernel {ms:.3f} ms  plain (cuDNN conv sequence) {plain_ms:.3f} ms  "
+                f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} on the tensor cores"
+                + (f" in 3xTF32, {b32['bound_ms']:.4f} ms on the CUDA cores" if name == "f32"
+                   else ""))
             if (h, w) == STEM_SHAPES[0]:
-                head[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+                # one trace of the kernel and the plain sequence, split by name
+                both = device_rows(run, lambda: fused_stem_plain(*args))
+                device_ms = None
+                if both is not None:
+                    rows = [r for r in both if kernel_family(r[0]) == "K4 fused stem"]
+                    device_ms = sum(t for _, t in rows)
+                    log(f"[10] [1, 64, {h}, {w}] {name} device ms, one trace: kernel "
+                        f"{device_ms:.4f} ({'; '.join(f'{k[:60]} {t:.4f}' for k, t in rows)}); "
+                        f"plain {sum(t for r in both if r not in rows for t in r[1:]):.4f}")
+                head[name] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                  library_ms=None, **b)
             del got, ref, args, tail
     return head
 

@@ -27,7 +27,9 @@ one pipelined pass over the 48 frames as a warm-up:
 (``train.trainer.td4_full_recipe``, dilated convs ``--conv_wgrad``): after 2
 warm-up steps, 8 synchronized
 steps (ms/step of each and the peak memory), then one ``torch.profiler``
-trace of 4 steps split by kernel family as above, per step.
+trace of 4 steps split by kernel family as above, per step, and the device
+time of the upsample's backward (its autograd node's kernels, since its
+matrix products fall in the GEMM family).
 
 TF32 is off, as in ``chip_smoke.py``. Prints one JSON object per model;
 ``--out`` also gets the profiler's kernel table, one file per model, and with
@@ -53,7 +55,7 @@ REPEATS = 7
 # (family, name fragments); a kernel goes to the first family one of whose
 # fragments its name contains
 FAMILIES = (
-    ("K4 fused stem", ("stem_bf16", "stem_f32")),
+    ("K4 fused stem", ("stem_tc",)),
     ("K5 dilated conv", ("dil_tc", "prep_input", "prep_weights")),
     ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32")),
     ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
@@ -174,12 +176,17 @@ def profile_train(conv_wgrad: str, out: str | None, shapes: bool, steps: int = 8
         traced_ms = (time.perf_counter() - t0) * 1e3 / traced
     after = smi("clocks.sm,power.draw,temperature.gpu")
     device_ms, families, top = device_breakdown(prof, traced, train=True)
+    # the upsample's backward by its autograd node (ops/resize.py's matrix products)
+    resize_bwd = sum(e.device_time_total for e in prof.events()
+                     if "evaluate_function:" in e.name and "_ResizeBilinearBackward" in e.name)
     write_tables(prof, out, f"profile_td4-psp18-train_float32_{conv_wgrad}", shapes, 80)
     return {"model": "td4-psp18-train", "dtype": "float32", "conv_wgrad": conv_wgrad,
             "in_size": [769, 1537],
             "ms_per_step": times, "peak_mib": peak, "traced_wall_ms_per_step": traced_ms,
             "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / traced_ms,
-            "families_ms_per_step": families, "top_kernels_per_step": top,
+            "families_ms_per_step": families,
+            "resize_backward_device_ms_per_step": resize_bwd / 1e3 / traced,
+            "top_kernels_per_step": top,
             "smi_after_sm_clock_power_temp": after}
 
 

@@ -6,7 +6,8 @@ Compiles one ``csrc`` source with the flags of ``kernels/build.py`` plus
 ``-Xptxas -v`` into ``build/tdnet_tpu_torch/`` (it needs ``nvcc`` and
 ``cuobjdump``: a machine with the CUDA toolkit) and prints, for each kernel
 whose mangled name contains one of the fragments, ptxas's registers, spills
-and static shared memory, and its SASS instructions counted by opcode.
+and static shared memory, its SASS instructions counted by opcode, and the
+counts of the product opcodes (HMMA, HGMMA, FFMA).
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import re
 import subprocess
 
 from tdnet_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
+
+# the opcodes of a product: tensor cores (mma.sync, wgmma), CUDA-core fma
+PRODUCTS = ("HMMA", "HGMMA", "FFMA")
 
 
 def ptxas_info(log: str) -> dict[str, str]:
@@ -66,6 +70,7 @@ def main(argv=None) -> None:
             print(f"{name[:110]}:{info.get(name, '')}")
             print(f"  {sum(ops.values())} instructions: "
                   + ", ".join(f"{op} {n}" for op, n in ops.most_common(18)))
+            print("  products: " + ", ".join(f"{op} {ops[op]}" for op in PRODUCTS))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 // Error-compensated TF32 (3xTF32) on mma.sync.m16n8k8, and cp.async, shared by the f32
 // attention kernels: the training attention's backward (propagation_attention_train.cu, K2)
 // and the f32 PV and fc passes (attention_f32.cuh, propagation_attention.cu; K1 and K2's
-// forward), and by the dilated conv (dilated_conv.cu, K5).
+// forward), by the dilated conv (dilated_conv.cu, K5) and by the fused stem's f32 path
+// (fused_stem.cu, K4).
 //
 // Each f32 operand x splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi); a b accumulates
 // as a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first, which keeps f32 accuracy (TF32

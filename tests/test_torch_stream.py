@@ -109,8 +109,10 @@ def test_synthetic_frames_pan_a_seeded_scene():
      "K1 propagation attention"),
     ("void (anonymous namespace)::fc_tc<256>(float const*, ...)", "K1 propagation attention"),
     ("(anonymous namespace)::dropout_vec4(float4 const*, ...)", "K3 dropout"),
-    ("void (anonymous namespace)::tc::stem_bf16(__nv_bfloat16 const*, ...)", "K4 fused stem"),
-    ("void (anonymous namespace)::cc::stem_f32(float const*, ...)", "K4 fused stem"),
+    ("void (anonymous namespace)::stem_tc<(anonymous namespace)::Bf16>(__nv_bfloat16 const*, "
+     "...)", "K4 fused stem"),
+    ("void (anonymous namespace)::stem_tc<(anonymous namespace)::F32>(float const*, ...)",
+     "K4 fused stem"),
     ("(anonymous namespace)::dil_tc(float const*, float const*, float const*, ...)",
      "K5 dilated conv"),
     ("(anonymous namespace)::prep_input(float const*, float*, float*, int, ...)",
