@@ -9,12 +9,12 @@ Phases (any failure exits non-zero):
    all at once;
 2. the propagation-attention kernel (K1) against its plain PyTorch version at
    the streaming hop shapes (and a ragged batch of 2), f32 (TF32 off) and
-   bf16, with and without the fc; max abs error and the median time of each
-   (CUDA events), and the kernels each f32 call runs with their device times
-   (a ``torch.profiler`` trace); at the TD2 hop with the fc,
-   ``F.scaled_dot_product_attention`` followed by ``torch.addmm`` (the same
-   function), SDPA alone, and the bound both ways (f32 on the CUDA cores,
-   3xTF32 on the tensor cores);
+   bf16, with and without the fc; max abs error, two calls bitwise equal, the
+   median time of each (CUDA events), and the kernels each call runs with
+   their device times (a ``torch.profiler`` trace); at the TD2 hop with the
+   fc, ``F.scaled_dot_product_attention`` followed by ``torch.addmm`` (the
+   same function), SDPA alone, and the bound (bf16 on the tensor cores; f32
+   both ways, on the CUDA cores and in 3xTF32 on the tensor cores);
 3. TD4-PSP18 at 769x1537 in f32 through ``Streamer`` on seeded random weights
    and 12 seeded synthetic frames, against the same stream with the plain
    attention (1e-3 x max|logits|); 3 kernel launches per warm frame; latency,
@@ -22,7 +22,13 @@ Phases (any failure exits non-zero):
 4. the same stream in bf16, against its plain-attention run (3e-2 x
    max|logits|) and against the f32 stream (5e-2 x max|f32 logits|);
 5. TD2-PSP50 at 1025x2049 in bf16, against its plain-attention run (3e-2 x
-   max|logits|); one launch per warm frame;
+   max|logits|); one launch per warm frame; then K1 on the stream's own hop
+   inputs (kept from the last call of the run) beside phase 2's kind of
+   inputs at the same shape, both held to phase 2's bf16 rule and repeating
+   bitwise, with how peaked each softmax is (the rows' score spread, the share
+   of exp(s - m) that is 0 or below 2^-126), then timed in turns (stream,
+   randn, stream, randn): median ms, the kernels' device ms, the SM clock,
+   power draw and temperature after each;
 6. load the training libraries (K2: training attention, K3: dropout);
 7. K2 against its plain version at the TD4 training hop shapes (2,145 x 2,145,
    run twice a step, and 18,721 x 2,145), f32, dropout off and on with one
@@ -127,9 +133,8 @@ The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward, K2 backward, K3, K4
 per dtype (at the TD2 stem shape) and K5 forward and dgrad (at 512->512 d4),
 each with launches, error, times, library time and bound (K1's library time
-is SDPA followed by ``torch.addmm``, with SDPA alone beside it; K3, K4 and K5
-add their device time; K4 f32 its bound on the CUDA cores beside the 3xTF32
-one); the last line is ``{"ok": true, "device": {...}}``.
+is SDPA followed by ``torch.addmm``, with SDPA alone beside it; K1, K3, K4 and
+K5 add their device time); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -265,12 +270,16 @@ def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
     return None
 
 
-def device_kernels(fn) -> str:
-    """``device_rows`` of ``fn`` as one line."""
-    rows = device_rows(fn)
+def format_rows(rows) -> str:
+    """``device_rows``' result as one line."""
     if rows is None:
         return "not measured"
     return "; ".join(f"{key[:90]} {ms:.3f}" for key, ms in rows)
+
+
+def device_kernels(fn) -> str:
+    """``device_rows`` of ``fn`` as one line."""
+    return format_rows(device_rows(fn))
 
 
 def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
@@ -314,14 +323,17 @@ def phase_kernel(card: str) -> dict:
                                          f"max abs err {err} > {tol}")
                 run = lambda: fused_propagation_attention(t["q"], t["k"], t["v"],
                                                           temperature=8.0, **fkw)
+                if not torch.equal(run(), got):
+                    raise AssertionError(f"[2] K1 at {n}x{lq}x{lkv} {dtype} fc={fc}: two calls "
+                                         f"differ")
                 ms = median_ms(run)
                 plain_ms = median_ms(lambda: propagation_attention_plain(
                     t["q"], t["k"], t["v"], temperature=8.0, **fkw))
                 name = "bf16" if dtype == torch.bfloat16 else "f32"
                 log(f"[2] n={n} {lq:6d} x {lkv:5d} {name:4s} fc={int(fc)}  max_abs_err {err:.3e} "
-                    f"(tol {tol:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-                if dtype == torch.float32:
-                    log(f"[2]   kernels (device ms): {device_kernels(run)}")
+                    f"(tol {tol:.3e}), bitwise repeat  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+                rows = device_rows(run)
+                log(f"[2]   kernels (device ms): {format_rows(rows)}")
                 if (n, lq, lkv) == HEADLINE and fc:
                     sdpa = lambda: F.scaled_dot_product_attention(
                         t["q"], t["k"], t["v"], scale=1.0 / 8.0)
@@ -333,9 +345,11 @@ def phase_kernel(card: str) -> dict:
                     b = attention_bounds(n, lq, lkv, fc, nbytes)
                     kernel_bound = b["tf32x3"] if dtype == torch.float32 else \
                         bound(b["flops"], nbytes, PEAK_BF16)
-                    headline[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                          library_ms=lib_ms, library_sdpa_ms=sdpa_ms,
-                                          **kernel_bound)
+                    headline[name] = dict(max_abs_err=err, ms=ms,
+                                          device_ms=None if rows is None
+                                          else sum(t for _, t in rows),
+                                          plain_ms=plain_ms, library_ms=lib_ms,
+                                          library_sdpa_ms=sdpa_ms, **kernel_bound)
                     log(f"[2]   F.scaled_dot_product_attention then torch.addmm (the fc) "
                         f"{lib_ms:.3f} ms, SDPA alone {sdpa_ms:.3f} ms; {b['flops'] / 1e9:.2f} "
                         f"GFLOP, bound {kernel_bound['bound_ms']:.3f} ms by "
@@ -368,6 +382,76 @@ def plain_attention():
     from tdnet_tpu_torch.kernels import propagation_attention as pa
     from tdnet_tpu_torch.nn import encoding
     return swapped(encoding, "fused_propagation_attention", pa.propagation_attention_plain)
+
+
+def recording_attention(seen: dict):
+    """The streaming hops go through the kernel's wrapper as before, and
+    ``seen`` keeps copies of the inputs of the last call."""
+    from tdnet_tpu_torch.kernels import propagation_attention as pa
+    from tdnet_tpu_torch.nn import encoding
+
+    def record(q, k, v, **kw):
+        seen.clear()
+        seen.update(q=q.clone(), k=k.clone(), v=v.clone(), **kw)
+        return pa.fused_propagation_attention(q, k, v, **kw)
+    return swapped(encoding, "fused_propagation_attention", record)
+
+
+def score_spread(q, k, temperature) -> str:
+    """How peaked the softmax of q kᵀ / temperature is: the median over rows
+    of max - min of the scaled scores, and the shares of exp(s - max) that
+    are 0 in f32 and that lie below 2^-126 (f32's subnormals and 0)."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) / temperature
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    spread = (s.amax(-1) - s.amin(-1)).median().item()
+    return (f"median row spread {spread:.2f}, exp(s - m) == 0: {(e == 0).float().mean().item():.4f},"
+            f" < 2^-126: {(e < 2.0 ** -126).float().mean().item():.4f}")
+
+
+def phase_stream_inputs(card: str, hop: dict) -> None:
+    """K1 on one warm frame's hop inputs of the TD2-PSP50 bf16 stream (``hop``,
+    from ``recording_attention``) and on phase 2's kind of inputs at the same
+    shape (randn q, k, v; w x 0.05, b x 0.1), timed in turns (stream, randn,
+    stream, randn): the median of 10 CUDA-event calls, the kernels' device ms
+    and the SM clock, power draw and temperature after each. The kernel on the
+    stream's inputs is held to phase 2's bf16 rule and repeats bitwise."""
+    from tdnet_tpu_torch.cli.profile import smi
+    from tdnet_tpu_torch.kernels.propagation_attention import (
+        fused_propagation_attention, propagation_attention_plain)
+    n, lq, _ = hop["q"].shape
+    lkv = hop["k"].shape[1]
+    rng = np.random.RandomState(SEED)
+    host = dict(q=rng.randn(n, lq, D_K), k=rng.randn(n, lkv, D_K), v=rng.randn(n, lkv, D_V),
+                fc_w=rng.randn(D_V, D_V) * 0.05, fc_b=rng.randn(D_V) * 0.1)
+    randn = {name: torch.tensor(a, dtype=torch.float32, device="cuda").to(torch.bfloat16)
+             for name, a in host.items()}
+    randn["temperature"] = 8.0
+    cases = {"stream": hop, "randn": randn}
+    for name, c in cases.items():
+        kw = dict(temperature=c["temperature"], fc_w=c["fc_w"], fc_b=c["fc_b"])
+        got = fused_propagation_attention(c["q"], c["k"], c["v"], **kw)
+        ref = propagation_attention_plain(c["q"].float(), c["k"].float(), c["v"].float(),
+                                          temperature=kw["temperature"], fc_w=c["fc_w"].float(),
+                                          fc_b=c["fc_b"].float())
+        err = (got.float() - ref).abs().max().item()
+        tol = 3e-2 * ref.abs().max().item()
+        same = torch.equal(fused_propagation_attention(c["q"], c["k"], c["v"], **kw), got)
+        log(f"[5] {name} inputs {n}x{lq}x{lkv}, temperature {kw['temperature']:g}: max_abs_err "
+            f"{err:.3e} (tol {tol:.3e}), two calls {'bitwise equal' if same else 'DIFFERENT'}; "
+            f"{score_spread(c['q'], c['k'], kw['temperature'])}")
+        if not (np.isfinite(err) and err <= tol and same):
+            raise AssertionError(f"[5] K1 on the {name} inputs: max abs err {err} > {tol} or "
+                                 f"two calls differ")
+        del got, ref
+    for name in ("stream", "randn", "stream", "randn"):
+        c = cases[name]
+        run = lambda: fused_propagation_attention(c["q"], c["k"], c["v"],
+                                                  temperature=c["temperature"],
+                                                  fc_w=c["fc_w"], fc_b=c["fc_b"])
+        ms = median_ms(run)
+        rows = format_rows(device_rows(run))
+        log(f"[5] K1 on the {name} inputs ({card}): {ms:.3f} ms; device ms: {rows}; after it "
+            f"{smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
 
 
 def check_close(tag, got, want, frac, what):
@@ -470,6 +554,23 @@ def run_stream(arch, in_size, dtype, frames, card, tag, kernel=True, stem_impl="
         raise AssertionError(f"{tag}: K1 / K4 launches {launches} / {stem_launches}, expected "
                              f"{expected[0]} / {expected[1]}")
     return outs, launches, stem_launches
+
+
+def phase_td2_stream(card: str, td2) -> tuple[list, int]:
+    """Phase 5: the TD2-PSP50 bf16 stream against its plain-attention run, then
+    K1 on one warm frame's hop inputs (``phase_stream_inputs``); returns the
+    stream's logits and K1 launches."""
+    frames = stream_frames(td2, torch.bfloat16)
+    hop = {}
+    with recording_attention(hop):
+        outs, launches, _ = run_stream("td2-psp50", td2, torch.bfloat16, frames, card, "5")
+    with plain_attention():
+        plain, _, _ = run_stream("td2-psp50", td2, torch.bfloat16, frames, card, "5-plain",
+                                 kernel=False)
+    check_close("5", outs, plain, 3e-2, "kernel-path vs plain-attention bf16")
+    del plain, frames
+    phase_stream_inputs(card, hop)
+    return outs, launches
 
 
 def phase_train_build() -> None:
@@ -1195,15 +1296,8 @@ def main() -> int:
     check_close("4", outs16, outs32, 5e-2, "bf16 vs f32")
     del outs16, outs32, plain, bf16_frames
 
-    td2_frames = stream_frames(td2, torch.bfloat16)
-    outs2, n2, _ = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames, card, "5")
-    with plain_attention():
-        plain, _, _ = run_stream("td2-psp50", td2, torch.bfloat16, td2_frames, card, "5-plain",
-                                 kernel=False)
-    check_close("5", outs2, plain, 3e-2, "kernel-path vs plain-attention bf16")
-
+    outs2, n2 = phase_td2_stream(card, td2)
     launches = {"f32": n32, "bf16": n16 + n2}
-    del plain, td2_frames
 
     phase_train_build()
     k2 = phase_train_attention(card)

@@ -61,7 +61,7 @@ FAMILIES = (
     ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
     # in a train step this family is K2's forward: stats_f32, shared with K1, and pv_fma
     ("K1 propagation attention", ("stats_f32", "pv_tc", "fc_tc", "pv_fma",
-                                  "stats_bf16", "pv_bf16", "fc_bf16")),
+                                  "attn_bf16", "fc_bf16")),
     ("convolutions (cuDNN)", ("conv", "xmma", "cutlass", "cudnn", "gemm",
                               "nchwToNhwc", "nhwcToNchw")),
     ("adaptive pool", ("adaptive_average_pool",)),

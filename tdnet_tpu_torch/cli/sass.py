@@ -7,7 +7,8 @@ Compiles one ``csrc`` source with the flags of ``kernels/build.py`` plus
 ``cuobjdump``: a machine with the CUDA toolkit) and prints, for each kernel
 whose mangled name contains one of the fragments, ptxas's registers, spills
 and static shared memory, its SASS instructions counted by opcode, and the
-counts of the product opcodes (HMMA, HGMMA, FFMA).
+counts of the product opcodes (HMMA, HGMMA, FFMA); then ptxas's warnings (a
+wgmma pipeline it serialized, a ``setmaxnreg`` it ignored).
 """
 
 from __future__ import annotations
@@ -71,6 +72,9 @@ def main(argv=None) -> None:
             print(f"  {sum(ops.values())} instructions: "
                   + ", ".join(f"{op} {n}" for op, n in ops.most_common(18)))
             print("  products: " + ", ".join(f"{op} {ops[op]}" for op in PRODUCTS))
+    for line in (build.stdout + build.stderr).splitlines():
+        if "warning" in line:
+            print(line.strip())
 
 
 if __name__ == "__main__":

@@ -32,7 +32,6 @@ namespace {
 constexpr int DK = 64;  // key width the kernels take
 constexpr int BQ = 64;  // q rows per block
 constexpr int BK = 64;  // keys per chunk
-constexpr int BD = 128; // d_v columns per block of K1's bf16 kernels
 
 constexpr int PK = 32;  // keys per chunk of the PV passes (and depth per chunk of K1's fc)
 

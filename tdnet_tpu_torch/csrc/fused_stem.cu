@@ -55,6 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -115,22 +116,10 @@ struct Geo {
 
 // ---- PTX helpers
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(saddr(p)));
-}
-
-// The shared-memory matrix descriptor of a K-major tile with the 128-byte swizzle: rows of
-// 128 bytes (64 bf16), groups of 8 rows 1024 bytes apart. The swizzle follows the address
-// bits, so a tile may start at any row (a tap's shift) or 32-byte k step.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((saddr(p) >> 4) & 0x3FFF) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
-         (uint64_t)1 << 62;
 }
 
 // d (a warpgroup's 64 x 64 f32 fragment: d[4 nt + e] as an m16n8 tile nt) += a b, bf16
@@ -150,32 +139,10 @@ __device__ __forceinline__ void wgmma_64x64(float* d, uint64_t a, uint64_t b) {
       : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// this thread's shared-memory accesses (generic proxy) before the async proxy's (wgmma
-// reads, bulk copies)
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // 16 bytes global -> shared, of which the first `bytes` are read and the rest zero-filled
 __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr(dst)), "l"(src),
                "r"(bytes));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(saddr(bar)));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // one thread: `bytes` from global src to shared dst, completing on bar's current phase
@@ -187,21 +154,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar))
       : "memory");
-}
-
-// A wait that outlasts any fill by orders of magnitude traps, so that a fault in the
-// pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (int tries = 0; !done; ++tries) {
-    if (tries == (1 << 24)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(saddr(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 // ---- the products of one weight chunk

@@ -15,13 +15,13 @@
 //
 // Design. The TPU kernel keeps all of K and V on chip and streams q blocks. On Hopper
 // V alone (2,145 x 512 x 2 B in bf16) is ten times a block's shared memory, and a
-// 512-wide f32 output row per q row is too much register state for one block. So:
+// 512-wide f32 output row per q row is too much register state for one warpgroup. So:
 //   1. stats: one pass over K chunks gives each q row its max m and its sum
 //      l = sum exp(s - m) (the cheap d_k = 64 product only);
-//   2. pv: each block owns 64 q rows and a slice of the d_v columns, walks the K/V
-//      chunks, recomputes the 64 x 64 score tile, forms p = exp(s - m) / l exactly as
-//      the reference does (no rescaling), rounds p to the input type like the
-//      reference's cast, and accumulates p v in f32;
+//   2. pv: each block owns q rows and a slice of the d_v columns, walks the K/V chunks,
+//      recomputes the score tile, forms p = exp(s - m) / l (no rescaling: p is normalised
+//      before it is rounded to the input type, as the reference rounds it), and
+//      accumulates p v in f32;
 //   3. fc: a tiled GEMM with bias over the [n * Lq, d_v] PV result, which is written
 //      in the input type first, as the reference casts it.
 // Ragged Lq and Lkv edges are masked inside the kernels; nothing is padded.
@@ -30,9 +30,14 @@
 // fc on the tensor cores in 3xTF32 (mma.sync m16n8k8, each operand split into TF32 hi and
 // lo; tf32x3.cuh), f32's accuracy, each 32-deep chunk of an 8-column tile one chain added
 // in round-to-nearest f32; a block owns all 512 columns, so s is formed twice (stats and
-// pv), and key ranges summed in order fill the card where q blocks alone do not. bf16
-// inputs run on the tensor cores (mma.sync m16n8k16, f32 accumulate); the score tile stays
-// in registers and becomes the A operand of the PV product directly.
+// pv), and key ranges summed in order fill the card where q blocks alone do not.
+// bf16 inputs (the streaming path; k1:: below): every product on wgmma (f32 accumulate),
+// every tile brought in by TMA through a ring of stages that a producer warpgroup fills
+// while the consumer warpgroups compute; s stays in registers and becomes p v's A operand
+// in place; p = 2^(s c - m) (1 / l) with c = scale log2 e and m in the same units, one
+// ex2.approx a score and one multiply by the row's 1 / l (no division, no slow path for the
+// tiny p of a peaked softmax); the block shape, keys a chunk and stages come from
+// kernels/grid.py:attention_bf16_plan.
 // Blocks run in any order, so each carries nothing to the next: the sequential TPU
 // grid becomes a loop over K/V chunks inside a block.
 
@@ -42,6 +47,7 @@
 #include <stdint.h>
 
 #include "attention_f32.cuh"
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -269,254 +275,6 @@ int launch_fc(const float* x, const float* w, const float* bias, float* y, int m
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor cores. 128 threads = 4 warps; warp w owns q rows 16w..16w+15 of the
-// block. Fragment layouts are those of mma.sync.m16n8k16.row.col: in a warp,
-// g = lane / 4 and t = lane % 4; an accumulator tile holds rows g and g + 8,
-// columns 2t and 2t + 1.
-// ---------------------------------------------------------------------------
-
-constexpr int TC_THREADS = 128;
-constexpr int QS = DK + 8; // padded row stride (elements) of the q, k and x tiles: 144 B
-constexpr int VS = BD + 8; // padded row stride of the v and w tiles: 272 B
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) x columns [col0, col0 + WIDTH) of a row-major bf16 matrix
-// with leading dimension ld into a shared tile of row stride `stride`; rows past len
-// are zero. 16-byte vectors: pointers, ld and col0 keep 16-byte alignment.
-template <int WIDTH>
-__device__ __forceinline__ void load_tile(bf16* dst, int stride, const bf16* src, int ld,
-                                          int row0, int col0, int len) {
-  constexpr int VPR = WIDTH / 8;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += TC_THREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * 8, g = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (g < len) val = *reinterpret_cast<const uint4*>(src + (size_t)g * ld + col0 + c);
-    *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
-  }
-}
-
-// A fragments of this warp's 16 rows of a [64, QS] tile, for the 4 k16 steps of 64.
-__device__ __forceinline__ void load_a_frags(uint32_t a[4][4], const bf16* tile) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* row = tile + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * QS + (lane / 16) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], row + kk * 16);
-}
-
-// s[j] (j < 8): the unscaled scores of this warp's rows against keys 8j..8j+7 of ks.
-__device__ __forceinline__ void score_tile_tc(const uint32_t qa[4][4], const bf16* ks,
-                                              float s[8][4]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  const bf16* row = ks + ((lane % 8) + (lane / 16) * 8) * QS + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4];
-      ldsm_x4(b, row + jp * 16 * QS + kk * 16);
-      mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
-    }
-}
-
-// acc[j] (j < 16) += a (this warp's 16 x 64 block) * tile[64 x 128], with the tile
-// row-major [k][n] in shared memory (row stride VS).
-__device__ __forceinline__ void mma_kn_tile(float acc[16][4], const uint32_t a[4][4],
-                                            const bf16* tile) {
-  const int lane = threadIdx.x % 32;
-  const bf16* row = tile + ((lane % 8) + ((lane / 8) % 2) * 8) * VS + (lane / 16) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int jp = 0; jp < 8; ++jp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, row + kk * 16 * VS + jp * 16);
-      mma_bf16(acc[2 * jp], a[kk], b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// Store this warp's 16 x 128 accumulator (+ bias) as bf16 rows of y [.., ld].
-__device__ __forceinline__ void store_acc(bf16* y, int ld, int row0, int col0, int rows,
-                                          const float acc[16][4], const bf16* bias) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = row0 + warp * 16 + g;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = col0 + 8 * j + 2 * t;
-    const float b0 = bias ? __bfloat162float(bias[c]) : 0.f;
-    const float b1 = bias ? __bfloat162float(bias[c + 1]) : 0.f;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(y + (size_t)r0 * ld + c) = pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
-    if (r0 + 8 < rows)
-      *reinterpret_cast<uint32_t*>(y + (size_t)(r0 + 8) * ld + c) =
-          pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
-  }
-}
-
-__global__ void __launch_bounds__(TC_THREADS)
-stats_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, float* __restrict__ row_max,
-           float* __restrict__ row_sum, int lq, int lkv, float scale) {
-  __shared__ __align__(16) bf16 qs[64 * QS];
-  __shared__ __align__(16) bf16 ks[64 * QS];
-  const int b = blockIdx.z, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  load_tile<DK>(qs, QS, q, DK, q0, 0, lq);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_a_frags(qa, qs);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
-  for (int k0 = 0; k0 < lkv; k0 += BK) {
-    __syncthreads();
-    load_tile<DK>(ks, QS, k, DK, k0, 0, lkv);
-    __syncthreads();
-    float s[8][4];
-    score_tile_tc(qa, ks, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + 8 * j + 2 * t + (e & 1) < lkv) merge_stats(m[e >> 1], l[e >> 1], s[j][e] * scale, 1.f);
-  }
-  // a row's 4 threads are the 4 lanes of one quad
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[h], off);
-      merge_stats(m[h], l[h], mo, lo);
-    }
-  if (t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = q0 + warp * 16 + g + 8 * h;
-      if (r < lq) {
-        row_max[(size_t)b * lq + r] = m[h];
-        row_sum[(size_t)b * lq + r] = l[h];
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(TC_THREADS)
-pv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-        const float* __restrict__ row_max, const float* __restrict__ row_sum,
-        bf16* __restrict__ o, int lq, int lkv, int dv, float scale) {
-  __shared__ __align__(16) bf16 qs[64 * QS];
-  __shared__ __align__(16) bf16 ks[64 * QS];
-  __shared__ __align__(16) bf16 vs[64 * VS];
-  const int b = blockIdx.z, d0 = blockIdx.y * BD, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * dv;
-  o += (size_t)b * lq * dv;
-  load_tile<DK>(qs, QS, q, DK, q0, 0, lq);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_a_frags(qa, qs);
-
-  float mrow[2], lrow[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + warp * 16 + g + 8 * h;
-    mrow[h] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
-    lrow[h] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
-  }
-  float acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < lkv; k0 += BK) {
-    __syncthreads();
-    load_tile<DK>(ks, QS, k, DK, k0, 0, lkv);
-    load_tile<BD>(vs, VS, v, dv, k0, d0, lkv);
-    __syncthreads();
-    float s[8][4];
-    score_tile_tc(qa, ks, s);
-    // p = exp(s - m) / l, rounded to bf16, as the A fragments of the 4 key steps:
-    // score tiles 2kk and 2kk + 1 are the two column halves of key step kk
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[e] = k0 + 8 * j + 2 * t + (e & 1) < lkv
-                   ? expf(s[j][e] * scale - mrow[e >> 1]) / lrow[e >> 1] : 0.f;
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-    mma_kn_tile(acc, pa, vs);
-  }
-  store_acc(o, dv, q0, d0, lq, acc, nullptr);
-}
-
-// y[m, n] = sum_k x[m, k] w[k, n] + bias[n]; kdim % 64 == 0, ndim % 128 == 0.
-__global__ void __launch_bounds__(TC_THREADS)
-fc_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
-        bf16* __restrict__ y, int m, int kdim, int ndim) {
-  __shared__ __align__(16) bf16 xs[64 * QS];
-  __shared__ __align__(16) bf16 ws[64 * VS];
-  const int row0 = blockIdx.x * BQ, col0 = blockIdx.y * BD;
-  float acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  for (int k0 = 0; k0 < kdim; k0 += 64) {
-    __syncthreads();
-    load_tile<64>(xs, QS, x, kdim, row0, k0, m);
-    load_tile<BD>(ws, VS, w, ndim, k0, col0, kdim);
-    __syncthreads();
-    uint32_t a[4][4];
-    load_a_frags(a, xs);
-    mma_kn_tile(acc, a, ws);
-  }
-  store_acc(y, ndim, row0, col0, m, acc, bias);
-}
-
 // The PV pass runs blocks of `cols` columns (128, 256 or 512, dividing dv) over key ranges of
 // k_per 32-key chunks, with more than one range into o_parts [ranges, n, lq, dv], summed in
 // order; the fc blocks of fc_cols columns.
@@ -548,50 +306,627 @@ int run_f32(const float* q, const float* k, const float* v, const float* w, cons
                           : launch_fc<128>(o_tmp, w, bias, out, n * lq, dv, st);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 (hopper.cuh): three kernels on wgmma (f32 accumulate), each fed by TMA copies through
+// a ring of `stages` shared-memory stages on mbarriers (full: the copies landed; empty: the
+// consumers are done with the stage), which one producer thread fills. A block is a producer
+// warpgroup (0) and RW consumer warpgroups (1 ..); consumer warpgroup cg owns rows [64 cg,
+// + 64) of the block's rows. setmaxnreg gives the producer's registers to the consumers:
+// RW = 1 runs two blocks an SM with 232 registers a consumer thread, RW = 2 one with 240.
+// Every tile in shared memory is stored in wgmma's 128-byte swizzle, as the tensor maps'
+// SWIZZLE_128B writes it: 128-byte rows of 64 bf16, the 16-byte chunk c of row r at
+// c ^ (r % 8), 1024-byte aligned; rows past the tensors read as zeros.
+//   attn_bf16<1, -, 128, true> (stats): per q row, m = max_j s_j c and l = sum_j 2^(s_j c - m)
+//       over all keys, s = q k^T, c = scale log2 e: the block's q tile (loaded once) the A
+//       operand and a K chunk the B operand, both K-major; each chunk's score tile is issued
+//       before the last one is folded, so the tensor cores overlap the CUDA cores;
+//   attn_bf16<RW, CW, BK, false> (p v): o = p v over the block's CW columns of v, the score
+//       tile formed again a chunk, p = 2^(s c - m) (1 / l) in registers and rounded to bf16
+//       in place as the A operand of p v (the accumulator layout of m64nBK is the A layout
+//       of m64n16 a k step), v's chunk the B operand, N-major in 64-column slabs (wgmma's
+//       transpose bit; no transposing copy);
+//   fc_bf16<RW, CW>: y = o w + bias, o's 64-deep chunk the A operand (K-major) and w's the
+//       B operand (N-major).
+// Bound by arithmetic (0.100 ms at the TD2 hop, all three); the p v kernel does most of it:
+// 72.8 GFLOP of p v, the score tile once per column block (9.1 GFLOP each; two blocks of
+// 256 columns at TD2) and one ex2 a score and column block on the SFUs (16 a clock an SM),
+// which the other block of the SM hides. Each output element is summed by one thread in a
+// fixed order: two runs give the same bits.
+// ---------------------------------------------------------------------------
+
+namespace k1 {
+
+constexpr int ROW = 128;                      // bytes of a swizzle row: 64 bf16
+constexpr int MAX_SMEM = 232448;              // bytes of shared memory a block may have
+constexpr int AUX_STAGES = 4;                 // ring stages of the stats and fc kernels
+constexpr int STATS_KEYS = 128;               // keys a chunk of the stats kernel
+constexpr int PRODUCER_REGS = 24;             // registers a producer thread keeps
+template <int RW>
+constexpr int BLOCKS_PER_SM = RW == 1 ? 2 : 1;
+// a consumer thread's registers: its count at launch (65,536 over the SM's threads, 128 or
+// 168) and its share of what the producer gives up
+template <int RW>
+constexpr int CONSUMER_REGS = RW == 1 ? 232 : 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A wgmma's n extent is 128 columns (two 64-column slabs) in p v and the fc (a warpgroup's
+// CW columns take CW / 128 of them) and BK keys in the score tile.
+
+// d (a warpgroup's 64 x 64 f32 fragment) = a b + (scale_d ? d : 0): a 64 x 16 bf16 K-major,
+// b 64 n x 16 k bf16 K-major (TRANS_B 0) or N-major (1), both from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_64(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (a warpgroup's 64 x 128 f32 fragment) = a b + (scale_d ? d : 0): a 64 x 16 bf16 K-major,
+// b 128 n x 16 k bf16 K-major (TRANS_B 0) or N-major (1), both from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_128(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (a warpgroup's 64 x 128 f32 fragment) = a b + (scale_d ? d : 0): a 64 x 16 bf16 in
+// registers (the A fragment of mma.sync m16n8k16 a warp, warp w rows 16 w ..), b 128 n x 16 k
+// bf16 from shared memory, K-major (TRANS_B 0) or N-major (1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_128(float* d, const uint32_t a[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The compiler must not move reads of a wgmma accumulator above the wait for it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The descriptor of an N-major B tile with the 128-byte swizzle: slabs of 64 columns, one
+// 128-byte row a k, `slab` bytes apart; groups of 8 k rows 1024 bytes apart in a slab.
+__device__ __forceinline__ uint64_t sw128_n_desc(const void* p, int slab) {
+  return (uint64_t)((saddr(p) >> 4) & 0x3FFF) | (uint64_t)((slab >> 4) & 0x3FFF) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// The dynamic shared memory from its first 1024-byte boundary: `head` bytes (the attention
+// kernels' q tile), the ring of `stages` stages of `stage` bytes, then the barriers: a full
+// and an empty one a stage, and one for the head.
+struct Ring {
+  unsigned char* head;
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* head_full;
+  __device__ Ring(unsigned char* smem, int stages, int stage, int head_bytes) {
+    head = smem + ((1024 - (saddr(smem) & 1023)) & 1023);
+    base = head + head_bytes;
+    full = reinterpret_cast<uint64_t*>(base + (size_t)stages * stage);
+    empty = full + stages;
+    head_full = empty + stages;
+  }
+};
+
+inline size_t ring_smem(int stages, int stage, int head_bytes) {
+  return 1024 + head_bytes + (size_t)stages * (stage + 16) + 8;
+}
+
+// One thread: the full barriers expect one arrival (the producer's, with the stage's bytes),
+// the empty ones one arrival from each consumer warp.
+template <int RW>
+__device__ __forceinline__ void init_ring(const Ring& ring, int stages) {
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) {
+      bar_init<1>(ring.full + s);
+      bar_init<4 * RW>(ring.empty + s);
+    }
+  if (threadIdx.x == 0) bar_init<1>(ring.head_full);
+  __syncthreads();
+}
+
+// The producer's wait before it refills stage s for chunk ch (the first round finds it free).
+__device__ __forceinline__ void wait_free(const Ring& ring, int ch, int stages) {
+  const int round = ch / stages;
+  if (round > 0) bar_wait(ring.empty + ch % stages, (round - 1) & 1);
+}
+
+// Issue s (the warpgroup's 64 x BK score tile, unscaled, f32) = q k^T over d_k = 64 as one
+// wgmma group: 4 k16 steps, the warpgroup's 64 q rows (descriptor qd) and the K chunk's rows
+// at kt both K-major in shared memory. The caller waits for the group and fences s.
+template <int BK>
+__device__ __forceinline__ void issue_scores(float* s, uint64_t qd, const unsigned char* kt) {
+  const uint64_t desc = sw128_desc(kt);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {   // 32 bytes a step: 2 in the descriptor's units
+    if constexpr (BK == 64) wgmma_ss_64<0>(s, qd + 2 * kk, desc + 2 * kk, kk);
+    else wgmma_ss_128<0>(s, qd + 2 * kk, desc + 2 * kk, kk);
+  }
+  wgmma_commit();
+}
+
+// p = 2^(s c - m) (1 / l) of the score tile as bf16 A fragments of p v, pa[kk] for keys
+// [k0 + 16 kk, + 16); keys from lkv on give 0 (MASK: the chunk reaches past the keys).
+// s[4 j + e]: row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2.
+template <int BK, bool MASK>
+__device__ __forceinline__ void probs(uint32_t (*pa)[4], const float* s, float c,
+                                      const float m[2], const float il[2], int k0, int lkv) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = ex2(fmaf(s[4 * j + e], c, -m[e >> 1])) * il[e >> 1];
+      if (MASK && k0 + 8 * j + 2 * t + (e & 1) >= lkv) p[e] = 0.f;
+    }
+    pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
+// Issue acc += p v over a chunk as one wgmma group: p's A fragments pa (keys [16 kk, + 16)
+// of the chunk), v's chunk the CW / 64 slabs from vt, each a 128-byte row a key.
+template <int CW, int BK>
+__device__ __forceinline__ void issue_pv(float (*acc)[64], const uint32_t (*pa)[4],
+                                         const unsigned char* vt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)   // 16 keys: 16 rows of 128 bytes a slab
+#pragma unroll
+    for (int hh = 0; hh < CW / 128; ++hh)
+      wgmma_rs_128<1>(acc[hh], pa[kk],
+                      sw128_n_desc(vt + 2 * hh * BK * ROW + kk * 16 * ROW, BK * ROW), 1);
+  wgmma_commit();
+}
+
+// Fold a chunk's scores into this thread's row statistics: m = max s c, l = sum 2^(s c - m)
+// of rows g (h = 0) and g + 8 (h = 1); keys from lkv on left out (MASK: the chunk reaches past
+// the keys).
+template <int BK, bool MASK>
+__device__ __forceinline__ void fold_stats(float m[2], float l[2], const float* s, float c,
+                                           int k0, int lkv) {
+  const int t = threadIdx.x & 3;
+  auto valid = [&](int j, int e) { return !MASK || k0 + 8 * j + 2 * t + e < lkv; };
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float cm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (valid(j, e)) cm = fmaxf(cm, s[4 * j + 2 * h + e] * c);
+    if (cm == -INFINITY) continue;   // no key of this thread in the chunk
+    if (cm > m[h]) {
+      l[h] *= ex2(m[h] - cm);
+      m[h] = cm;
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (valid(j, e)) sum += ex2(fmaf(s[4 * j + 2 * h + e], c, -m[h]));
+    l[h] += sum;
+  }
+}
+
+// Merge two (max, sum of 2^(x - max)) pairs; an empty pair has max -inf.
+__device__ __forceinline__ void merge2(float& m, float& l, float mo, float lo) {
+  const float mn = fmaxf(m, mo);
+  const float a = m == -INFINITY ? 0.f : l * ex2(m - mn);
+  const float b = mo == -INFINITY ? 0.f : lo * ex2(mo - mn);
+  m = mn;
+  l = a + b;
+}
+
+template <int CW, int BK, bool STATS>
+__host__ __device__ constexpr int attn_stage() {
+  return BK * ROW * (1 + (STATS ? 0 : CW / 64));   // the K chunk, then V's CW / 64 slabs
+}
+
+// Block (x, y, z): q rows [64 RW x, + 64 RW) of batch z; pv: columns [CW y, + CW). q, k and v
+// through tm_q ([n][lq][64], boxes of 64 x 64 RW), tm_k ([n][lkv][64], boxes of 64 x BK) and
+// tm_v ([n][lkv][dv], boxes of 64 x BK); stats: row_max and row_sum [n, lq] out; pv: in, and
+// o [n, lq, dv] out.
+template <int RW, int CW, int BK, bool STATS>
+__global__ void __launch_bounds__(128 * (RW + 1), BLOCKS_PER_SM<RW>)
+attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, float* __restrict__ row_max,
+          float* __restrict__ row_sum, bf16* __restrict__ o, int lq, int lkv, int dv, float c,
+          int stages) {
+  constexpr int STAGE = attn_stage<CW, BK, STATS>(), Q_BYTES = 64 * RW * ROW;
+  extern __shared__ unsigned char smem_k1[];
+  const Ring ring(smem_k1, stages, STAGE, Q_BYTES);
+  const int b = blockIdx.z, d0 = blockIdx.y * CW, chunks = (lkv + BK - 1) / BK;
+  init_ring<RW>(ring, stages);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
+  if (role == 0) {   // the producer
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    bar_expect(ring.head_full, Q_BYTES);
+    tma_load_3d(ring.head, &tm_q, 0, blockIdx.x * 64 * RW, b, ring.head_full);
+    for (int ch = 0; ch < chunks; ++ch) {
+      wait_free(ring, ch, stages);
+      const int s = ch % stages;
+      unsigned char* st = ring.base + s * STAGE;
+      bar_expect(ring.full + s, STAGE);
+      tma_load_3d(st, &tm_k, 0, ch * BK, b, ring.full + s);
+      if constexpr (!STATS)
+#pragma unroll
+        for (int j = 0; j < CW / 64; ++j)
+          tma_load_3d(st + (1 + j) * BK * ROW, &tm_v, d0 + 64 * j, ch * BK, b, ring.full + s);
+    }
+    return;
+  }
+  reg_alloc<CONSUMER_REGS<RW>>();
+  const int cg = role - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = blockIdx.x * 64 * RW + 64 * cg + 16 * warp + g;   // and row + 8
+  const uint64_t qd = sw128_desc(ring.head + cg * 64 * ROW);   // rows past lq read as zeros
+  bar_wait<false>(ring.head_full, 0);
+  // A chunk: its score tile on the tensor cores, then (stats) folded into the row statistics
+  // or (p v) exponentiated into p and multiplied into acc. The stats loop runs one chunk
+  // ahead: chunk ch + 1's score tile is issued into the other of two buffers before chunk
+  // ch is folded, so the tensor cores form it meanwhile (the loop takes two chunks a turn,
+  // so that each buffer is a fixed set of registers). The same lookahead in the p v loop,
+  // with p in two buffers, measured slower (PERF.md, run P3).
+  auto stage = [&](int ch) { return ring.base + (ch % stages) * STAGE; };
+  auto wait_chunk = [&](int ch) {
+    bar_wait<false>(ring.full + ch % stages, (ch / stages) & 1);
+  };
+  auto release = [&](int ch) {
+    if (lane == 0) bar_arrive(ring.empty + ch % stages);
+  };
+  float* stats_m = row_max + (size_t)b * lq;
+  float* stats_l = row_sum + (size_t)b * lq;
+  float s0[BK / 2], s1[BK / 2];
+  wait_chunk(0);
+  issue_scores<BK>(s0, qd, stage(0));
+  if constexpr (STATS) {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    // chunk ch's scores in cur (issued), chunk ch + 1's go to nxt
+    auto step = [&](float* cur, float* nxt, int ch) {
+      if (ch >= chunks) return;
+      if (ch + 1 < chunks) {
+        wait_chunk(ch + 1);
+        issue_scores<BK>(nxt, qd, stage(ch + 1));
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs<BK / 2>(cur);
+      release(ch);
+      if (ch * BK + BK <= lkv) fold_stats<BK, false>(m, l, cur, c, ch * BK, lkv);
+      else fold_stats<BK, true>(m, l, cur, c, ch * BK, lkv);
+    };
+    for (int ch = 0; ch < chunks; ch += 2) {
+      step(s0, s1, ch);
+      step(s1, s0, ch + 1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // a row's 4 threads are the 4 lanes of a quad
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[h], off);
+        merge2(m[h], l[h], mo, lo);
+      }
+      if (t == 0 && row + 8 * h < lq) {
+        stats_m[row + 8 * h] = m[h];
+        stats_l[row + 8 * h] = l[h];
+      }
+    }
+  } else {
+    float m[2], il[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      m[h] = r < lq ? stats_m[r] : 0.f;
+      il[h] = r < lq ? 1.f / stats_l[r] : 1.f;
+    }
+    float acc[CW / 128][64];
+#pragma unroll
+    for (int hh = 0; hh < CW / 128; ++hh)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[hh][i] = 0.f;
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(s0);
+    for (int ch = 0; ch < chunks; ++ch) {
+      uint32_t pa[BK / 16][4];
+      if (ch * BK + BK <= lkv) probs<BK, false>(pa, s0, c, m, il, ch * BK, lkv);
+      else probs<BK, true>(pa, s0, c, m, il, ch * BK, lkv);
+      issue_pv<CW, BK>(acc, pa, stage(ch) + BK * ROW);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hh = 0; hh < CW / 128; ++hh) fence_regs<64>(acc[hh]);
+      release(ch);
+      if (ch + 1 < chunks) {
+        wait_chunk(ch + 1);
+        issue_scores<BK>(s0, qd, stage(ch + 1));
+        wgmma_wait<0>();
+        fence_regs<BK / 2>(s0);
+      }
+    }
+    o += (size_t)b * lq * dv + d0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= lq) continue;
+#pragma unroll
+      for (int hh = 0; hh < CW / 128; ++hh)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<uint32_t*>(o + (size_t)r * dv + 128 * hh + 8 * j + 2 * t) =
+              pack_bf16(acc[hh][4 * j + 2 * h], acc[hh][4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int RW, int CW>
+__host__ __device__ constexpr int fc_stage() {
+  return (RW + CW / 64) * 64 * ROW;   // x's 64 RW rows, then w's CW / 64 slabs of 64 k rows
+}
+
+// Block (x, y): rows [64 RW x, + 64 RW) and columns [CW y, + CW) of y = x w + bias (bf16
+// out, f32 sums); x [m, dv] through tm_x ([1][m][dv], boxes of 64 x 64 RW), w [dv, dv]
+// ([in, out]) through tm_w ([1][dv][dv], boxes of 64 x 64); dv % 64 == 0.
+template <int RW, int CW>
+__global__ void __launch_bounds__(128 * (RW + 1), BLOCKS_PER_SM<RW>)
+fc_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+        const bf16* __restrict__ bias, bf16* __restrict__ y, int m, int dv, int stages) {
+  constexpr int STAGE = fc_stage<RW, CW>(), A_BYTES = 64 * RW * ROW;
+  extern __shared__ unsigned char smem_fc[];
+  const Ring ring(smem_fc, stages, STAGE, 0);
+  const int row0 = blockIdx.x * 64 * RW, col0 = blockIdx.y * CW, chunks = dv / 64;
+  init_ring<RW>(ring, stages);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
+  if (role == 0) {   // the producer
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      for (int ch = 0; ch < chunks; ++ch) {
+        wait_free(ring, ch, stages);
+        const int s = ch % stages;
+        unsigned char* st = ring.base + s * STAGE;
+        bar_expect(ring.full + s, STAGE);
+        tma_load_3d(st, &tm_x, 64 * ch, row0, 0, ring.full + s);
+#pragma unroll
+        for (int j = 0; j < CW / 64; ++j)
+          tma_load_3d(st + A_BYTES + j * 64 * ROW, &tm_w, col0 + 64 * j, 64 * ch, 0, ring.full + s);
+      }
+    return;
+  }
+  reg_alloc<CONSUMER_REGS<RW>>();
+  const int cg = role - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[CW / 128][64];
+#pragma unroll
+  for (int hh = 0; hh < CW / 128; ++hh)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[hh][i] = 0.f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int s = ch % stages;
+    bar_wait<false>(ring.full + s, (ch / stages) & 1);
+    const unsigned char* st = ring.base + s * STAGE;
+    const uint64_t a = sw128_desc(st + cg * 64 * ROW);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hh = 0; hh < CW / 128; ++hh)
+        wgmma_ss_128<1>(acc[hh], a + 2 * kk,
+                        sw128_n_desc(st + A_BYTES + 2 * hh * 64 * ROW + kk * 16 * ROW, 64 * ROW),
+                        1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hh = 0; hh < CW / 128; ++hh) fence_regs<64>(acc[hh]);
+    if (lane == 0) bar_arrive(ring.empty + s);
+  }
+  const int row = row0 + 64 * cg + 16 * warp + g;
+#pragma unroll
+  for (int hh = 0; hh < CW / 128; ++hh)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 128 * hh + 8 * j + 2 * t;
+      const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row + 8 * h < m)
+          *reinterpret_cast<uint32_t*>(y + (size_t)(row + 8 * h) * dv + col) =
+              pack_bf16(acc[hh][4 * j + 2 * h] + b0, acc[hh][4 * j + 2 * h + 1] + b1);
+    }
+}
+
+// Let KERNEL take `smem` bytes of dynamic shared memory; the attribute is set once for each
+// larger size.
+template <auto KERNEL>
+int allow_smem(size_t smem) {
+  static size_t allowed = 0;
+  if (smem <= allowed) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) allowed = smem;
+  return (int)err;
+}
+
+template <int RW, int CW, int BK, bool STATS>
+int launch_attn(const bf16* q, const CUtensorMap& tk, const CUtensorMap& tv, float* row_max,
+                float* row_sum, bf16* o, int n, int lq, int lkv, int dv, float c, int stages,
+                cudaStream_t st) {
+  const size_t smem = ring_smem(stages, attn_stage<CW, BK, STATS>(), 64 * RW * ROW);
+  if (stages < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq;
+  int err = bf16_tensor_map(&tq, q, DK, lq, n, 64 * RW);
+  constexpr auto kernel = attn_bf16<RW, CW, BK, STATS>;
+  if (err != 0 || (err = allow_smem<kernel>(smem)) != 0) return err;
+  const dim3 grid((lq + 64 * RW - 1) / (64 * RW), STATS ? 1 : dv / CW, n);
+  kernel<<<grid, 128 * (RW + 1), smem, st>>>(tq, tk, tv, row_max, row_sum, o, lq, lkv, dv, c,
+                                             stages);
+  return (int)cudaGetLastError();
+}
+
+template <int RW, int CW>
+int launch_fc(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int m, int dv,
+              cudaStream_t st) {
+  CUtensorMap tx, tw;
+  int e = bf16_tensor_map(&tx, x, dv, m, 1, 64 * RW);
+  if (e != 0 || (e = bf16_tensor_map(&tw, w, dv, dv, 1, 64)) != 0) return e;
+  constexpr int stage = fc_stage<RW, CW>();
+  const int stages = ring_smem(AUX_STAGES, stage, 0) <= MAX_SMEM
+                         ? AUX_STAGES
+                         : (int)((MAX_SMEM - 1032) / (stage + 16));
+  const size_t smem = ring_smem(stages, stage, 0);
+  constexpr auto kernel = fc_bf16<RW, CW>;
+  const int err = allow_smem<kernel>(smem);
+  if (err != 0) return err;
+  kernel<<<dim3((m + 64 * RW - 1) / (64 * RW), dv / CW), 128 * (RW + 1), smem, st>>>(
+      tx, tw, bias, y, m, dv, stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k1
+
+// The p v kernel's and the fc's tiling: rows a block (64 or 128: one or two consumer
+// warpgroups), cols a consumer warpgroup (128 or 256), keys a chunk (p v) and the p v ring's
+// stages, as kernels/grid.py:attention_bf16_plan picks them from the tile sweep (PERF.md).
 int run_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* w, const bf16* bias,
              bf16* o_tmp, bf16* out, float* row_max, float* row_sum, int n, int lq, int lkv,
-             int dv, float scale, cudaStream_t st) {
-  const dim3 g_rows((lq + BQ - 1) / BQ, 1, n);
-  stats_bf16<<<g_rows, TC_THREADS, 0, st>>>(q, k, row_max, row_sum, lq, lkv, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g_pv((lq + BQ - 1) / BQ, dv / BD, n);
-  pv_bf16<<<g_pv, TC_THREADS, 0, st>>>(q, k, v, row_max, row_sum, w ? o_tmp : out, lq, lkv,
-                                       dv, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !w) return (int)err;
-  const dim3 g_fc((n * lq + BQ - 1) / BQ, dv / BD);
-  fc_bf16<<<g_fc, TC_THREADS, 0, st>>>(o_tmp, w, bias, out, n * lq, dv, dv);
-  return (int)cudaGetLastError();
+             int dv, float scale, int rows, int cols, int keys, int stages, cudaStream_t st) {
+  using namespace k1;
+  const int tiling = rows == 64 && cols == 128 && keys == 64     ? 0
+                     : rows == 64 && cols == 128 && keys == 128  ? 1
+                     : rows == 64 && cols == 256 && keys == 64   ? 2
+                     : rows == 128 && cols == 128 && keys == 64  ? 3
+                     : rows == 128 && cols == 128 && keys == 128 ? 4
+                     : rows == 128 && cols == 256 && keys == 64  ? 5
+                                                                 : -1;
+  if (tiling < 0 || dv % cols != 0) return (int)cudaErrorInvalidValue;
+  // the stats pass always takes 64 rows and 128 keys a chunk (the tile sweep's fastest)
+  CUtensorMap ts, tk, tv;
+  int err = bf16_tensor_map(&ts, k, DK, lkv, n, STATS_KEYS);
+  if (err != 0 || (err = bf16_tensor_map(&tk, k, DK, lkv, n, keys)) != 0 ||
+      (err = bf16_tensor_map(&tv, v, dv, lkv, n, keys)) != 0)
+    return err;
+  const float c = scale * LOG2E;
+  err = launch_attn<1, 128, STATS_KEYS, true>(q, ts, ts, row_max, row_sum, nullptr, n, lq, lkv,
+                                              dv, c, AUX_STAGES, st);
+  if (err != 0) return err;
+  bf16* o = w ? o_tmp : out;
+#define K1_PV(RW, CW, BK) \
+  launch_attn<RW, CW, BK, false>(q, tk, tv, row_max, row_sum, o, n, lq, lkv, dv, c, stages, st)
+  switch (tiling) {
+    case 0: err = K1_PV(1, 128, 64); break;
+    case 1: err = K1_PV(1, 128, 128); break;
+    case 2: err = K1_PV(1, 256, 64); break;
+    case 3: err = K1_PV(2, 128, 64); break;
+    case 4: err = K1_PV(2, 128, 128); break;
+    default: err = K1_PV(2, 256, 64); break;
+  }
+#undef K1_PV
+  if (err != 0 || !w) return err;
+  const int m = n * lq;
+  if (rows == 128)
+    return cols == 256 ? launch_fc<2, 256>(o_tmp, w, bias, out, m, dv, st)
+                       : launch_fc<2, 128>(o_tmp, w, bias, out, m, dv, st);
+  return cols == 256 ? launch_fc<1, 256>(o_tmp, w, bias, out, m, dv, st)
+                     : launch_fc<1, 128>(o_tmp, w, bias, out, m, dv, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [n, lq, 64], k [n, lkv, 64], v [n, lkv, dv], w [dv, dv] and bias [dv] (both null:
-// no fc), out [n, lq, dv], o_tmp [n, lq, dv] (used only with the fc), stats [2, n, lq]
-// f32 scratch. dtype 0: float32, 1: bfloat16. dv % 128 == 0; pointers 16-byte aligned.
-// f32 only: the PV pass and the fc take column blocks of `cols` and `fc_cols` (128, 256 or
-// 512, dividing dv), the PV pass key ranges of k_per 32-key chunks, and o_parts [ranges, n,
-// lq, dv] holds the ranges' partial outputs where there is more than one (see run_f32).
+// q [n, lq, 64], k [n, lkv, 64], v [n, lkv, dv], w [dv, dv] and bias [dv] (both null: no
+// fc), out [n, lq, dv], o_tmp [n, lq, dv] (used only with the fc), stats [2, n, lq] f32
+// scratch; pointers 16-byte aligned.
+// f32: dv % 128 == 0; the PV pass and the fc take column blocks of `cols` and `fc_cols`
+// (128, 256 or 512, dividing dv), the PV pass key ranges of k_per 32-key chunks, and o_parts
+// [ranges, n, lq, dv] holds the ranges' partial outputs where there is more than one (see
+// run_f32).
 // Returns the first CUDA error of the launches, 0 if there is none.
-int tdnet_propagation_attention(const void* q, const void* k, const void* v, const void* w,
-                                const void* bias, void* o_tmp, void* out, void* o_parts,
-                                void* stats, int n, int lq, int lkv, int dv, float scale,
-                                int cols, int fc_cols, int k_per, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+int tdnet_propagation_attention_f32(const void* q, const void* k, const void* v,
+                                    const void* w, const void* bias, void* o_tmp, void* out,
+                                    void* o_parts, void* stats, int n, int lq, int lkv, int dv,
+                                    float scale, int cols, int fc_cols, int k_per, void* stream) {
   float* row_max = (float*)stats;
-  float* row_sum = row_max + (size_t)n * lq;
-  if (dtype == 0)
-    return run_f32((const float*)q, (const float*)k, (const float*)v, (const float*)w,
-                   (const float*)bias, (float*)o_tmp, (float*)out, (float*)o_parts, row_max,
-                   row_sum, n, lq, lkv, dv, scale, cols, fc_cols, k_per, st);
-  if (dtype == 1)
-    return run_bf16((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)w,
-                    (const bf16*)bias, (bf16*)o_tmp, (bf16*)out, row_max, row_sum, n, lq, lkv,
-                    dv, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return run_f32((const float*)q, (const float*)k, (const float*)v, (const float*)w,
+                 (const float*)bias, (float*)o_tmp, (float*)out, (float*)o_parts, row_max,
+                 row_max + (size_t)n * lq, n, lq, lkv, dv, scale, cols, fc_cols, k_per,
+                 (cudaStream_t)stream);
+}
+
+// bf16: the same tensors (no o_parts); the blocks' rows, columns, keys a chunk and the p v
+// ring's stages as run_bf16 takes them (kernels/grid.py:attention_bf16_plan).
+int tdnet_propagation_attention_bf16(const void* q, const void* k, const void* v,
+                                     const void* w, const void* bias, void* o_tmp, void* out,
+                                     void* stats, int n, int lq, int lkv, int dv, float scale,
+                                     int rows, int cols, int keys, int stages, void* stream) {
+  float* row_max = (float*)stats;
+  return run_bf16((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)w,
+                  (const bf16*)bias, (bf16*)o_tmp, (bf16*)out, row_max,
+                  row_max + (size_t)n * lq, n, lq, lkv, dv, scale, rows, cols, keys, stages,
+                  (cudaStream_t)stream);
 }
 
 const char* tdnet_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

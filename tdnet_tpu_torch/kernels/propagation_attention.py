@@ -13,7 +13,10 @@ the kernel for CUDA tensors; ``fused_propagation_attention.launches`` counts
 the calls that went to the kernel. In f32 the kernel forms the scores on the
 CUDA cores (``csrc/attention_f32.cuh``, shared with the training kernel's
 forward) and p v and the fc on the tensor cores in 3xTF32, f32's accuracy;
-``forward_plan`` sizes that PV pass's grid and scratch.
+``forward_plan`` sizes that PV pass's grid and scratch. In bf16 every product
+runs on Hopper's ``wgmma``, fed by TMA, in the tiling that
+``grid.attention_bf16_plan`` picks for the shape; ``launch_bf16`` runs the
+kernels in a given tiling (``cli/attention_sweep.py`` times the tilings).
 """
 
 from __future__ import annotations
@@ -25,11 +28,12 @@ from typing import NamedTuple
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
-from tdnet_tpu_torch.kernels.grid import FC_FIXED, Q_BLOCK, column_width, sm_count
+from tdnet_tpu_torch.kernels.grid import (FC_FIXED, Q_BLOCK, Bf16Plan, attention_bf16_plan,
+                                          column_width, sm_count)
 from tdnet_tpu_torch.ops.attention import scaled_dot_attention
 
 SOURCES = ("propagation_attention.cu",)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 D_K = 64        # the key width the kernel takes
 DV_TILE = 128   # d_v must be a multiple of the kernel's column tile
 KEY_CHUNK = 32  # keys a chunk (one 3xTF32 chain) of the f32 PV pass
@@ -77,13 +81,16 @@ def forward_plan(n: int, lq: int, lkv: int, dv: int, sms: int) -> ForwardPlan:
                        (ranges, n, lq, dv) if ranges > 1 else None)
 
 
+@functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
     lib = load_library("propagation_attention", SOURCES)
-    fn = lib.tdnet_propagation_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.tdnet_propagation_attention_f32.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.tdnet_propagation_attention_bf16.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.tdnet_propagation_attention_f32, lib.tdnet_propagation_attention_bf16):
+        fn.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,7 +107,7 @@ def _check(q, k, v, fc_w, fc_b) -> None:
             raise ValueError(f"dtype {t.dtype} differs from v's {v.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the kernel takes contiguous, 16-byte aligned tensors")
-    if v.dtype not in _DTYPE_CODE:
+    if v.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k and v are [n, L, d]")
@@ -131,28 +138,60 @@ def fused_propagation_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, fc_w, fc_b)
-    lib = build()
     n, lq, _ = q.shape
     lkv, dv = v.shape[1], v.shape[2]
-    out = torch.empty((n, lq, dv), dtype=v.dtype, device=v.device)
+    sms = sm_count(v.device.index)
+    if v.dtype == torch.bfloat16:
+        out = launch_bf16(q, k, v, temperature, fc_w, fc_b,
+                          attention_bf16_plan(n, lq, lkv, dv, sms))
+    else:
+        out = _launch_f32(q, k, v, temperature, fc_w, fc_b, forward_plan(n, lq, lkv, dv, sms))
+    fused_propagation_attention.launches += 1
+    return out
+
+
+def _outputs(q, v, fc_w):
+    n, lq = q.shape[:2]
+    out = torch.empty((n, lq, v.shape[2]), dtype=v.dtype, device=v.device)
     stats = torch.empty((2, n, lq), dtype=torch.float32, device=v.device)
-    o_tmp = torch.empty_like(out) if fc_w is not None else None
-    cols, fc_cols, k_per, o_parts = 0, 0, 0, None   # the bf16 kernels take no plan
-    if v.dtype == torch.float32:
-        plan = forward_plan(n, lq, lkv, dv, sm_count(v.device.index))
-        cols, fc_cols, k_per = plan.cols, plan.fc_cols, plan.k_per
-        if plan.parts:
-            o_parts = torch.empty(plan.parts, dtype=torch.float32, device=v.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = lib.tdnet_propagation_attention(
-        ptr(q), ptr(k), ptr(v), ptr(fc_w), ptr(fc_b), ptr(o_tmp), ptr(out), ptr(o_parts),
-        ptr(stats), n, lq, lkv, dv, 1.0 / temperature, cols, fc_cols, k_per,
-        _DTYPE_CODE[v.dtype], stream)
+    return out, stats, torch.empty_like(out) if fc_w is not None else None
+
+
+def _raise_on(lib, err: int) -> None:
     if err != 0:
         msg = lib.tdnet_cuda_error_string(err).decode()
         raise RuntimeError(f"propagation attention kernel failed: CUDA error {err}: {msg}")
-    fused_propagation_attention.launches += 1
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_f32(q, k, v, temperature, fc_w, fc_b, plan: ForwardPlan) -> torch.Tensor:
+    lib = build()
+    out, stats, o_tmp = _outputs(q, v, fc_w)
+    o_parts = (torch.empty(plan.parts, dtype=torch.float32, device=v.device)
+               if plan.parts else None)
+    n, lq, _ = q.shape
+    err = lib.tdnet_propagation_attention_f32(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out),
+        _ptr(o_parts), _ptr(stats), n, lq, k.shape[1], v.shape[2], 1.0 / temperature,
+        plan.cols, plan.fc_cols, plan.k_per, torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on(lib, err)
+    return out
+
+
+def launch_bf16(q, k, v, temperature: float, fc_w, fc_b, plan: Bf16Plan) -> torch.Tensor:
+    """The bf16 kernels in the tiling ``plan`` on checked CUDA tensors (as
+    ``fused_propagation_attention`` takes them); counts no launch."""
+    lib = build()
+    out, stats, o_tmp = _outputs(q, v, fc_w)
+    n, lq, _ = q.shape
+    err = lib.tdnet_propagation_attention_bf16(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out), _ptr(stats),
+        n, lq, k.shape[1], v.shape[2], 1.0 / temperature, *plan,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on(lib, err)
     return out
 
 

@@ -89,7 +89,12 @@ def test_synthetic_frames_pan_a_seeded_scene():
 
 
 @pytest.mark.parametrize("name,family", [
-    ("void (anonymous namespace)::pv_bf16(__nv_bfloat16 const*, ...)", "K1 propagation attention"),
+    ("void (anonymous namespace)::k1::attn_bf16<1, 128, 64, false>(CUtensorMap_st, ...)",
+     "K1 propagation attention"),
+    ("void (anonymous namespace)::k1::attn_bf16<1, 128, 64, true>(CUtensorMap_st, ...)",
+     "K1 propagation attention"),
+    ("void (anonymous namespace)::k1::fc_bf16<1, 128>(CUtensorMap_st, ...)",
+     "K1 propagation attention"),
     ("(anonymous namespace)::stats_f32(float const*, ...)", "K1 propagation attention"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwc", "convolutions (cuDNN)"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>", "convolutions (cuDNN)"),
