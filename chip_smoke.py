@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero):
 0. toolchain and card: torch, CUDA, nvcc, ``nvidia-smi`` name and power limit;
-1. build every kernel library from ``tdnet_tpu_torch/csrc``, one nvcc each,
-   all at once;
+1. build every kernel library from ``tdnet_tpu_torch/csrc``, and K1's
+   fault-check build (``FAULT_DEFINES``), one nvcc each, all at once;
 2. the propagation-attention kernel (K1) against its plain PyTorch version at
    the streaming hop shapes (and a ragged batch of 2), f32 (TF32 off) and
    bf16, with and without the fc; max abs error, two calls bitwise equal, the
@@ -14,11 +14,18 @@ Phases (any failure exits non-zero):
    their device times (a ``torch.profiler`` trace); at the TD2 hop with the
    fc, ``F.scaled_dot_product_attention`` followed by ``torch.addmm`` (the
    same function), SDPA alone, and the bound (bf16 on the tensor cores; f32
-   both ways, on the CUDA cores and in 3xTF32 on the tensor cores);
+   both ways, on the CUDA cores and in 3xTF32 on the tensor cores); K1's
+   error word read after every call (``check_fault``) and clear; then, in a
+   child process, K1 bf16 from the fault-check build (producers that fill
+   nothing, consumers that give up after 4 tries) must be reported by
+   ``check_fault``;
 3. TD4-PSP18 at 769x1537 in f32 through ``Streamer`` on seeded random weights
    and 12 seeded synthetic frames, against the same stream with the plain
    attention (1e-3 x max|logits|); 3 kernel launches per warm frame; latency,
    frames/s and peak memory;
+3b. the same f32 stream with torch's precision defaults (cuDNN TF32 on, as
+   ``cli/test.py`` leaves them): phase 3's logits to 1e-5 x max|logits|; the
+   stream with the runtime's ``no_tf32`` scope removed reported beside it;
 4. the same stream in bf16, against its plain-attention run (3e-2 x
    max|logits|) and against the f32 stream (5e-2 x max|f32 logits|);
 5. TD2-PSP50 at 1025x2049 in bf16, against its plain-attention run (3e-2 x
@@ -28,7 +35,8 @@ Phases (any failure exits non-zero):
    bitwise, with how peaked each softmax is (the rows' score spread, the share
    of exp(s - m) that is 0 or below 2^-126), then timed in turns (stream,
    randn, stream, randn): median ms, the kernels' device ms, the SM clock,
-   power draw and temperature after each;
+   power draw and temperature after each; K1's error word read after every
+   call and clear;
 6. load the training libraries (K2: training attention, K3: dropout);
 7. K2 against its plain version at the TD4 training hop shapes (2,145 x 2,145,
    run twice a step, and 18,721 x 2,145), f32, dropout off and on with one
@@ -46,11 +54,25 @@ Phases (any failure exits non-zero):
    and the forward's and the backward's bounds both ways (f32 on the CUDA
    cores, 3xTF32 on the tensor cores); both hops' forward times beside
    SDPA's on one line;
+7b. K2 in bf16 against its plain bf16 version (the TPU kernel's rounding
+   points, ``kernels/propagation_attention_train.py``) at the same hops and
+   seed, dropout off and on: every output within one bf16 ulp of
+   max|plain output| (both round one f32 sum a row to bf16; the sums' orders
+   differ), dq, dk and dv within ``BF16_GRAD_RTOL`` x max|grad| of each
+   tensor (ds rounds to bf16 from f32 sums taken in other orders), every
+   output bf16; two runs bitwise equal; the keep rate within 0.9 +- 1e-3
+   (q = 0 and v one-hot on 512 keys at a time, so an output is nonzero exactly
+   where its key is kept); kernel, plain and ``F.scaled_dot_product_attention``
+   (bf16, scale 1/8, no dropout) times, forward and backward, with the
+   kernels' device times; the bounds in bf16 on the tensor cores;
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
    backward (from a seeded dy) bit-identical, the same mask; keep rate within
    0.9 +- 1e-3;
    kernel, plain and ``F.dropout`` times, and the device time of K3's and
    ``F.dropout``'s kernels from one ``torch.profiler`` trace of both;
+8b. the same in bf16: output and backward bit-identical (x times 1 / 0.9
+   rounded to bf16, one rounding), the keep rate, kernel, plain and
+   ``F.dropout`` (bf16) times, device times, and the bound (bytes);
 9. the TD4-PSP18 full training recipe at 769x1537, batch 1, f32: seeded
    student and ResNet-101 teacher, OHEM, KD, AdaOptimizer; a warm-up step and
    8 steps with pos_id 0-3, every loss finite, 3 launches a step of each of K2
@@ -128,13 +150,32 @@ Phases (any failure exits non-zero):
     printed beside it: the farthest gradient from float64 of two more f32
     variants, deterministic cuDNN and K5's plain version on the card, and
     how many gradients' limits the cuDNN term dominates and how many K5
-    gradients needed it.
+    gradients needed it;
+15. the phase-9 recipe in bf16 mixed precision (``compute_dtype=
+    torch.bfloat16``): a warm-up step and 4 steps, every loss finite, 3
+    launches a step of each of K2's bf16 forward and backward and K3's bf16
+    forward and backward and no f32 launch, ms/step and peak memory; then,
+    from phase 9's initial state, dropout off and on, the kernel path against
+    phase 9's float64 run beside the bf16 plain path (K2 and K3 swapped for
+    their bf16 plain versions): the kernel path's loss no farther from
+    float64's than twice the plain path's plus 1e-3 relative, and each
+    gradient no farther from float64 than twice the plain path's distance plus
+    1e-3 x max(max|grad|, floor), the floor one bf16 ulp (2^-8) of the float64
+    run's largest max|grad| (a gradient that vanishes in exact arithmetic reads
+    bf16 rounding noise of about that size). Phase 9's kernel-vs-plain rule does not
+    apply: bf16 rounds every activation, and a K2 that rounds its sums in
+    another order flips ReLUs all over the net. The probe: K2's bf16 forward
+    off by each eps of ``PROBE_LADDER_BF16`` on one 64-row q block of the last
+    hop, each probe's share of the limit printed; the check must flag
+    ``PROBE_EPS_BF16``.
 The line before the last is one JSON object of the kernels: K1 per dtype (its
-error and times at the TD2 hop with the fc), K2 forward, K2 backward, K3, K4
-per dtype (at the TD2 stem shape) and K5 forward and dgrad (at 512->512 d4),
-each with launches, error, times, library time and bound (K1's library time
-is SDPA followed by ``torch.addmm``, with SDPA alone beside it; K1, K3, K4 and
-K5 add their device time); the last line is ``{"ok": true, "device": {...}}``.
+error and times at the TD2 hop with the fc), K2 forward and backward in f32
+and in bf16, K3 in f32 and in bf16, K4 per dtype (at the TD2 stem shape) and
+K5 forward and dgrad (at 512->512 d4), each with launches, error, times,
+library time and bound (K1's library time is SDPA followed by ``torch.addmm``,
+with SDPA alone beside it; all but K5 add their device time); the last line
+is ``{"ok": true, "device": {...}}``. TF32 stays off throughout, as the
+runtime and the trainer set it for their own work anyway.
 """
 
 from __future__ import annotations
@@ -142,6 +183,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -162,6 +204,10 @@ K5_SHAPES = [(256, 512, 4), (512, 512, 4), (512, 512, 8)]   # layer4's (ci, co, 
 K5_HEADLINE = (512, 512, 4)
 GRAD_RTOL = 1e-3     # per gradient tensor, x max(max|grad|, floor), in phases 9 and 14
 GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
+# phase 15's floor: one bf16 ulp (2^-8) of the largest max|grad|. A gradient that vanishes in
+# exact arithmetic (a bias before a BatchNorm) reads the rounding noise of the bf16 values
+# it is summed from, which is about that size (PERF.md, run B2 of the bf16 step)
+GRAD_FLOOR_BF16 = 2.0 ** -8
 LOSS_RTOL = 1e-4     # each f32 path's loss against the float64 run's
 NOISE_LIMIT = 1e-2   # the largest 2 x run-to-run / max|grad| allowed above the floor
 POS_ID = 1           # the path whose step phases 9 and 14 compare
@@ -171,6 +217,14 @@ POS_ID = 1           # the path whose step phases 9 and 14 compare
 PROBE_EPS = 1e-3
 PROBE_LQ = TRAIN_SHAPES[-1][0]   # the last hop's q rows
 PROBE_ROWS = slice(146 * 64, 147 * 64)
+BF16_GRAD_RTOL = 1e-2   # phase 7b: K2 bf16's dq, dk, dv against its plain version, x max|grad|
+BF16_STEPS = 4          # phase 15's timed steps
+# phase 15's probe: K2's bf16 forward off by a relative PROBE_EPS_BF16 on PROBE_ROWS, the
+# smallest of 0.01-3 that the float64 rule flagged with dropout off and on (0.1 and 3: with
+# dropout on, bf16's scale 1.109375 puts both bf16 paths farther from float64's 1 / 0.9, and
+# the limits with them; PERF.md, runs B3 and B4 of the bf16 step); the ladder's shares are printed
+PROBE_EPS_BF16 = 3.0
+PROBE_LADDER_BF16 = (1.0, 3.0)
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): bytes/s of HBM3,
 # FLOP/s of f32 on the CUDA cores and of bf16 on the tensor cores; f32 products in
 # 3xTF32 on the tensor cores take three TF32 products each
@@ -179,6 +233,8 @@ PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32X3 = 495e12 / 3
 BATCHED = (2, 700, 130)   # (n, Lq, Lkv): the batch axis of the kernel's grid
+# K1's fault-check build: producers that fill nothing, consumers that give up after 4 tries
+FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K1_STARVE")
 D_K, D_V = 64, 512
 N_FRAMES = 12
 SEED = 0
@@ -233,10 +289,13 @@ def phase_build() -> None:
     from tdnet_tpu_torch.kernels.build import compile_libraries
     mods = (propagation_attention, propagation_attention_train, dropout, fused_stem,
             dilated_conv)
+    debug = propagation_attention.library_name(FAULT_DEFINES)
     t0 = time.perf_counter()
-    compile_libraries({m.__name__.rsplit(".", 1)[1]: m.SOURCES for m in mods})
-    log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} in "
-        f"{time.perf_counter() - t0:.1f} s (one nvcc each, concurrently)")
+    compile_libraries({**{m.__name__.rsplit(".", 1)[1]: m.SOURCES for m in mods},
+                       debug: propagation_attention.SOURCES}, {debug: FAULT_DEFINES})
+    log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} and K1's fault-check build "
+        f"({' '.join(FAULT_DEFINES)}) in {time.perf_counter() - t0:.1f} s (one nvcc each, "
+        f"concurrently)")
     propagation_attention.build()
 
 
@@ -244,11 +303,13 @@ def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
     """The kernels that one call of each of ``fns`` runs, with their device
     ms, from a ``torch.profiler`` trace: one warm-up step (a trace started at
     a call dropped its first launches), then ``steps`` traced steps,
-    averaged; the profiler's own step rows left out. A trace that holds no
-    kernel, or in which a kernel's launches are not a multiple of ``steps``
-    (a trace can lack one step's launches), is taken again, up to twice
-    more; if the last is still such a trace, it is logged and None
-    is returned: the device time is then not measured."""
+    averaged; user annotations (the profiler's step rows, whose device time is
+    a span) left out. A trace that holds no kernel, or in which a kernel's
+    launches are not a multiple of ``steps`` (a trace can lack a launch), is
+    taken again, up to twice more; if the last still lacks launches, each
+    kernel's time a call is its mean time a launch times its launches a step
+    rounded up (logged as estimated); a trace with no kernel gives None: the
+    device time is then not measured."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
         traced = []
@@ -262,12 +323,18 @@ def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
                 prof.step()
         rows = [(r.key, r.self_device_time_total / 1e3, r.count) for r in traced[0]
                 if r.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(r, "is_user_annotation", False)
                 and not r.key.startswith("ProfilerStep")]
         if rows and all(count % steps == 0 for _, _, count in rows):
             return sorted(((key, ms / steps) for key, ms, _ in rows), key=lambda r: -r[1])
-    log(f"device time not measured: the third trace of {steps} steps held launches "
-        f"{[(key[:40], count) for key, _, count in rows]}")
-    return None
+    if not rows:
+        log(f"device time not measured: three traces of {steps} steps held no kernel")
+        return None
+    log(f"device time estimated: the third trace of {steps} steps held launches "
+        f"{[(key[:40], count) for key, _, count in rows]}; a kernel's time a call is its mean "
+        f"a launch x its launches a step rounded up")
+    return sorted(((key, ms / count * -(-count // steps)) for key, ms, count in rows),
+                  key=lambda r: -r[1])
 
 
 def format_rows(rows) -> str:
@@ -275,11 +342,6 @@ def format_rows(rows) -> str:
     if rows is None:
         return "not measured"
     return "; ".join(f"{key[:90]} {ms:.3f}" for key, ms in rows)
-
-
-def device_kernels(fn) -> str:
-    """``device_rows`` of ``fn`` as one line."""
-    return format_rows(device_rows(fn))
 
 
 def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
@@ -291,9 +353,42 @@ def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
                 tf32x3=bound(flops, nbytes, PEAK_TF32X3))
 
 
+def fault_child() -> None:
+    """Phase 2's fault check, run in a child process (a fault there cannot end
+    the run): K1's bf16 kernels from the build of ``FAULT_DEFINES`` on a small
+    call, then ``check_fault``; prints one JSON line, whether it raised."""
+    from tdnet_tpu_torch.kernels import propagation_attention as pa
+    from tdnet_tpu_torch.kernels.grid import attention_bf16_plan, sm_count
+    q, k, v = (torch.randn(1, n, d, device="cuda").to(torch.bfloat16)
+               for n, d in ((700, D_K), (130, D_K), (130, D_V)))
+    plan = attention_bf16_plan(1, 700, 130, D_V, sm_count(0))
+    pa.launch_bf16(q, k, v, 8.0, None, None, plan, lib=pa.build(FAULT_DEFINES))
+    torch.cuda.synchronize()
+    try:
+        pa.check_fault("cuda")
+        print(json.dumps({"reported": False}), flush=True)
+    except RuntimeError as e:
+        print(json.dumps({"reported": True, "error": str(e)}), flush=True)
+
+
+def phase_fault_report() -> None:
+    """A K1 bf16 consumer that gives up on a barrier is reported: ``fault_child``
+    in a child process must see ``check_fault`` raise."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.fault_child()"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if out.returncode == 0 and lines else {}
+    log(f"[2] K1's fault-check build ({' '.join(FAULT_DEFINES)}) in a child process: exit "
+        f"{out.returncode}, {got or out.stderr.strip()[-400:]} ({time.perf_counter() - t0:.1f} s)")
+    if got.get("reported") is not True:
+        raise AssertionError("[2] a K1 consumer that gave up on its barrier was not reported")
+
+
 def phase_kernel(card: str) -> dict:
     from tdnet_tpu_torch.kernels.propagation_attention import (
-        fused_propagation_attention, propagation_attention_plain)
+        check_fault, fused_propagation_attention, propagation_attention_plain)
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
     headline = {}
@@ -313,6 +408,7 @@ def phase_kernel(card: str) -> dict:
                 got = fused_propagation_attention(t["q"], t["k"], t["v"], temperature=8.0,
                                                   **fkw)
                 torch.cuda.synchronize()
+                check_fault("cuda")
                 ref = propagation_attention_plain(ref_in["q"], ref_in["k"], ref_in["v"],
                                                   temperature=8.0, **rkw)
                 err = (got.float() - ref).abs().max().item()
@@ -327,12 +423,14 @@ def phase_kernel(card: str) -> dict:
                     raise AssertionError(f"[2] K1 at {n}x{lq}x{lkv} {dtype} fc={fc}: two calls "
                                          f"differ")
                 ms = median_ms(run)
+                check_fault("cuda")
                 plain_ms = median_ms(lambda: propagation_attention_plain(
                     t["q"], t["k"], t["v"], temperature=8.0, **fkw))
                 name = "bf16" if dtype == torch.bfloat16 else "f32"
                 log(f"[2] n={n} {lq:6d} x {lkv:5d} {name:4s} fc={int(fc)}  max_abs_err {err:.3e} "
                     f"(tol {tol:.3e}), bitwise repeat  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
                 rows = device_rows(run)
+                check_fault("cuda")
                 log(f"[2]   kernels (device ms): {format_rows(rows)}")
                 if (n, lq, lkv) == HEADLINE and fc:
                     sdpa = lambda: F.scaled_dot_product_attention(
@@ -358,6 +456,8 @@ def phase_kernel(card: str) -> dict:
                             f"{b['f32']['bound_ms']:.3f} ms in f32 on the CUDA cores"
                             if dtype == torch.float32 else " in bf16"))
             del t, ref_in
+    log("[2] K1's error word clear after every call above")
+    phase_fault_report()
     return headline
 
 
@@ -417,7 +517,7 @@ def phase_stream_inputs(card: str, hop: dict) -> None:
     stream's inputs is held to phase 2's bf16 rule and repeats bitwise."""
     from tdnet_tpu_torch.cli.profile import smi
     from tdnet_tpu_torch.kernels.propagation_attention import (
-        fused_propagation_attention, propagation_attention_plain)
+        check_fault, fused_propagation_attention, propagation_attention_plain)
     n, lq, _ = hop["q"].shape
     lkv = hop["k"].shape[1]
     rng = np.random.RandomState(SEED)
@@ -436,6 +536,7 @@ def phase_stream_inputs(card: str, hop: dict) -> None:
         err = (got.float() - ref).abs().max().item()
         tol = 3e-2 * ref.abs().max().item()
         same = torch.equal(fused_propagation_attention(c["q"], c["k"], c["v"], **kw), got)
+        check_fault("cuda")
         log(f"[5] {name} inputs {n}x{lq}x{lkv}, temperature {kw['temperature']:g}: max_abs_err "
             f"{err:.3e} (tol {tol:.3e}), two calls {'bitwise equal' if same else 'DIFFERENT'}; "
             f"{score_spread(c['q'], c['k'], kw['temperature'])}")
@@ -450,6 +551,7 @@ def phase_stream_inputs(card: str, hop: dict) -> None:
                                                   fc_w=c["fc_w"], fc_b=c["fc_b"])
         ms = median_ms(run)
         rows = format_rows(device_rows(run))
+        check_fault("cuda")
         log(f"[5] K1 on the {name} inputs ({card}): {ms:.3f} ms; device ms: {rows}; after it "
             f"{smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
 
@@ -556,6 +658,35 @@ def run_stream(arch, in_size, dtype, frames, card, tag, kernel=True, stem_impl="
     return outs, launches, stem_launches
 
 
+def phase_tf32_defaults(card: str, td4, outs32) -> None:
+    """Phase 3b: the TD4-PSP18 f32 stream with torch's own precision defaults
+    (cuDNN ``allow_tf32`` True, as ``cli/test.py`` leaves it) must give phase 3's
+    logits (taken with TF32 off for the whole process) to 1e-5 x max|logits|:
+    the runtime's ``no_tf32`` scope holds whatever the caller set. Beside it,
+    the same stream with that scope removed (TF32 on) is reported."""
+    from tdnet_tpu_torch.stream import runtime
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    try:
+        frames = stream_frames(td4, torch.float32)
+        outs, _, _ = run_stream("td4-psp18", td4, torch.float32, frames, card, "3b")
+        with swapped(runtime, "no_tf32", contextlib.nullcontext):
+            tf32, _, _ = run_stream("td4-psp18", td4, torch.float32, frames, card, "3b-tf32")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    dist = lambda xs: max((a - b).abs().max().item() for a, b in zip(xs, outs32))
+    scale = max(o.abs().max().item() for o in outs32)
+    same = all(torch.equal(a, b) for a, b in zip(outs, outs32))
+    log(f"[3b] f32 stream with torch's defaults (cudnn.allow_tf32 True): logits "
+        f"{'bitwise equal to' if same else 'differ from'} phase 3's, max abs diff "
+        f"{dist(outs):.3e} (limit {1e-5 * scale:.3e}); with the runtime's scope removed (TF32 "
+        f"on) {dist(tf32):.3e}, max|logits| {scale:.3e}")
+    if not dist(outs) <= 1e-5 * scale:
+        raise AssertionError("[3b] the f32 stream computes otherwise with torch's defaults")
+
+
 def phase_td2_stream(card: str, td2) -> tuple[list, int]:
     """Phase 5: the TD2-PSP50 bf16 stream against its plain-attention run, then
     K1 on one warm frame's hop inputs (``phase_stream_inputs``); returns the
@@ -591,8 +722,10 @@ def _fwd_bwd(fn, q, k, v, dy, **kw):
     return [out.detach()] + [t.grad for t in leaves]
 
 
-def _train_attention_times(q, k, v, dy, k2, p2) -> dict:
-    """(forward ms, backward ms) of the kernel, the plain version and SDPA."""
+def _train_attention_times(q, k, v, dy, k2, p2, tag: str = "7") -> dict:
+    """(forward ms, backward ms) of the kernel, the plain version and SDPA, and
+    under "device" the kernel's forward and backward device ms (None where
+    the trace is not measured)."""
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     times = {}
     for name, fn, kw in (("kernel", k2, dict(dropout_rate=0.1, seed=SEED)),
@@ -606,8 +739,12 @@ def _train_attention_times(q, k, v, dy, k2, p2) -> dict:
         bwd = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
         times[name] = (median_ms(fwd), median_ms(bwd))
         if name != "plain":   # the kernels each forward and backward runs
-            log(f"[7] {name} forward kernels (device ms): {device_kernels(fwd)}")
-            log(f"[7] {name} backward kernels (device ms): {device_kernels(bwd)}")
+            rows = [device_rows(fwd), device_rows(bwd)]
+            log(f"[{tag}] {name} forward kernels (device ms): {format_rows(rows[0])}")
+            log(f"[{tag}] {name} backward kernels (device ms): {format_rows(rows[1])}")
+            if name == "kernel":
+                times["device"] = tuple(None if r is None else sum(t for _, t in r)
+                                        for r in rows)
         del out
     return times
 
@@ -695,9 +832,11 @@ def phase_train_attention(card: str) -> dict:
     # the kernels entries report the last hop, the largest
     return {
         "fwd": dict(max_abs_err=res["fwd_err"], ms=times["kernel"][0],
-                    plain_ms=times["plain"][0], library_ms=times["sdpa"][0], **fwd_b),
+                    device_ms=times["device"][0], plain_ms=times["plain"][0],
+                    library_ms=times["sdpa"][0], **fwd_b),
         "bwd": dict(max_abs_err=res["bwd_err"], ms=times["kernel"][1],
-                    plain_ms=times["plain"][1], library_ms=times["sdpa"][1], **bwd_b)}
+                    device_ms=times["device"][1], plain_ms=times["plain"][1],
+                    library_ms=times["sdpa"][1], **bwd_b)}
 
 
 def phase_dropout(card: str) -> dict:
@@ -751,6 +890,139 @@ def phase_dropout(card: str) -> dict:
                 device_ms=device_ms, **b)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (7 fraction bits), normals only."""
+    return 2.0 ** (torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126))) - 7)
+
+
+def keep_rate_bf16(k2, lq: int, lkv: int, k) -> float:
+    """K2 bf16's keep rate at (lq, lkv) from its forward: with q = 0 (uniform p)
+    and v one-hot on a block of 512 keys (key 512 c + j -> column j), output
+    (i, j) is nonzero exactly where key 512 c + j is kept for row i."""
+    kept = 0
+    q = torch.zeros(1, lq, D_K, device="cuda", dtype=torch.bfloat16)
+    for c0 in range(0, lkv, D_V):
+        v = torch.zeros(1, lkv, D_V, device="cuda", dtype=torch.bfloat16)
+        width = min(D_V, lkv - c0)
+        v[0, c0 + torch.arange(width), torch.arange(width)] = 1.0
+        o = k2(q, k, v, temperature=8.0, dropout_rate=0.1, seed=SEED + 17)
+        kept += (o[..., :width] != 0).sum().item()
+    return kept / (lq * lkv)
+
+
+def phase_train_attention_bf16(card: str) -> dict:
+    """Phase 7b: K2 in bf16 against its plain bf16 version; returns the kernels
+    entries' numbers."""
+    from tdnet_tpu_torch.kernels.propagation_attention_train import (
+        propagation_attention_train as k2, propagation_attention_train_plain as p2)
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 3)
+    log(f"[7b] training attention kernel vs plain in bf16 ({card}); rule: every output within "
+        f"one bf16 ulp of max|plain output|, dq/dk/dv within {BF16_GRAD_RTOL:g} x max|grad| of "
+        f"each tensor; keep rate 0.9 +- 1e-3; the forward and the backward bitwise equal "
+        f"across two runs")
+    res = dict(fwd_err=0.0, bwd_err=0.0)
+    for lq, lkv in TRAIN_SHAPES:
+        q, k = (torch.randn(1, n, D_K, generator=gen).to("cuda", bf) for n in (lq, lkv))
+        v = torch.randn(1, lkv, D_V, generator=gen).to("cuda", bf)
+        dy = torch.randn(1, lq, D_V, generator=gen).to("cuda", bf)
+        for rate in (0.0, 0.1):
+            kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
+            got, want = _fwd_bwd(k2, q, k, v, dy, **kw), _fwd_bwd(p2, q, k, v, dy, **kw)
+            again = _fwd_bwd(k2, q, k, v, dy, **kw)
+            same = [torch.equal(got[0], again[0]),
+                    all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))]
+            f_err = (got[0].float() - want[0].float()).abs().max().item()
+            f_tol = bf16_ulp(want[0].float().abs().max()).item()
+            shares = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                      for a, b in zip(got[1:], want[1:])]
+            dtypes = {t.dtype for t in got}
+            log(f"[7b] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} (one "
+                f"ulp {f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
+                f"{', '.join(f'{x:.2e}' for x in shares)}; second forward / backward "
+                f"{' / '.join('bitwise equal' if x else 'DIFFERENT' for x in same)}; dtypes "
+                f"{sorted(str(d) for d in dtypes)}")
+            if not (f_err <= f_tol and max(shares) <= BF16_GRAD_RTOL and dtypes == {bf}):
+                raise AssertionError(f"[7b] K2 bf16 disagrees with its plain version at "
+                                     f"{lq}x{lkv} dropout {rate}")
+            if not all(same):
+                raise AssertionError(f"[7b] K2 bf16 is not deterministic at {lq}x{lkv}: {same}")
+            res["fwd_err"] = max(res["fwd_err"], f_err)
+            res["bwd_err"] = max(res["bwd_err"], max(
+                (a.float() - b.float()).abs().max().item() for a, b in zip(got[1:], want[1:])))
+            del got, want, again
+        rate = keep_rate_bf16(k2, lq, lkv, k)
+        log(f"[7b] {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {lq * lkv} elements")
+        if abs(rate - 0.9) > 1e-3:
+            raise AssertionError(f"[7b] K2 bf16 keep rate {rate} outside 0.9 +- 1e-3")
+        times = _train_attention_times(q, k, v, dy, k2, p2, tag="7b")
+        io = 2 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, bf16
+        fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_BF16)
+        bwd_b = bound(2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_BF16)
+        log(f"[7b] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
+            f"{times['kernel'][1]:.3f}, plain {times['plain'][0]:.3f} / "
+            f"{times['plain'][1]:.3f}, F.scaled_dot_product_attention (bf16, no dropout) "
+            f"{times['sdpa'][0]:.3f} / {times['sdpa'][1]:.3f}; bounds in bf16 "
+            f"({PEAK_BF16 / 1e12:.0f} TFLOP/s): forward {2 * lq * lkv * (D_K + D_V) / 1e9:.2f} "
+            f"GFLOP {fwd_b['bound_ms']:.4f} ms, backward "
+            f"{2 * lq * lkv * (2 * D_V + 3 * D_K) / 1e9:.2f} GFLOP {bwd_b['bound_ms']:.4f} ms")
+        del q, k, v, dy
+    # the kernels entries report the last hop, the largest
+    return {
+        "fwd": dict(max_abs_err=res["fwd_err"], ms=times["kernel"][0],
+                    device_ms=times["device"][0], plain_ms=times["plain"][0],
+                    library_ms=times["sdpa"][0], **fwd_b),
+        "bwd": dict(max_abs_err=res["bwd_err"], ms=times["kernel"][1],
+                    device_ms=times["device"][1], plain_ms=times["plain"][1],
+                    library_ms=times["sdpa"][1], **bwd_b)}
+
+
+def phase_dropout_bf16(card: str) -> dict:
+    """Phase 8b: K3 in bf16 against its plain version; returns the kernels
+    entry's numbers."""
+    from tdnet_tpu_torch.cli.profile import kernel_family
+    from tdnet_tpu_torch.kernels.dropout import _rate_args, dropout, dropout_plain
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    log(f"[8b] dropout kernel vs plain in bf16 ({card}): bit-identical output and backward, "
+        f"keep rate 0.9 +- 1e-3; the scale launched {_rate_args(0.1, bf)[1]!r} (1 / 0.9 rounded "
+        f"to bf16)")
+    for rows in DROP_ROWS:
+        x = torch.randn(rows, D_V, generator=gen).to("cuda", bf).requires_grad_(True)
+        xp = x.detach().clone().requires_grad_(True)
+        dy = torch.randn(rows, D_V, generator=gen).to("cuda", bf)
+        got, want = dropout(x, 0.1, SEED + 5), dropout_plain(xp, 0.1, SEED + 5)
+        got.backward(dy)
+        want.backward(dy)
+        torch.cuda.synchronize()
+        keep = (got != 0).double().mean().item()
+        same, same_bwd = torch.equal(got, want), torch.equal(x.grad, xp.grad)
+        log(f"[8b] [{rows}, {D_V}] bf16: output identical {same}, backward identical {same_bwd}, "
+            f"keep rate {keep:.6f}, dtypes {got.dtype} / {x.grad.dtype}")
+        if not (same and same_bwd and abs(keep - 0.9) <= 1e-3 and got.dtype == bf
+                and x.grad.dtype == bf):
+            raise AssertionError(f"[8b] K3 bf16 disagrees with its plain version at "
+                                 f"[{rows}, {D_V}]")
+    rows = DROP_ROWS[0]
+    x = torch.randn(rows, D_V, generator=gen).to("cuda", bf)
+    ms = median_ms(lambda: dropout(x, 0.1, SEED))
+    plain_ms = median_ms(lambda: dropout_plain(x, 0.1, SEED))
+    lib_ms = median_ms(lambda: F.dropout(x, 0.1, training=True))
+    b = bound(0, 2 * 2 * rows * D_V, PEAK_BF16)
+    traced = device_rows(lambda: dropout(x, 0.1, SEED), lambda: F.dropout(x, 0.1, training=True))
+    device_ms = None
+    if traced is not None:
+        mine = [r for r in traced if kernel_family(r[0], train=True) == "K3 dropout"]
+        device_ms = sum(t for _, t in mine)
+        log(f"[8b] [{rows}, {D_V}] device ms, one trace: K3 {format_rows(mine)}; F.dropout "
+            f"{format_rows([r for r in traced if r not in mine])}")
+    log(f"[8b] [{rows}, {D_V}] bf16 ms: kernel {ms:.4f}, plain {plain_ms:.4f}, F.dropout "
+        f"{lib_ms:.4f}; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"({2 * 2 * rows * D_V / 1e6:.1f} MB)")
+    return dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b)
+
+
 def plain_train_kernels():
     """The training hops take the plain attention and the plain dropout
     instead of the kernels' wrappers."""
@@ -785,9 +1057,11 @@ class F64Verdict(NamedTuple):
     dists: dict         # gradient -> (the path's and the plain path's distance, its limit)
 
 
-def against_f64(path, plain, ref) -> F64Verdict:
+def against_f64(path, plain, ref, bf16: bool = False) -> F64Verdict:
     """Hold a path's (loss, gradients) to the float64 run ``ref`` beside the
-    plain f32 path's: both losses within LOSS_RTOL of float64's, and each
+    plain path's: both losses within LOSS_RTOL of float64's (``bf16``: the
+    path's loss no farther from float64's than twice the plain path's plus
+    GRAD_RTOL relative, and the floor GRAD_FLOOR_BF16), and each
     gradient of the path no farther from float64 than twice the plain path's
     distance plus GRAD_RTOL x max(max|grad|, floor). Two f32 paths that
     round otherwise flip different ReLU inputs that lie within an f32 rounding
@@ -795,13 +1069,16 @@ def against_f64(path, plain, ref) -> F64Verdict:
     max|grad|; float64 tells a path that is as accurate as the plain one from
     a faulty one, which a comparison of the two f32 paths cannot."""
     (loss_k, gk), (loss_p, gp), (loss_d, gd) = path, plain, ref
+    floor_rel = GRAD_FLOOR_BF16 if bf16 else GRAD_FLOOR
     rel = max(abs(loss_k - loss_d), abs(loss_p - loss_d)) / abs(loss_d)
-    problem = "" if rel <= LOSS_RTOL else f"losses {loss_k} and {loss_p}, float64 {loss_d}"
+    held = (abs(loss_k - loss_d) <= 2 * abs(loss_p - loss_d) + GRAD_RTOL * abs(loss_d) if bf16
+            else rel <= LOSS_RTOL)
+    problem = "" if held else f"losses {loss_k} and {loss_p}, float64 {loss_d}"
     if set(gk) != set(gd) or set(gp) != set(gd):
         missing = sorted(set(gd) ^ set(gk) | set(gd) ^ set(gp))
         return F64Verdict(f"gradient sets differ on {missing[:3]}", rel, 0.0, (np.inf, ""), 0,
                           0, {})
-    floor = GRAD_FLOOR * max(g.abs().max().item() for g in gd.values())
+    floor = floor_rel * max(g.abs().max().item() for g in gd.values())
     worst, plain_term, beyond, dists = (0.0, ""), 0, 0, {}
     for k, g in gd.items():
         scale = max(g.abs().max().item(), floor)
@@ -1233,6 +1510,82 @@ def phase_train_k5(card: str, state, start, teacher, frames, labels, loss_fn, re
     return launches
 
 
+def phase_train_bf16(card: str, state, start, teacher, frames, labels, loss_fn, refs) -> dict:
+    """Phase 15: the recipe in bf16 mixed precision; returns the bf16 K2 and K3
+    launches of the measured steps."""
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step
+    bf = torch.bfloat16
+    step = make_train_step(loss_fn=loss_fn, compute_dtype=bf)
+    model, cfg = state.model, state.model.cfg
+    t0 = time.perf_counter()
+    m = step(state, frames, labels, 0, teacher)
+    torch.cuda.synchronize()
+    log(f"[15] TD4-PSP18 full recipe, compute_dtype bfloat16 ({card}): warm-up step loss "
+        f"{m['loss'].item():.5f} ({time.perf_counter() - t0:.2f} s)")
+    counters = ((propagation_attention_train, "bf16_launches"),
+                (propagation_attention_train, "bf16_backward_launches"),
+                (dropout, "bf16_launches"), (dropout, "bf16_backward_launches"),
+                (propagation_attention_train, "launches"), (dropout, "launches"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, frames, labels, i % cfg.path_num, teacher)
+        loss = m["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss) or not np.isfinite(m["kd"].item()):
+            raise AssertionError(f"[15] step {i}: loss {loss}, kd {m['kd'].item()}")
+    launches = [getattr(fn, attr) for fn, attr in counters]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[15] {BF16_STEPS} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; median "
+        f"{float(np.median(times)):.1f} ms/step (min {min(times):.1f}, max {max(times):.1f}); "
+        f"peak memory {peak:.0f} MiB; bf16 launches K2 fwd/bwd {launches[0]}/{launches[1]}, "
+        f"K3 fwd/bwd {launches[2]}/{launches[3]}; f32 K2/K3 launches {launches[4]}/{launches[5]}")
+    if launches != [3 * BF16_STEPS] * 4 + [0, 0]:
+        raise AssertionError(f"[15] launches {launches}, expected {3 * BF16_STEPS} of each bf16 "
+                             f"kernel and no f32 launch")
+
+    def run(use_dropout):
+        model.load_state_dict(start)
+        loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, compute_dtype=bf)
+        return _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
+
+    for use_dropout in (False, True):
+        setting = f"dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
+        path = run(use_dropout)
+        with plain_train_kernels():
+            plain = run(use_dropout)
+        held = against_f64(path, plain, refs[use_dropout], bf16=True)
+        log(f"[15] bf16 kernel path vs float64, beside the bf16 plain path ({setting}): loss "
+            f"{path[0]:.6f}, plain {plain[0]:.6f}, float64 {refs[use_dropout][0]:.6f}; "
+            f"{describe(held)}")
+        if held.problem:
+            raise AssertionError(f"[15] bf16 kernel path vs float64 ({setting}): {held.problem}")
+        flagged = {}
+        for eps in PROBE_LADDER_BF16:
+            with faulty_forward(eps):
+                probed = run(use_dropout)
+            v = against_f64(probed, plain, refs[use_dropout], bf16=True)
+            flagged[eps] = bool(v.problem)
+            log(f"[15] probe: K2's bf16 forward off by {eps:g} on rows {PROBE_ROWS.start}-"
+                f"{PROBE_ROWS.stop - 1} of {PROBE_LQ} ({setting}): "
+                f"{'flagged' if v.problem else 'passed'}, worst {v.worst[0]:.3f} of its limit "
+                f"({v.worst[1]})")
+        smallest = min((e for e, f in flagged.items() if f), default=None)
+        log(f"[15] the probe's gate is eps {PROBE_EPS_BF16:g}; the smallest eps of "
+            f"{PROBE_LADDER_BF16} the rule flags ({setting}): {smallest}")
+        if not flagged[PROBE_EPS_BF16]:
+            raise AssertionError(f"[15] the check passed K2's bf16 forward off by "
+                                 f"{PROBE_EPS_BF16:g} ({setting}): it cannot see such a fault")
+    return dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3])
+
+
 def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, labels, ref,
                      use_dropout: bool) -> None:
     """The K5 path's loss and gradients against phase 9's float64 run ``ref``,
@@ -1286,6 +1639,7 @@ def main() -> int:
                                  kernel=False)
     check_close("3", outs32, plain, 1e-3, "kernel-path vs plain-attention f32")
     del plain, f32_frames
+    phase_tf32_defaults(card, td4, outs32)
 
     bf16_frames = stream_frames(td4, torch.bfloat16)
     outs16, n16, _ = run_stream("td4-psp18", td4, torch.bfloat16, bf16_frames, card, "4")
@@ -1301,7 +1655,9 @@ def main() -> int:
 
     phase_train_build()
     k2 = phase_train_attention(card)
+    k2_bf16 = phase_train_attention_bf16(card)
     k3 = phase_dropout(card)
+    k3_bf16 = phase_dropout_bf16(card)
     recipe, train_launches = phase_train(card)
 
     k4 = phase_stem_kernel(card)
@@ -1321,6 +1677,7 @@ def main() -> int:
         stem_launches[name] += n
     k5 = phase_dilated_conv(card)
     k5_launches = phase_train_k5(card, *recipe)
+    bf16_launches = phase_train_bf16(card, *recipe)
 
     src = "tdnet_tpu_torch/csrc/"
     entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",
@@ -1338,7 +1695,18 @@ def main() -> int:
          "launches": train_launches["bwd"], **k2["bwd"]},
         {"name": "dropout", "route": "cuda", "source": src + "dropout.cu",
          "replaces": "tdnet_tpu/kernels/dropout.py:38",
-         "launches": train_launches["drop"], **k3}]
+         "launches": train_launches["drop"], **k3},
+        {"name": "propagation_attention_train_bf16_fwd", "route": "cuda",
+         "source": src + "propagation_attention_train.cu",
+         "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:154",
+         "launches": bf16_launches["fwd"], **k2_bf16["fwd"]},
+        {"name": "propagation_attention_train_bf16_bwd", "route": "cuda",
+         "source": src + "propagation_attention_train.cu",
+         "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:188",
+         "launches": bf16_launches["bwd"], **k2_bf16["bwd"]},
+        {"name": "dropout_bf16", "route": "cuda", "source": src + "dropout.cu",
+         "replaces": "tdnet_tpu/kernels/dropout.py:38",
+         "launches": bf16_launches["drop"], **k3_bf16}]
     entries += [{"name": f"fused_stem_{dt}", "route": "cuda", "source": src + "fused_stem.cu",
                  "replaces": "tdnet_tpu/kernels/fused_stem.py:199",
                  "launches": stem_launches[dt], **k4[dt]} for dt in ("f32", "bf16")]

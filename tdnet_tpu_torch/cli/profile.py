@@ -5,6 +5,7 @@ how far it spreads.
         --dtype bfloat16 --stem_impl fused --out profiles/
     python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train --conv_wgrad kernel \\
         --out profiles/
+    python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train --dtype bfloat16
 
 For each model (``psp101``: the single-frame PSPNet-101 baseline through
 ``stream.runtime.FrameRunner``), on seeded random weights and seeded
@@ -23,8 +24,10 @@ one pipelined pass over the 48 frames as a warm-up:
    traced run (the profiler's own host work makes it an upper bound);
 4. ``nvidia-smi`` SM clock, power draw and temperature just after.
 
-``td4-psp18-train`` is the TD4-PSP18 full training recipe at 769x1537, f32
-(``train.trainer.td4_full_recipe``, dilated convs ``--conv_wgrad``): after 2
+``td4-psp18-train`` is the TD4-PSP18 full training recipe at 769x1537
+(``train.trainer.td4_full_recipe``, dilated convs ``--conv_wgrad``), f32, or
+bf16 mixed precision with ``--dtype bfloat16`` (the streams' default dtype is
+bfloat16, the train step's float32): after 2
 warm-up steps, 8 synchronized
 steps (ms/step of each and the peak memory), then one ``torch.profiler``
 trace of 4 steps split by kernel family as above, per step, and the device
@@ -57,11 +60,13 @@ REPEATS = 7
 FAMILIES = (
     ("K4 fused stem", ("stem_tc",)),
     ("K5 dilated conv", ("dil_tc", "prep_input", "prep_weights")),
-    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32")),
-    ("K3 dropout", ("dropout_vec4", "dropout_scalar")),
-    # in a train step this family is K2's forward: stats_f32, shared with K1, and pv_fma
+    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "rowt_bf16",
+                                        "dkdv_bf16", "dq_bf16")),
+    ("K3 dropout", ("dropout_vec4", "dropout_scalar", "dropout_bf16")),
+    # in a train step this family is K2's forward: stats_f32, shared with K1, and pv_fma; in
+    # bf16 stats_bf16 and pv_bf16
     ("K1 propagation attention", ("stats_f32", "pv_tc", "fc_tc", "pv_fma",
-                                  "attn_bf16", "fc_bf16")),
+                                  "attn_bf16", "fc_bf16", "stats_bf16", "pv_bf16")),
     ("convolutions (cuDNN)", ("conv", "xmma", "cutlass", "cudnn", "gemm",
                               "nchwToNhwc", "nhwcToNchw")),
     ("adaptive pool", ("adaptive_average_pool",)),
@@ -89,9 +94,13 @@ def smi(query: str) -> str:
 
 
 def device_breakdown(prof, n_frames: int, train: bool = False):
-    """(device ms per frame, ms per frame by family, the 12 longest kernels)."""
+    """(device ms per frame, ms per frame by family, the 12 longest kernels).
+    Rows of user annotations (``Optimizer.step#SGD.step``, ``ProfilerStep#``)
+    are left out: their device time is the span from their first kernel to
+    their last, not kernel time."""
     kernels = [r for r in prof.key_averages()
-               if r.device_type == torch.autograd.DeviceType.CUDA]
+               if r.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(r, "is_user_annotation", False)]
     families: dict[str, float] = {}
     for r in kernels:
         fam = kernel_family(r.key, train)
@@ -151,10 +160,11 @@ def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: boo
             "top_kernels": top, "smi_after_sm_clock_power_temp": after}
 
 
-def profile_train(conv_wgrad: str, out: str | None, shapes: bool, steps: int = 8,
+def profile_train(conv_wgrad: str, dtype, out: str | None, shapes: bool, steps: int = 8,
                   traced: int = 4) -> dict:
     from tdnet_tpu_torch.train.trainer import td4_full_recipe
-    state, step, teacher, frames, labels, _ = td4_full_recipe(conv_wgrad=conv_wgrad)
+    state, step, teacher, frames, labels, _ = td4_full_recipe(
+        conv_wgrad=conv_wgrad, compute_dtype=None if dtype == torch.float32 else dtype)
     p_num = state.model.cfg.path_num
     for i in range(2):
         step(state, frames, labels, i % p_num, teacher)
@@ -179,8 +189,8 @@ def profile_train(conv_wgrad: str, out: str | None, shapes: bool, steps: int = 8
     # the upsample's backward by its autograd node (ops/resize.py's matrix products)
     resize_bwd = sum(e.device_time_total for e in prof.events()
                      if "evaluate_function:" in e.name and "_ResizeBilinearBackward" in e.name)
-    write_tables(prof, out, f"profile_td4-psp18-train_float32_{conv_wgrad}", shapes, 80)
-    return {"model": "td4-psp18-train", "dtype": "float32", "conv_wgrad": conv_wgrad,
+    write_tables(prof, out, f"profile_td4-psp18-train_{str(dtype)[6:]}_{conv_wgrad}", shapes, 80)
+    return {"model": "td4-psp18-train", "dtype": str(dtype)[6:], "conv_wgrad": conv_wgrad,
             "in_size": [769, 1537],
             "ms_per_step": times, "peak_mib": peak, "traced_wall_ms_per_step": traced_ms,
             "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / traced_ms,
@@ -194,7 +204,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", nargs="+", default=["td4-psp18", "td2-psp50"],
                         choices=["td4-psp18", "td2-psp50", "psp101", "td4-psp18-train"])
-    parser.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                        help="default: bfloat16 for the streams, float32 for the train step")
     parser.add_argument("--stem_impl", default="plain", choices=["plain", "fused"],
                         help="the streams' stem: 'fused' runs deep-base stems through K4")
     parser.add_argument("--conv_wgrad", default="cudnn", choices=["cudnn", "kernel"],
@@ -207,12 +218,15 @@ def main(argv=None):
         raise SystemExit("tdnet_tpu_torch.cli.profile needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     print(smi("name,power.limit"), flush=True)
     for arch in args.model:
-        res = profile_train(args.conv_wgrad, args.out, args.shapes) \
-            if arch == "td4-psp18-train" else \
-            profile_model(arch, dtype, args.stem_impl, args.out, args.shapes)
+        if arch == "td4-psp18-train":
+            res = profile_train(args.conv_wgrad, dtypes[args.dtype or "float32"], args.out,
+                                args.shapes)
+        else:
+            res = profile_model(arch, dtypes[args.dtype or "bfloat16"], args.stem_impl, args.out,
+                                args.shapes)
         print(json.dumps(res), flush=True)
 
 

@@ -82,18 +82,37 @@ __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// A wait that outlasts any fill by orders of magnitude ends the thread, so that a fault in
-// the pipeline ends the launch instead of hanging the card. TRAP: by a trap, which fails the
-// launch. A warpgroup that takes registers by setmaxnreg must not hold a trap (ptxas then
-// keeps the launch's register count there, and spills), so its threads exit instead (!TRAP);
-// a producer that waits for them then traps.
-template <bool TRAP = true>
+// A wait that outlasts any fill by orders of magnitude traps, which fails the launch instead
+// of hanging the card.
 __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   for (int tries = 0; !done; ++tries) {
-    if (tries == (1 << 24)) {
-      if (TRAP) __trap();
-      else asm volatile("exit;");
+    if (tries == (1 << 24)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(saddr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// The tries after which a consumer's wait gives up (a -D define sets a debug build's).
+#ifndef TDNET_CONSUMER_POLLS
+#define TDNET_CONSUMER_POLLS (1 << 24)
+#endif
+
+// A consumer warpgroup's wait. A warpgroup that takes registers by setmaxnreg must not hold a
+// trap (ptxas then keeps the launch's register count there, and spills), so after
+// TDNET_CONSUMER_POLLS tries it sets the error word *fault to 1 and exits: the launch then
+// ends with part of its output unwritten, and the host reads the word where it synchronizes.
+__device__ __forceinline__ void bar_wait_or_flag(uint64_t* bar, uint32_t parity,
+                                                 unsigned int* fault) {
+  uint32_t done = 0;
+  for (int tries = 0; !done; ++tries) {
+    if (tries == TDNET_CONSUMER_POLLS) {
+      atomicExch(fault, 1u);
+      asm volatile("exit;");
     }
     asm volatile(
         "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"

@@ -313,6 +313,11 @@ int run_f32(const float* q, const float* k, const float* v, const float* w, cons
 // warpgroup (0) and RW consumer warpgroups (1 ..); consumer warpgroup cg owns rows [64 cg,
 // + 64) of the block's rows. setmaxnreg gives the producer's registers to the consumers:
 // RW = 1 runs two blocks an SM with 232 registers a consumer thread, RW = 2 one with 240.
+// The producer's waits trap; a consumer's wait that gives up sets the error word `fault` and
+// exits (bar_wait_or_flag in hopper.cuh), which the host reads where it synchronizes
+// (kernels/propagation_attention.py:check_fault): no launch ends with a tile unwritten and no
+// error. A build with -DTDNET_K1_STARVE (and few TDNET_CONSUMER_POLLS) has producers that fill
+// nothing, for the check that the word is reported (chip_smoke.py phase 2).
 // Every tile in shared memory is stored in wgmma's 128-byte swizzle, as the tensor maps'
 // SWIZZLE_128B writes it: 128-byte rows of 64 bf16, the 16-byte chunk c of row r at
 // c ^ (r % 8), 1024-byte aligned; rows past the tensors read as zeros.
@@ -593,8 +598,8 @@ template <int RW, int CW, int BK, bool STATS>
 __global__ void __launch_bounds__(128 * (RW + 1), BLOCKS_PER_SM<RW>)
 attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, float* __restrict__ row_max,
-          float* __restrict__ row_sum, bf16* __restrict__ o, int lq, int lkv, int dv, float c,
-          int stages) {
+          float* __restrict__ row_sum, bf16* __restrict__ o, unsigned int* __restrict__ fault,
+          int lq, int lkv, int dv, float c, int stages) {
   constexpr int STAGE = attn_stage<CW, BK, STATS>(), Q_BYTES = 64 * RW * ROW;
   extern __shared__ unsigned char smem_k1[];
   const Ring ring(smem_k1, stages, STAGE, Q_BYTES);
@@ -603,6 +608,9 @@ attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
   if (role == 0) {   // the producer
     reg_dealloc<PRODUCER_REGS>();
+#ifdef TDNET_K1_STARVE
+    return;   // the fault check's build: no stage ever fills
+#endif
     if (threadIdx.x != 0) return;
     bar_expect(ring.head_full, Q_BYTES);
     tma_load_3d(ring.head, &tm_q, 0, blockIdx.x * 64 * RW, b, ring.head_full);
@@ -624,7 +632,7 @@ attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   const int g = lane >> 2, t = lane & 3;
   const int row = blockIdx.x * 64 * RW + 64 * cg + 16 * warp + g;   // and row + 8
   const uint64_t qd = sw128_desc(ring.head + cg * 64 * ROW);   // rows past lq read as zeros
-  bar_wait<false>(ring.head_full, 0);
+  bar_wait_or_flag(ring.head_full, 0, fault);
   // A chunk: its score tile on the tensor cores, then (stats) folded into the row statistics
   // or (p v) exponentiated into p and multiplied into acc. The stats loop runs one chunk
   // ahead: chunk ch + 1's score tile is issued into the other of two buffers before chunk
@@ -633,7 +641,7 @@ attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   // with p in two buffers, measured slower (PERF.md, run P3).
   auto stage = [&](int ch) { return ring.base + (ch % stages) * STAGE; };
   auto wait_chunk = [&](int ch) {
-    bar_wait<false>(ring.full + ch % stages, (ch / stages) & 1);
+    bar_wait_or_flag(ring.full + ch % stages, (ch / stages) & 1, fault);
   };
   auto release = [&](int ch) {
     if (lane == 0) bar_arrive(ring.empty + ch % stages);
@@ -734,7 +742,8 @@ __host__ __device__ constexpr int fc_stage() {
 template <int RW, int CW>
 __global__ void __launch_bounds__(128 * (RW + 1), BLOCKS_PER_SM<RW>)
 fc_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
-        const bf16* __restrict__ bias, bf16* __restrict__ y, int m, int dv, int stages) {
+        const bf16* __restrict__ bias, bf16* __restrict__ y, unsigned int* __restrict__ fault,
+        int m, int dv, int stages) {
   constexpr int STAGE = fc_stage<RW, CW>(), A_BYTES = 64 * RW * ROW;
   extern __shared__ unsigned char smem_fc[];
   const Ring ring(smem_fc, stages, STAGE, 0);
@@ -743,6 +752,9 @@ fc_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtens
   const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
   if (role == 0) {   // the producer
     reg_dealloc<PRODUCER_REGS>();
+#ifdef TDNET_K1_STARVE
+    return;   // the fault check's build: no stage ever fills
+#endif
     if (threadIdx.x == 0)
       for (int ch = 0; ch < chunks; ++ch) {
         wait_free(ring, ch, stages);
@@ -766,7 +778,7 @@ fc_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtens
     for (int i = 0; i < 64; ++i) acc[hh][i] = 0.f;
   for (int ch = 0; ch < chunks; ++ch) {
     const int s = ch % stages;
-    bar_wait<false>(ring.full + s, (ch / stages) & 1);
+    bar_wait_or_flag(ring.full + s, (ch / stages) & 1, fault);
     const unsigned char* st = ring.base + s * STAGE;
     const uint64_t a = sw128_desc(st + cg * 64 * ROW);
     wgmma_fence();
@@ -812,8 +824,8 @@ int allow_smem(size_t smem) {
 
 template <int RW, int CW, int BK, bool STATS>
 int launch_attn(const bf16* q, const CUtensorMap& tk, const CUtensorMap& tv, float* row_max,
-                float* row_sum, bf16* o, int n, int lq, int lkv, int dv, float c, int stages,
-                cudaStream_t st) {
+                float* row_sum, bf16* o, unsigned int* fault, int n, int lq, int lkv, int dv,
+                float c, int stages, cudaStream_t st) {
   const size_t smem = ring_smem(stages, attn_stage<CW, BK, STATS>(), 64 * RW * ROW);
   if (stages < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   CUtensorMap tq;
@@ -821,14 +833,14 @@ int launch_attn(const bf16* q, const CUtensorMap& tk, const CUtensorMap& tv, flo
   constexpr auto kernel = attn_bf16<RW, CW, BK, STATS>;
   if (err != 0 || (err = allow_smem<kernel>(smem)) != 0) return err;
   const dim3 grid((lq + 64 * RW - 1) / (64 * RW), STATS ? 1 : dv / CW, n);
-  kernel<<<grid, 128 * (RW + 1), smem, st>>>(tq, tk, tv, row_max, row_sum, o, lq, lkv, dv, c,
-                                             stages);
+  kernel<<<grid, 128 * (RW + 1), smem, st>>>(tq, tk, tv, row_max, row_sum, o, fault, lq, lkv,
+                                             dv, c, stages);
   return (int)cudaGetLastError();
 }
 
 template <int RW, int CW>
-int launch_fc(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int m, int dv,
-              cudaStream_t st) {
+int launch_fc(const bf16* x, const bf16* w, const bf16* bias, bf16* y, unsigned int* fault,
+              int m, int dv, cudaStream_t st) {
   CUtensorMap tx, tw;
   int e = bf16_tensor_map(&tx, x, dv, m, 1, 64 * RW);
   if (e != 0 || (e = bf16_tensor_map(&tw, w, dv, dv, 1, 64)) != 0) return e;
@@ -841,7 +853,7 @@ int launch_fc(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int m, in
   const int err = allow_smem<kernel>(smem);
   if (err != 0) return err;
   kernel<<<dim3((m + 64 * RW - 1) / (64 * RW), dv / CW), 128 * (RW + 1), smem, st>>>(
-      tx, tw, bias, y, m, dv, stages);
+      tx, tw, bias, y, fault, m, dv, stages);
   return (int)cudaGetLastError();
 }
 
@@ -851,8 +863,9 @@ int launch_fc(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int m, in
 // warpgroups), cols a consumer warpgroup (128 or 256), keys a chunk (p v) and the p v ring's
 // stages, as kernels/grid.py:attention_bf16_plan picks them from the tile sweep (PERF.md).
 int run_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* w, const bf16* bias,
-             bf16* o_tmp, bf16* out, float* row_max, float* row_sum, int n, int lq, int lkv,
-             int dv, float scale, int rows, int cols, int keys, int stages, cudaStream_t st) {
+             bf16* o_tmp, bf16* out, float* row_max, float* row_sum, unsigned int* fault, int n,
+             int lq, int lkv, int dv, float scale, int rows, int cols, int keys, int stages,
+             cudaStream_t st) {
   using namespace k1;
   const int tiling = rows == 64 && cols == 128 && keys == 64     ? 0
                      : rows == 64 && cols == 128 && keys == 128  ? 1
@@ -869,12 +882,13 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* w, const b
       (err = bf16_tensor_map(&tv, v, dv, lkv, n, keys)) != 0)
     return err;
   const float c = scale * LOG2E;
-  err = launch_attn<1, 128, STATS_KEYS, true>(q, ts, ts, row_max, row_sum, nullptr, n, lq, lkv,
-                                              dv, c, AUX_STAGES, st);
+  err = launch_attn<1, 128, STATS_KEYS, true>(q, ts, ts, row_max, row_sum, nullptr, fault, n, lq,
+                                              lkv, dv, c, AUX_STAGES, st);
   if (err != 0) return err;
   bf16* o = w ? o_tmp : out;
 #define K1_PV(RW, CW, BK) \
-  launch_attn<RW, CW, BK, false>(q, tk, tv, row_max, row_sum, o, n, lq, lkv, dv, c, stages, st)
+  launch_attn<RW, CW, BK, false>(q, tk, tv, row_max, row_sum, o, fault, n, lq, lkv, dv, c, \
+                                 stages, st)
   switch (tiling) {
     case 0: err = K1_PV(1, 128, 64); break;
     case 1: err = K1_PV(1, 128, 128); break;
@@ -887,10 +901,10 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* w, const b
   if (err != 0 || !w) return err;
   const int m = n * lq;
   if (rows == 128)
-    return cols == 256 ? launch_fc<2, 256>(o_tmp, w, bias, out, m, dv, st)
-                       : launch_fc<2, 128>(o_tmp, w, bias, out, m, dv, st);
-  return cols == 256 ? launch_fc<1, 256>(o_tmp, w, bias, out, m, dv, st)
-                     : launch_fc<1, 128>(o_tmp, w, bias, out, m, dv, st);
+    return cols == 256 ? launch_fc<2, 256>(o_tmp, w, bias, out, fault, m, dv, st)
+                       : launch_fc<2, 128>(o_tmp, w, bias, out, fault, m, dv, st);
+  return cols == 256 ? launch_fc<1, 256>(o_tmp, w, bias, out, fault, m, dv, st)
+                     : launch_fc<1, 128>(o_tmp, w, bias, out, fault, m, dv, st);
 }
 
 }  // namespace
@@ -916,17 +930,20 @@ int tdnet_propagation_attention_f32(const void* q, const void* k, const void* v,
                  (cudaStream_t)stream);
 }
 
-// bf16: the same tensors (no o_parts); the blocks' rows, columns, keys a chunk and the p v
-// ring's stages as run_bf16 takes them (kernels/grid.py:attention_bf16_plan).
+// bf16: the same tensors (no o_parts) and the error word `fault` (one uint32 of device memory,
+// which a consumer warpgroup that gives up on a barrier sets to 1); the blocks' rows,
+// columns, keys a chunk and the p v ring's stages as run_bf16 takes them
+// (kernels/grid.py:attention_bf16_plan).
 int tdnet_propagation_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* w, const void* bias, void* o_tmp, void* out,
-                                     void* stats, int n, int lq, int lkv, int dv, float scale,
-                                     int rows, int cols, int keys, int stages, void* stream) {
+                                     void* stats, void* fault, int n, int lq, int lkv, int dv,
+                                     float scale, int rows, int cols, int keys, int stages,
+                                     void* stream) {
   float* row_max = (float*)stats;
   return run_bf16((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)w,
                   (const bf16*)bias, (bf16*)o_tmp, (bf16*)out, row_max,
-                  row_max + (size_t)n * lq, n, lq, lkv, dv, scale, rows, cols, keys, stages,
-                  (cudaStream_t)stream);
+                  row_max + (size_t)n * lq, (unsigned int*)fault, n, lq, lkv, dv, scale, rows,
+                  cols, keys, stages, (cudaStream_t)stream);
 }
 
 const char* tdnet_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -80,6 +80,7 @@
 // (seed, (b * Lq + i) * Lkv + j) (dropout_hash.cuh), so the forward, the backward and the
 // plain PyTorch version draw the same bits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -600,6 +601,675 @@ int backward_dv(int dv, const float* q, const float* k, const float* v, const fl
 #undef TDNET_BWD
 }
 
+
+// ---- bf16 (mixed-precision training): the TPU kernels' rounding points, on mma.sync
+// m16n8k16 bf16 with f32 accumulation, one product where 3xTF32 takes three.
+//   forward  s = q k^T (bf16 operands, f32 sums) * scale; p = exp(s - m) / l in f32; the mask
+//            and 1 / (1 - rate) in f32 on p; pd rounded to bf16; o = pd v in f32, rounded once
+//            to bf16 (_fwd_kernel, propagation_attention_train.py:71-80).
+//   backward dv = pd^T dy with pd rounded to bf16; dpd = dy v^T in f32; ds = p (dp - t) rounded
+//            to bf16, t = sum_j dp p in f32 as the TPU kernel forms it (rowt_bf16); dq = scale
+//            ds k rounded to bf16; dk = scale ds^T q and dv summed in f32 over every q range and
+//            rounded to bf16 once (_bwd_kernel, :83-112, :202-207).
+// Every s, in the stats, p v and backward passes alike, is the same 4 k16 steps in order
+// from a zero accumulator, then the scale: p is the same to the bit in all three.
+// Tiles live in shared memory as bf16 rows padded by 16 bytes (row strides 144, 1040 and 80
+// bytes), so ldmatrix's eight 16-byte rows fall in distinct banks.
+namespace k2bf16 {
+
+using bf16 = __nv_bfloat16;
+constexpr int HS = DK + 8;      // row stride (elements) of 64-wide tiles: q, k
+constexpr int FKEYS = 64;       // keys a chunk of stats_bf16
+constexpr int PKEYS = 32;       // keys a chunk of pv_bf16, and of a dkdv_bf16 / dq_bf16 block
+constexpr int PS = PKEYS + 8;   // row stride of 32-wide tiles: pd, ds
+constexpr int WARPS4 = 128;     // threads of the 4-warp kernels
+
+__device__ __forceinline__ uint32_t saddr_of(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr_of(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// Rows [r0, r0 + R) x columns [c0, c0 + W) of a row-major bf16 [len, ld] matrix into a shared
+// tile of row stride S by 16-byte cp.async copies from `nthreads` threads; rows past len zero.
+template <int R, int W, int S>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int ld, int r0, int c0,
+                                           int len, int nthreads) {
+  constexpr int PER_ROW = W / 8;
+  for (int i = threadIdx.x; i < R * PER_ROW; i += nthreads) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 8, gr = r0 + r;
+    const bool valid = gr < len;
+    cp16(dst + r * S + c, src + (valid ? (size_t)gr * ld + c0 + c : 0), valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr_of(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr_of(p)));
+}
+
+// c += a b, m16n8k16, bf16 operands, f32 accumulator. In a warp, g = lane / 4, t = lane % 4:
+// A regs (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); B regs (k 2t.., n g),
+// (k 2t + 8.., n g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma16(float c[4], const uint32_t a[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ldmatrix addresses of a lane (lane = threadIdx.x % 32) for one 16 x 16 operand:
+// A rows [r0, + 16) x k [c0, + 16) of a tile stored [m][k]:
+__device__ __forceinline__ const bf16* a_at(const bf16* t, int s, int r0, int c0) {
+  const int lane = threadIdx.x & 31;
+  return t + (r0 + (lane & 15)) * s + c0 + (lane >> 4) * 8;
+}
+// A from a tile stored [k][m] (ldsm4_t): k [k0, + 16) x m [m0, + 16):
+__device__ __forceinline__ const bf16* a_at_t(const bf16* t, int s, int k0, int m0) {
+  const int lane = threadIdx.x & 31;
+  return t + (k0 + (lane & 7) + (lane >> 4) * 8) * s + m0 + ((lane >> 3) & 1) * 8;
+}
+// B for two n-tiles [n0, + 8), [n0 + 8, + 8) and k [k0, + 16) of a tile stored [n][k]
+// (ldsm4: regs 0, 1 the first n-tile, 2, 3 the second):
+__device__ __forceinline__ const bf16* b_at(const bf16* t, int s, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * s + k0 + ((lane >> 3) & 1) * 8;
+}
+// the same from a tile stored [k][n] (ldsm4_t):
+__device__ __forceinline__ const bf16* b_at_t(const bf16* t, int s, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  return t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * s + n0 + (lane >> 4) * 8;
+}
+
+// s[j] = q k^T for this warp's 16 q rows (A fragments qa, 4 k16 steps over d_k) and keys
+// [key0 + 8 j, + 8) of the k tile kt ([key][d_k], stride HS), unscaled: the one product
+// order of every pass.
+template <int NT>
+__device__ __forceinline__ void scores(float s[NT][4], const uint32_t qa[4][4], const bf16* kt,
+                                       int key0) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      ldsm4(b, b_at(kt, HS, key0 + 8 * j, 16 * kk));
+      mma16(s[j], qa[kk], b[0], b[1]);
+      mma16(s[j + 1], qa[kk], b[2], b[3]);
+    }
+}
+
+__device__ __forceinline__ void load_q_frags(uint32_t qa[4][4], const bf16* qt, int r0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ldsm4(qa[kk], a_at(qt, HS, r0, 16 * kk));
+}
+
+// The probability of element (row, key) from its unscaled score: exp(s scale - m) / l, 0
+// past lkv.
+__device__ __forceinline__ float prob(float s, float scale, float m, float l, int key, int lkv) {
+  return key < lkv ? expf(s * scale - m) / l : 0.f;
+}
+
+// Row statistics of rows [64 blockIdx.x, + 64) of batch blockIdx.y: m = max_j s_ij scale and
+// l = sum_j exp(s_ij scale - m). Warp w owns rows 16 w..; 64-key chunks, double-buffered.
+__global__ void __launch_bounds__(WARPS4)
+stats_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, float* __restrict__ row_max,
+           float* __restrict__ row_sum, int lq, int lkv, float scale) {
+  __shared__ __align__(16) bf16 qs[64 * HS];
+  __shared__ __align__(16) bf16 ks[2][FKEYS * HS];
+  const int r0 = blockIdx.x * 64, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int chunks = (lkv + FKEYS - 1) / FKEYS;
+  q += (size_t)b * lq * DK;
+  k += (size_t)b * lkv * DK;
+  stage_bf16<64, DK, HS>(qs, q, DK, r0, 0, lq, WARPS4);
+  stage_bf16<FKEYS, DK, HS>(ks[0], k, DK, 0, 0, lkv, WARPS4);
+  cp_commit();
+  uint32_t qa[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int c = 0; c < chunks; ++c) {
+    cp_wait_all();
+    __syncthreads();
+    if (c == 0) load_q_frags(qa, qs, 16 * warp);
+    if (c + 1 < chunks) {
+      stage_bf16<FKEYS, DK, HS>(ks[(c + 1) & 1], k, DK, (c + 1) * FKEYS, 0, lkv, WARPS4);
+      cp_commit();
+    }
+    float s[FKEYS / 8][4];
+    scores<FKEYS / 8>(s, qa, ks[c & 1], 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mc = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < FKEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = c * FKEYS + 8 * j + 2 * t + e;
+          const float x = key < lkv ? s[j][2 * h + e] * scale : -INFINITY;
+          s[j][2 * h + e] = x;
+          mc = fmaxf(mc, x);
+        }
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+      float lc = 0.f;
+      if (mc != -INFINITY)
+#pragma unroll
+        for (int j = 0; j < FKEYS / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) lc += expf(s[j][2 * h + e] - mc);
+      lc += __shfl_xor_sync(0xffffffffu, lc, 1);
+      lc += __shfl_xor_sync(0xffffffffu, lc, 2);
+      merge_stats(m[h], l[h], mc, lc);
+    }
+  }
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 16 * warp + g + 8 * h;
+      if (r < lq) {
+        row_max[(size_t)b * lq + r] = m[h];
+        row_sum[(size_t)b * lq + r] = l[h];
+      }
+    }
+}
+
+template <int NT>  // columns a block: 8 NT
+constexpr size_t pv_smem() {
+  return sizeof(bf16) * (64 * HS + 2 * PKEYS * HS + 2 * PKEYS * (8 * NT + 8));
+}
+
+// o[b, r, c0..c0 + 8 NT) = bf16(sum_j bf16(pd_rj) v[b, j, c0..]) for rows [64 blockIdx.x, + 64),
+// c0 = 8 NT blockIdx.y, batch blockIdx.z; pd from the row statistics and, with DROP, the mask
+// of (seed, (b lq + r) lkv + j). Warp w owns rows 16 w.. and all 8 NT columns; 32-key chunks of
+// k and v double-buffered; p goes from the score accumulators straight into p v's A fragments.
+template <int NT, bool DROP>
+__global__ void __launch_bounds__(WARPS4, 2)
+pv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+        const float* __restrict__ row_max, const float* __restrict__ row_sum,
+        bf16* __restrict__ o, int lq, int lkv, int dv, float scale, Drop drop) {
+  constexpr int CW = 8 * NT, VS = CW + 8;
+  extern __shared__ __align__(16) bf16 smem_pv[];
+  bf16* qs = smem_pv;                  // [64][HS]
+  bf16* ks = qs + 64 * HS;             // [2][PKEYS][HS]
+  bf16* vs = ks + 2 * PKEYS * HS;      // [2][PKEYS][VS]
+  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * CW, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int chunks = (lkv + PKEYS - 1) / PKEYS;
+  q += (size_t)b * lq * DK;
+  k += (size_t)b * lkv * DK;
+  v += (size_t)b * lkv * dv;
+  auto stage_kv = [&](int c, int buf) {
+    stage_bf16<PKEYS, DK, HS>(ks + buf * PKEYS * HS, k, DK, c * PKEYS, 0, lkv, WARPS4);
+    stage_bf16<PKEYS, CW, VS>(vs + buf * PKEYS * VS, v, dv, c * PKEYS, c0, lkv, WARPS4);
+  };
+  stage_bf16<64, DK, HS>(qs, q, DK, r0, 0, lq, WARPS4);
+  stage_kv(0, 0);
+  cp_commit();
+  float mr[2], lr[2];
+  size_t rid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    mr[h] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
+    lr[h] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
+    rid[h] = ((size_t)b * lq + r) * (size_t)lkv;
+  }
+  uint32_t qa[4][4];
+  float acc[NT][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    cp_wait_all();
+    __syncthreads();
+    if (c == 0) load_q_frags(qa, qs, 16 * warp);
+    if (c + 1 < chunks) {
+      stage_kv(c + 1, buf ^ 1);
+      cp_commit();
+    }
+    float s[PKEYS / 8][4];
+    scores<PKEYS / 8>(s, qa, ks + buf * PKEYS * HS, 0);
+#pragma unroll
+    for (int j = 0; j < PKEYS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, key = c * PKEYS + 8 * j + 2 * t + (e & 1);
+        float p = prob(s[j][e], scale, mr[h], lr[h], key, lkv);
+        if (DROP)
+          p = tdnet_keep(drop.seed, rid[h] + key, drop.threshold) ? p * drop.inv_keep : 0.f;
+        s[j][e] = p;
+      }
+    const bf16* vt = vs + buf * PKEYS * VS;
+#pragma unroll
+    for (int kk = 0; kk < PKEYS / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bb[4];
+        ldsm4_t(bb, b_at_t(vt, VS, 16 * kk, 8 * j));
+        mma16(acc[j], pa, bb[0], bb[1]);
+        mma16(acc[j + 1], pa, bb[2], bb[3]);
+      }
+    }
+  }
+  o += (size_t)b * lq * dv;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    if (r >= lq) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<uint32_t*>(o + (size_t)r * dv + c0 + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+template <int NT, bool DROP>
+int launch_pv(const bf16* q, const bf16* k, const bf16* v, const float* row_max,
+              const float* row_sum, bf16* o, int n, int lq, int lkv, int dv, float scale,
+              Drop drop, cudaStream_t st) {
+  constexpr size_t smem = pv_smem<NT>();
+  cudaError_t err = cudaFuncSetAttribute(pv_bf16<NT, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pv_bf16<NT, DROP><<<dim3((lq + 63) / 64, dv / (8 * NT), n), WARPS4, smem, st>>>(
+      q, k, v, row_max, row_sum, o, lq, lkv, dv, scale, drop);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int forward(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* row_max, float* row_sum,
+            int n, int lq, int lkv, int dv, float scale, int cols, Drop drop, cudaStream_t st) {
+  if ((cols != 128 && cols != 256) || dv % cols) return (int)cudaErrorInvalidValue;
+  stats_bf16<<<dim3((lq + 63) / 64, n), WARPS4, 0, st>>>(q, k, row_max, row_sum, lq, lkv,
+                                                         scale);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return cols == 256
+             ? launch_pv<32, DROP>(q, k, v, row_max, row_sum, o, n, lq, lkv, dv, scale, drop, st)
+             : launch_pv<16, DROP>(q, k, v, row_max, row_sum, o, n, lq, lkv, dv, scale, drop, st);
+}
+
+template <int NP>  // d_v = 128 NP
+constexpr size_t rowt_smem() {
+  return sizeof(bf16) *
+         (64 * HS + 64 * (128 * NP + 8) + 2 * PKEYS * HS + 2 * PKEYS * (128 * NP + 8));
+}
+
+// t[b, r] = sum_j dp_rj p_rj with dp = dy_r . v_j (f32 sums of bf16 products), through the
+// mask and 1 / (1 - rate) with DROP: the TPU kernel's softmax-backward term (:109), for rows
+// [64 blockIdx.x, + 64) of batch blockIdx.y. The block's q and dy rows stay in shared memory;
+// 32-key chunks of k and v double-buffered; warp w owns rows 16 w... It costs a forward's
+// products again (s and dy v^T), where rowsum(dy o) would cost one pass over dy and o: with
+// o rounded to bf16 that sum misses t by o's rounding, so sum_j ds_rj, zero in exact arithmetic
+// (the gradient of a bias shared by all keys), took a bias on every row.
+template <int NP, bool DROP>
+__global__ void __launch_bounds__(WARPS4, 1)
+rowt_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dy, const float* __restrict__ row_max,
+          const float* __restrict__ row_sum, float* __restrict__ t_out, int lq, int lkv,
+          float scale, Drop drop) {
+  constexpr int DV = 128 * NP, VS = DV + 8;
+  extern __shared__ __align__(16) bf16 smem_t[];
+  bf16* qs = smem_t;                 // [64][HS]
+  bf16* ys = qs + 64 * HS;           // [64][VS]
+  bf16* ks = ys + 64 * VS;           // [2][PKEYS][HS]
+  bf16* vs = ks + 2 * PKEYS * HS;    // [2][PKEYS][VS]
+  const int r0 = blockIdx.x * 64, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int chunks = (lkv + PKEYS - 1) / PKEYS;
+  q += (size_t)b * lq * DK;
+  k += (size_t)b * lkv * DK;
+  v += (size_t)b * lkv * DV;
+  dy += (size_t)b * lq * DV;
+  auto stage_kv = [&](int c, int buf) {
+    stage_bf16<PKEYS, DK, HS>(ks + buf * PKEYS * HS, k, DK, c * PKEYS, 0, lkv, WARPS4);
+    stage_bf16<PKEYS, DV, VS>(vs + buf * PKEYS * VS, v, DV, c * PKEYS, 0, lkv, WARPS4);
+  };
+  stage_bf16<64, DK, HS>(qs, q, DK, r0, 0, lq, WARPS4);
+  stage_bf16<64, DV, VS>(ys, dy, DV, r0, 0, lq, WARPS4);
+  stage_kv(0, 0);
+  cp_commit();
+  float mr[2], lr[2], acc[2] = {0.f, 0.f};
+  size_t rid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    mr[h] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
+    lr[h] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
+    rid[h] = ((size_t)b * lq + r) * (size_t)lkv;
+  }
+  uint32_t qa[4][4];
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    cp_wait_all();
+    __syncthreads();
+    if (c == 0) load_q_frags(qa, qs, 16 * warp);
+    if (c + 1 < chunks) {
+      stage_kv(c + 1, buf ^ 1);
+      cp_commit();
+    }
+    float s[PKEYS / 8][4];
+    scores<PKEYS / 8>(s, qa, ks + buf * PKEYS * HS, 0);
+    const bf16* vt = vs + buf * PKEYS * VS;
+    float dp[PKEYS / 8][4] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < DV / 16; ++kk) {
+      uint32_t ya[4];
+      ldsm4(ya, a_at(ys, VS, 16 * warp, 16 * kk));
+#pragma unroll
+      for (int j = 0; j < PKEYS / 8; j += 2) {
+        uint32_t bb[4];
+        ldsm4(bb, b_at(vt, VS, 8 * j, 16 * kk));
+        mma16(dp[j], ya, bb[0], bb[1]);
+        mma16(dp[j + 1], ya, bb[2], bb[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PKEYS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, key = c * PKEYS + 8 * j + 2 * t + (e & 1);
+        const float p = prob(s[j][e], scale, mr[h], lr[h], key, lkv);
+        float d = dp[j][e];
+        if (DROP) d = tdnet_keep(drop.seed, rid[h] + key, drop.threshold) ? d * drop.inv_keep : 0.f;
+        acc[h] = fmaf(d, p, acc[h]);
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    acc[h] += __shfl_xor_sync(0xffffffffu, acc[h], 1);
+    acc[h] += __shfl_xor_sync(0xffffffffu, acc[h], 2);
+    const int r = r0 + 16 * warp + g + 8 * h;
+    if (t == 0 && r < lq) t_out[(size_t)b * lq + r] = acc[h];
+  }
+}
+
+template <int NP>  // d_v = 128 NP
+constexpr size_t kv_smem() {
+  return sizeof(bf16) * (PKEYS * HS + PKEYS * (128 * NP + 8) + 2 * 64 * HS +
+                         2 * 64 * (128 * NP + 8) + 2 * 64 * PS);
+}
+
+// Keys [32 blockIdx.x, + 32) of batch blockIdx.z over the 64-row q chunks of range blockIdx.y:
+//   dv_part[range, b, key, :] = sum_r bf16(pd_rk) dy_r,  dk_part[range, b, key, :] =
+//   scale sum_r ds_rk q_r (f32), and ds[b, r, key] = bf16(p (dp - t)) for every r of the range
+// (0 for keys past lkv). k and v stay in shared memory; each chunk's q and dy are staged by
+// cp.async, the next chunk's during this one. Per chunk, warp w forms s, dpd (K = d_v), p, pd and
+// ds for rows 16 (w % 4) x keys 16 (w / 4) and stores pd and ds by row; then dv += pd^T dy for
+// keys 16 (w % 2) x columns 32 NP (w / 2) (dv in registers, 16 NP a thread) and dk += ds^T q
+// for keys 16 (w % 2) x columns 16 (w / 2).
+template <int NP, bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dy, const float* __restrict__ row_max,
+          const float* __restrict__ row_sum, const float* __restrict__ dsum,
+          bf16* __restrict__ ds, float* __restrict__ dk_part, float* __restrict__ dv_part, int n,
+          int lq, int lkv, int lds, float scale, int q_per, Drop drop) {
+  constexpr int DV = 128 * NP, VS = DV + 8, NTV = 4 * NP;
+  extern __shared__ __align__(16) bf16 smem_kv[];
+  bf16* ks = smem_kv;                  // [32][HS]
+  bf16* vs = ks + PKEYS * HS;          // [32][VS]
+  bf16* qs = vs + PKEYS * VS;          // [2][64][HS]
+  bf16* ys = qs + 2 * 64 * HS;         // [2][64][VS]
+  bf16* pds = ys + 2 * 64 * VS;        // [64][PS]: pd by q row
+  bf16* dss = pds + 64 * PS;           // [64][PS]: ds by q row
+  const int key0 = blockIdx.x * PKEYS, range = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int am = 16 * (warp & 3), an = 16 * (warp >> 2);
+  const int bm = 16 * (warp & 1), bn = 32 * NP * (warp >> 1), cn = 16 * (warp >> 1);
+  const int c_begin = range * q_per, c_end = min((lq + 63) / 64, c_begin + q_per);
+  q += (size_t)b * lq * DK;
+  k += (size_t)b * lkv * DK;
+  v += (size_t)b * lkv * DV;
+  dy += (size_t)b * lq * DV;
+  ds += (size_t)b * lq * lds;
+  auto stage_q = [&](int c, int buf) {
+    stage_bf16<64, DK, HS>(qs + buf * 64 * HS, q, DK, 64 * c, 0, lq, THREADS);
+    stage_bf16<64, DV, VS>(ys + buf * 64 * VS, dy, DV, 64 * c, 0, lq, THREADS);
+  };
+  stage_bf16<PKEYS, DK, HS>(ks, k, DK, key0, 0, lkv, THREADS);
+  stage_bf16<PKEYS, DV, VS>(vs, v, DV, key0, 0, lkv, THREADS);
+  stage_q(c_begin, 0);
+  cp_commit();
+  float dva[NTV][4] = {}, dka[2][4] = {};
+  for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+    const int buf = it & 1;
+    cp_wait_all();
+    __syncthreads();  // chunk c landed; the last chunk's pd, ds and buffers are free
+    if (c + 1 < c_end) {
+      stage_q(c + 1, buf ^ 1);
+      cp_commit();
+    }
+    const bf16* qt = qs + buf * 64 * HS;
+    const bf16* yt = ys + buf * 64 * VS;
+    uint32_t qa[4][4];
+    load_q_frags(qa, qt, am);
+    float s[2][4];
+    scores<2>(s, qa, ks, an);
+    float dp[2][4] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < DV / 16; ++kk) {
+      uint32_t ya[4], bb[4];
+      ldsm4(ya, a_at(yt, VS, am, 16 * kk));
+      ldsm4(bb, b_at(vs, VS, an, 16 * kk));
+      mma16(dp[0], ya, bb[0], bb[1]);
+      mma16(dp[1], ya, bb[2], bb[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = am + g + 8 * h, r = 64 * c + rl;
+      const bool row_ok = r < lq;
+      const float m = row_ok ? row_max[(size_t)b * lq + r] : 0.f;
+      const float l = row_ok ? row_sum[(size_t)b * lq + r] : 1.f;
+      const float dd = row_ok ? dsum[(size_t)b * lq + r] : 0.f;
+      const size_t rid = ((size_t)b * lq + r) * (size_t)lkv;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float pdv[2], dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = key0 + an + 8 * j + 2 * t + e;
+          const float p = row_ok ? prob(s[j][2 * h + e], scale, m, l, key, lkv) : 0.f;
+          float pd = p, dpv = dp[j][2 * h + e];
+          if (DROP) {
+            const bool keep = tdnet_keep(drop.seed, rid + key, drop.threshold);
+            pd = keep ? p * drop.inv_keep : 0.f;
+            dpv = keep ? dpv * drop.inv_keep : 0.f;
+          }
+          pdv[e] = pd;
+          dsv[e] = p * (dpv - dd);
+        }
+        const int col = an + 8 * j + 2 * t;
+        const uint32_t dsw = pack_bf16(dsv[0], dsv[1]);
+        *reinterpret_cast<uint32_t*>(pds + rl * PS + col) = pack_bf16(pdv[0], pdv[1]);
+        *reinterpret_cast<uint32_t*>(dss + rl * PS + col) = dsw;
+        if (row_ok) *reinterpret_cast<uint32_t*>(ds + (size_t)r * lds + key0 + col) = dsw;
+      }
+    }
+    __syncthreads();  // pd and ds stored
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4], da[4], bq[4];
+      ldsm4_t(pa, a_at_t(pds, PS, 16 * kk, bm));
+#pragma unroll
+      for (int j = 0; j < NTV; j += 2) {
+        uint32_t bb[4];
+        ldsm4_t(bb, b_at_t(yt, VS, 16 * kk, bn + 8 * j));
+        mma16(dva[j], pa, bb[0], bb[1]);
+        mma16(dva[j + 1], pa, bb[2], bb[3]);
+      }
+      ldsm4_t(da, a_at_t(dss, PS, 16 * kk, bm));
+      ldsm4_t(bq, b_at_t(qt, HS, 16 * kk, cn));
+      mma16(dka[0], da, bq[0], bq[1]);
+      mma16(dka[1], da, bq[2], bq[3]);
+    }
+  }
+  float* dvo = dv_part + ((size_t)range * n + b) * lkv * DV;
+  float* dko = dk_part + ((size_t)range * n + b) * lkv * DK;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + bm + g + 8 * h;
+    if (key >= lkv) continue;
+#pragma unroll
+    for (int j = 0; j < NTV; ++j)
+      *reinterpret_cast<float2*>(dvo + (size_t)key * DV + bn + 8 * j + 2 * t) =
+          make_float2(dva[j][2 * h], dva[j][2 * h + 1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<float2*>(dko + (size_t)key * DK + cn + 8 * j + 2 * t) =
+          make_float2(dka[j][2 * h] * scale, dka[j][2 * h + 1] * scale);
+  }
+}
+
+// dq[b, r, :] = bf16(scale sum_j ds[b, r, j] k[b, j, :]) for rows [64 blockIdx.x, + 64) of
+// batch blockIdx.y over every 32-key step, double-buffered; warp w owns rows 16 w.., all 64
+// columns.
+__global__ void __launch_bounds__(WARPS4)
+dq_bf16(const bf16* __restrict__ ds, const bf16* __restrict__ k, bf16* __restrict__ dq, int lq,
+        int lkv, int lds, float scale) {
+  __shared__ __align__(16) bf16 as[2][64 * PS];
+  __shared__ __align__(16) bf16 bs[2][PKEYS * HS];
+  const int r0 = blockIdx.x * 64, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int steps = lds / PKEYS;
+  ds += (size_t)b * lq * lds;
+  k += (size_t)b * lkv * DK;
+  auto stage = [&](int st, int buf) {
+    stage_bf16<64, PKEYS, PS>(as[buf], ds, lds, r0, st * PKEYS, lq, WARPS4);
+    stage_bf16<PKEYS, DK, HS>(bs[buf], k, DK, st * PKEYS, 0, lkv, WARPS4);
+  };
+  stage(0, 0);
+  cp_commit();
+  float acc[8][4] = {};
+  for (int st = 0; st < steps; ++st) {
+    const int buf = st & 1;
+    cp_wait_all();
+    __syncthreads();
+    if (st + 1 < steps) {
+      stage(st + 1, buf ^ 1);
+      cp_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < PKEYS / 16; ++kk) {
+      uint32_t a[4];
+      ldsm4(a, a_at(as[buf], PS, 16 * warp, 16 * kk));
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t bb[4];
+        ldsm4_t(bb, b_at_t(bs[buf], HS, 16 * kk, 8 * j));
+        mma16(acc[j], a, bb[0], bb[1]);
+        mma16(acc[j + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+  dq += (size_t)b * lq * DK;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    if (r >= lq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(dq + (size_t)r * DK + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+  }
+}
+
+// out[i] = bf16(sum_p parts[p * count + i]), summed in order p = 0, 1, ...; 4 a thread.
+__global__ void __launch_bounds__(THREADS)
+sum_parts_bf16(const float4* __restrict__ parts, uint2* __restrict__ out, int nparts,
+               size_t count4) {
+  for (size_t i = blockIdx.x * (size_t)THREADS + threadIdx.x; i < count4;
+       i += (size_t)gridDim.x * THREADS) {
+    float4 s = parts[i];
+    for (int p = 1; p < nparts; ++p) {
+      const float4 x = parts[(size_t)p * count4 + i];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    out[i] = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+  }
+}
+
+int sum_into_bf16(const float* parts, bf16* out, int nparts, size_t count, cudaStream_t st) {
+  if (count % 4) return (int)cudaErrorInvalidValue;
+  const size_t count4 = count / 4, blocks = (count4 + THREADS - 1) / THREADS;
+  sum_parts_bf16<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(
+      reinterpret_cast<const float4*>(parts), reinterpret_cast<uint2*>(out), nparts, count4);
+  return (int)cudaGetLastError();
+}
+
+template <int NP, bool DROP>
+int backward(const bf16* q, const bf16* k, const bf16* v, const bf16* dy,
+             const float* row_max, const float* row_sum, float* dsum, bf16* ds, bf16* dq,
+             bf16* dk, bf16* dv_out, float* dk_part, float* dv_part, int n, int lq, int lkv,
+             float scale, int q_per, Drop drop, cudaStream_t st) {
+  constexpr int DV = 128 * NP;
+  constexpr size_t t_smem = rowt_smem<NP>();
+  cudaError_t err = cudaFuncSetAttribute(rowt_bf16<NP, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t_smem);
+  if (err != cudaSuccess) return (int)err;
+  rowt_bf16<NP, DROP><<<dim3((lq + 63) / 64, n), WARPS4, t_smem, st>>>(
+      q, k, v, dy, row_max, row_sum, dsum, lq, lkv, scale, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int key_blocks = (lkv + PKEYS - 1) / PKEYS, lds = key_blocks * PKEYS;
+  const int qsplit = ((lq + 63) / 64 + q_per - 1) / q_per;
+  constexpr size_t smem = kv_smem<NP>();
+  err = cudaFuncSetAttribute(dkdv_bf16<NP, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dkdv_bf16<NP, DROP><<<dim3(key_blocks, qsplit, n), THREADS, smem, st>>>(
+      q, k, v, dy, row_max, row_sum, dsum, ds, dk_part, dv_part, n, lq, lkv, lds, scale, q_per,
+      drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dq_bf16<<<dim3((lq + 63) / 64, n), WARPS4, 0, st>>>(ds, k, dq, lq, lkv, lds, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = (cudaError_t)sum_into_bf16(dk_part, dk, qsplit, (size_t)n * lkv * DK, st)) !=
+      cudaSuccess)
+    return (int)err;
+  return sum_into_bf16(dv_part, dv_out, qsplit, (size_t)n * lkv * DV, st);
+}
+
+template <bool DROP>
+int backward_dv(int dv, const bf16* q, const bf16* k, const bf16* v,
+                const bf16* dy, const float* row_max, const float* row_sum, float* dsum,
+                bf16* ds, bf16* dq, bf16* dk, bf16* dv_out, float* dk_part, float* dv_part,
+                int n, int lq, int lkv, float scale, int q_per, Drop drop, cudaStream_t st) {
+#define TDNET_BWD16(NP)                                                                       \
+  backward<NP, DROP>(q, k, v, dy, row_max, row_sum, dsum, ds, dq, dk, dv_out, dk_part,        \
+                     dv_part, n, lq, lkv, scale, q_per, drop, st)
+  switch (dv) {
+    case 128: return TDNET_BWD16(1);
+    case 256: return TDNET_BWD16(2);
+    case 384: return TDNET_BWD16(3);
+    case 512: return TDNET_BWD16(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TDNET_BWD16
+}
+
+}  // namespace k2bf16
+
 }  // namespace
 
 extern "C" {
@@ -643,6 +1313,40 @@ int tdnet_attention_train_bwd(const void* q, const void* k, const void* v, const
              (const float*)dy, row_max, row_sum, (float*)dsum, (float*)ds, (float*)dq,
              (float*)dk, (float*)dv_out, (float*)dq_part, (float*)dk_part, (float*)dv_part, n, lq,
              lkv, scale, q_per, k_per, drop, st);
+}
+
+// bf16: q, k, v, o bf16, stats f32 as above; the p v pass takes column blocks of `cols` (128
+// or 256, dividing dv).
+int tdnet_attention_train_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                   void* stats, int n, int lq, int lkv, int dv, float scale,
+                                   int cols, unsigned int seed, unsigned int drop_threshold,
+                                   float inv_keep, void* stream) {
+  using k2bf16::bf16;
+  float* row_max = (float*)stats;
+  const Drop drop{seed, drop_threshold, inv_keep};
+  auto run = drop_threshold ? k2bf16::forward<true> : k2bf16::forward<false>;
+  return run((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, row_max,
+             row_max + (size_t)n * lq, n, lq, lkv, dv, scale, cols, drop, (cudaStream_t)stream);
+}
+
+// The backward of the bf16 call above (its o is not needed): q, k, v, dy and the outputs dq,
+// dk, dv bf16; scratch
+// dsum [n, lq] f32 (t), ds [n, lq, lds] bf16, dk_part [qsplit, n, lkv, 64] and dv_part [qsplit, n,
+// lkv, dv] f32, with lds and qsplit as for the f32 backward.
+int tdnet_attention_train_bwd_bf16(const void* q, const void* k, const void* v,
+                                   const void* dy, const void* stats, void* dsum, void* ds,
+                                   void* dq, void* dk, void* dv_out, void* dk_part,
+                                   void* dv_part, int n, int lq, int lkv, int dv, float scale,
+                                   int q_per, unsigned int seed, unsigned int drop_threshold,
+                                   float inv_keep, void* stream) {
+  using k2bf16::bf16;
+  const float* row_max = (const float*)stats;
+  const Drop drop{seed, drop_threshold, inv_keep};
+  auto run = drop_threshold ? k2bf16::backward_dv<true> : k2bf16::backward_dv<false>;
+  return run(dv, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dy, row_max,
+             row_max + (size_t)n * lq, (float*)dsum, (bf16*)ds, (bf16*)dq, (bf16*)dk,
+             (bf16*)dv_out, (float*)dk_part, (float*)dv_part, n, lq, lkv, scale, q_per, drop,
+             (cudaStream_t)stream);
 }
 
 const char* tdnet_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

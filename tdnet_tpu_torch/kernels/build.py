@@ -3,10 +3,10 @@
 Each library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``. The object lands in
 ``build/tdnet_tpu_torch/`` at the root of the checkout, named by a hash of
-its sources, the local headers they include (``#include "x.cuh"``) and the
-flags, so a changed source or header builds anew and an unchanged one is
-reused. ``compile_libraries``
-starts one ``nvcc`` per library, all at once.
+its sources, the local headers they include (``#include "x.cuh"``), the
+flags and any ``-D`` defines, so a changed source or header builds anew and an
+unchanged one is reused. ``compile_libraries`` starts one ``nvcc`` per
+library, all at once.
 """
 
 from __future__ import annotations
@@ -49,25 +49,29 @@ def _with_headers(sources: tuple[str, ...]) -> list[str]:
     return seen
 
 
-def _lib_path(name: str, sources: tuple[str, ...]) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(name: str, sources: tuple[str, ...], defines: tuple[str, ...] = ()) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for s in _with_headers(sources):
         with open(os.path.join(CSRC, s), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def compile_libraries(specs: dict[str, tuple[str, ...]]) -> None:
+def compile_libraries(specs: dict[str, tuple[str, ...]],
+                      defines: dict[str, tuple[str, ...]] | None = None) -> None:
     """Compile every library of ``specs`` (name -> source file names under
-    csrc/) that is not built yet, one nvcc process each, all concurrently."""
+    csrc/) that is not built yet, one nvcc process each, all concurrently;
+    ``defines`` (name -> ``NAME=value`` strings) adds ``-D`` flags to a library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
     for name, sources in specs.items():
-        lib_path = _lib_path(name, sources)
+        defs = (defines or {}).get(name, ())
+        lib_path = _lib_path(name, sources, defs)
         if os.path.isfile(lib_path):
             continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *[os.path.join(CSRC, s) for s in sources]]
+        cmd = [nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defs], "-o", tmp,
+               *[os.path.join(CSRC, s) for s in sources]]
         jobs.append((cmd, tmp, lib_path, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []
@@ -81,9 +85,11 @@ def compile_libraries(specs: dict[str, tuple[str, ...]]) -> None:
         raise RuntimeError("\n".join(failures))
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile ``sources`` (file names under csrc/) once and load the library."""
+def load_library(name: str, sources: tuple[str, ...],
+                 defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile ``sources`` (file names under csrc/) once, with ``-D`` ``defines``,
+    and load the library."""
     if name not in _loaded:
-        compile_libraries({name: sources})
-        _loaded[name] = ctypes.CDLL(_lib_path(name, sources))
+        compile_libraries({name: sources}, {name: defines})
+        _loaded[name] = ctypes.CDLL(_lib_path(name, sources, defines))
     return _loaded[name]

@@ -10,7 +10,14 @@ seed, as the TPU kernel's VJP does (tdnet_tpu/kernels/dropout.py:51-66).
 
 ``dropout`` takes the plain version for CPU tensors and the kernel for CUDA
 tensors; ``dropout.launches`` and ``dropout.backward_launches`` count the
-kernel's forward and backward launches.
+f32 kernel's forward and backward launches, ``.bf16_launches`` and
+``.bf16_backward_launches`` the bfloat16 kernel's.
+
+It takes float32 and bfloat16 and returns x's dtype. In bfloat16 the scale is
+1 / (1 - rate) rounded to bfloat16 first (1.109375 at rate 0.1), as the TPU
+kernel's weak-typed Python float is (``tdnet_tpu/kernels/dropout.py:30``); the
+product of two bfloat16 values is exact in f32, so the kernel and the plain
+version round x * scale once, to bfloat16.
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ from tdnet_tpu_torch.kernels.build import load_library
 from tdnet_tpu_torch.ops.dropout_mask import keep_mask, keep_threshold
 
 SOURCES = ("dropout.cu",)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def dropout_plain(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    """where(keep, x * (1 / (1 - rate)), 0), differentiable through autograd."""
+    """where(keep, x * (1 / (1 - rate)), 0), differentiable through autograd;
+    the scale in x's dtype."""
     keep = keep_mask(seed, rate, tuple(x.shape), device=x.device)
     inv_keep = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype)
     return torch.where(keep, x * inv_keep, torch.zeros((), dtype=x.dtype))
@@ -40,25 +49,30 @@ def build() -> ctypes.CDLL:
     lib.tdnet_dropout.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                                   ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
     lib.tdnet_dropout.restype = ctypes.c_int
+    lib.tdnet_dropout_bf16.argtypes = lib.tdnet_dropout.argtypes
+    lib.tdnet_dropout_bf16.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.cache
-def _rate_args(rate: float) -> tuple[int, float]:
-    """(keep threshold, 1 / (1 - rate)) of a rate."""
-    return keep_threshold(rate), 1.0 / (1.0 - rate)
+def _rate_args(rate: float, dtype: torch.dtype = torch.float32) -> tuple[int, float]:
+    """(keep threshold, 1 / (1 - rate) rounded to ``dtype``) of a rate: the
+    scale the kernel multiplies by, as ``dropout_plain`` does."""
+    return keep_threshold(rate), torch.tensor(1.0 / (1.0 - rate), dtype=dtype).item()
 
 
 def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"the dropout kernel takes contiguous float32, got {x.dtype}")
+    if x.dtype not in DTYPES or not x.is_contiguous():
+        raise ValueError(f"the dropout kernel takes contiguous float32 or bfloat16, got "
+                         f"{x.dtype}")
     lib = build()
     y = torch.empty_like(x)
-    threshold, inv_keep = _rate_args(rate)
-    err = lib.tdnet_dropout(x.data_ptr(), y.data_ptr(), x.numel(), seed & 0xFFFFFFFF,
-                            threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream)
+    threshold, inv_keep = _rate_args(rate, x.dtype)
+    launch = lib.tdnet_dropout if x.dtype == torch.float32 else lib.tdnet_dropout_bf16
+    err = launch(x.data_ptr(), y.data_ptr(), x.numel(), seed & 0xFFFFFFFF, threshold, inv_keep,
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout kernel failed: CUDA error {err}: "
                            f"{lib.tdnet_cuda_error_string(err).decode()}")
@@ -70,13 +84,19 @@ class _DropoutKernel(torch.autograd.Function):
     def forward(ctx, x, rate, seed):
         ctx.rate, ctx.seed = rate, seed
         y = _launch(x, rate, seed)
-        dropout.launches += 1
+        if x.dtype == torch.float32:
+            dropout.launches += 1
+        else:
+            dropout.bf16_launches += 1
         return y
 
     @staticmethod
     def backward(ctx, dy):
         dx = _launch(dy.contiguous(), ctx.rate, ctx.seed)
-        dropout.backward_launches += 1
+        if dy.dtype == torch.float32:
+            dropout.backward_launches += 1
+        else:
+            dropout.bf16_backward_launches += 1
         return dx, None, None
 
 
@@ -92,3 +112,5 @@ def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
 
 dropout.launches = 0
 dropout.backward_launches = 0
+dropout.bf16_launches = 0
+dropout.bf16_backward_launches = 0

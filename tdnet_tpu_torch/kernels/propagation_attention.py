@@ -17,6 +17,13 @@ forward) and p v and the fc on the tensor cores in 3xTF32, f32's accuracy;
 runs on Hopper's ``wgmma``, fed by TMA, in the tiling that
 ``grid.attention_bf16_plan`` picks for the shape; ``launch_bf16`` runs the
 kernels in a given tiling (``cli/attention_sweep.py`` times the tilings).
+
+A bf16 consumer warpgroup that gives up waiting on a barrier sets an error
+word, one int32 a device that this module owns, and exits: the launch then
+ends with part of its output unwritten. ``check_fault(device)`` reads the word
+(a synchronizing copy) and raises; the runtime calls it only where it
+synchronizes anyway (``stream/runtime.py``), so the hot path gains no
+synchronization.
 """
 
 from __future__ import annotations
@@ -81,13 +88,18 @@ def forward_plan(n: int, lq: int, lkv: int, dv: int, sms: int) -> ForwardPlan:
                        (ranges, n, lq, dv) if ranges > 1 else None)
 
 
+def library_name(defines: tuple[str, ...] = ()) -> str:
+    return "propagation_attention" + "".join(f"-{d}" for d in defines)
+
+
 @functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
-    lib = load_library("propagation_attention", SOURCES)
+def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc.
+    ``defines``: a debug build's ``-D`` flags (``chip_smoke.py``'s fault check)."""
+    lib = load_library(library_name(defines), SOURCES, defines)
     lib.tdnet_propagation_attention_f32.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.tdnet_propagation_attention_bf16.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.tdnet_propagation_attention_bf16.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn in (lib.tdnet_propagation_attention_f32, lib.tdnet_propagation_attention_bf16):
         fn.restype = ctypes.c_int
@@ -181,15 +193,46 @@ def _launch_f32(q, k, v, temperature, fc_w, fc_b, plan: ForwardPlan) -> torch.Te
     return out
 
 
-def launch_bf16(q, k, v, temperature: float, fc_w, fc_b, plan: Bf16Plan) -> torch.Tensor:
+_fault_words: dict[int, torch.Tensor] = {}   # CUDA device index -> its error word
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def _fault_word(device: torch.device) -> torch.Tensor:
+    i = _index(device)
+    if i not in _fault_words:
+        _fault_words[i] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _fault_words[i]
+
+
+def check_fault(device) -> None:
+    """Raise if a bf16 launch on ``device`` since the last check had a consumer
+    warpgroup give up on a barrier (and clear the word). Reads one int32 from
+    the device, so it waits for the device's queued work."""
+    if torch.device(device).type != "cuda":
+        return
+    word = _fault_words.get(_index(device))
+    if word is not None and word.item():
+        word.zero_()
+        raise RuntimeError("K1 (the propagation attention's bf16 kernels): a consumer warpgroup "
+                           "gave up waiting on a barrier, so a launch left part of its output "
+                           "unwritten")
+
+
+def launch_bf16(q, k, v, temperature: float, fc_w, fc_b, plan: Bf16Plan,
+                lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """The bf16 kernels in the tiling ``plan`` on checked CUDA tensors (as
-    ``fused_propagation_attention`` takes them); counts no launch."""
-    lib = build()
+    ``fused_propagation_attention`` takes them), from ``lib`` (default
+    ``build()``); counts no launch."""
+    lib = lib or build()
     out, stats, o_tmp = _outputs(q, v, fc_w)
     n, lq, _ = q.shape
     err = lib.tdnet_propagation_attention_bf16(
         _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out), _ptr(stats),
-        n, lq, k.shape[1], v.shape[2], 1.0 / temperature, *plan,
+        _ptr(_fault_word(v.device)), n, lq, k.shape[1], v.shape[2], 1.0 / temperature, *plan,
         torch.cuda.current_stream(v.device).cuda_stream)
     _raise_on(lib, err)
     return out

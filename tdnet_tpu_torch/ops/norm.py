@@ -69,8 +69,17 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     one value a channel (the PSP's 1x1 pool at batch 1, which torch's own
     op refuses) the variance is 0 and the output is the bias, as in the JAX
     package's E[x^2] - E[x]^2 form.
+
+    Moments, affine and running statistics are f32 for a bf16 ``x`` and the
+    output is rounded to x's dtype; with a residual, the residual joins the
+    f32 affine before that one rounding, as the JAX package's fused
+    ``_bn_add_act_train`` adds it (``tdnet_tpu/ops/norm.py:100-111``).
     """
     n = x.numel() // x.shape[1]
+    if residual is not None and x.dtype.itemsize < 4:
+        y = batch_norm_train(at_least_f32(x), weight, bias, running_mean, running_var, eps=eps,
+                             momentum=momentum)
+        return _activate((y + at_least_f32(residual)).to(x.dtype), activation)
     if n > 1:
         y = F.batch_norm(x, running_mean, running_var, weight, bias, training=True,
                          momentum=momentum, eps=eps)

@@ -9,7 +9,9 @@ Replaces the reference's per-frame loop over a stateful nn.Module
 - a preallocated K/V/Q ring cache updated in place;
 - a seeded synthetic frame stream for driving it without a dataset;
 - synchronized per-frame latency with the reference's 6-frame warm-up
-  excluded (test.py:58-59), and a pipelined mode that synchronizes once.
+  excluded (test.py:58-59), and a pipelined mode that synchronizes once;
+- every frame computed without TF32 (``ops.dtype.no_tf32``), and K1's bf16
+  error word read where a frame or a pipelined run synchronizes.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ import torch
 from torch import nn
 
 from tdnet_tpu_torch.data.streaming import IMAGENET_MEAN, IMAGENET_STD
+from tdnet_tpu_torch.kernels.propagation_attention import check_fault
 from tdnet_tpu_torch.models.pspnet import apply_pspnet
 from tdnet_tpu_torch.models.tdnet import init_cache, stream_step
 from tdnet_tpu_torch.nn import Ctx, ResNet
 from tdnet_tpu_torch.ops import BatchNorm
+from tdnet_tpu_torch.ops.dtype import no_tf32
 
 
 def sync(device: torch.device) -> None:
@@ -89,11 +93,13 @@ class _Runner:
         if timed:
             sync(self.device)
         t0 = time.perf_counter()
-        out = self._forward(img)
+        with no_tf32():
+            out = self._forward(img)
         if timed:
             sync(self.device)
         dt = time.perf_counter() - t0
         if timed:
+            check_fault(self.device)
             self.meter.add(dt)
         self.frame_idx += 1
         return out, dt
@@ -107,7 +113,9 @@ class _Runner:
         for n, img in enumerate(frames, 1):
             out, _ = self.step(img, timed=False)
         sync(self.device)
-        return out, (time.perf_counter() - t0) / n
+        seconds = time.perf_counter() - t0
+        check_fault(self.device)
+        return out, seconds / n
 
 
 class Streamer(_Runner):

@@ -1,5 +1,5 @@
 """The training step (``tdnet_tpu/train/trainer.py:make_train_state`` and
-``make_train_step``), f32.
+``make_train_step``), f32 or bf16 mixed precision.
 
 Loss recipe (reference td4_psp.py:367-374):
   loss = CE(out) + 0.5 CE(out_sub) + 0.1 CE(auxout) + KD
@@ -15,6 +15,24 @@ default, ``F.conv2d`` and autograd) or ``"kernel"``, the JAX package's
 ``conv_wgrad="pallas"`` (``tdnet_tpu/train/trainer.py:124-132``): the stride-1
 3x3 convs with dilation >= 4 through K5 (``kernels/dilated_conv.py``). The
 teacher's stem stays plain, as the JAX trainer's ``teacher_stem = "xla"``.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's opt-in mixed precision
+(``compute_dtype=jnp.bfloat16``, ``tdnet_tpu/train/trainer.py:147-177``;
+the YAML key ``training.mixed_precision``, ``utils/config.py:
+compute_dtype_from_yaml``): the forward and backward run on bf16 casts of the
+conv and linear weights and biases (``Conv2d`` and the attention fc,
+``_cast_wb``'s ``w``/``b`` leaves), made each step from the f32 masters by a
+differentiable cast, so each master's gradient is the bf16 gradient cast up;
+the frames and the teacher's conv weights are cast too (once a step). Norm
+affines and BatchNorm running statistics stay f32: the statistics update in
+place from f32 moments into the f32 buffers (``_graft_bn_stats``), and the
+losses run in f32. K2 and K3 then run their bf16 kernels. The default, None,
+is the f32 recipe. K5 in bf16 is not ported: ``conv_wgrad="kernel"`` with
+bf16 raises.
+
+Every step, and every call of ``make_loss_of``'s function, runs without TF32
+(``ops.dtype.no_tf32``): cuDNN's convs and the f32 matrix products keep f32's
+precision whatever the caller set.
 """
 
 from __future__ import annotations
@@ -23,9 +41,13 @@ import dataclasses
 import os
 
 import torch
+from torch import nn
 
 from tdnet_tpu_torch.models import TDNet, Teacher, apply_teacher, clip_forward, init_tdnet
 from tdnet_tpu_torch.nn import Ctx, step_generator
+from tdnet_tpu_torch.nn.encoding import Attention
+from tdnet_tpu_torch.ops import Conv2d
+from tdnet_tpu_torch.ops.dtype import no_tf32
 from tdnet_tpu_torch.train.loss import cross_entropy, kl_divergence
 from tdnet_tpu_torch.train.optim import ada_optimizer
 
@@ -51,61 +73,112 @@ def make_train_state(model: TDNet, *, seed: int = 0,
     return TrainState(model=model, optimizer=opt, schedule=schedule, seed=seed)
 
 
-def make_loss_of(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn"):
+COMPUTE_DTYPES = (None, torch.bfloat16)
+
+
+def cast_names(model: nn.Module) -> list[str]:
+    """The parameters that mixed precision casts, ``_cast_wb``'s ``w``/``b``
+    leaves: the weights and biases of every ``Conv2d`` and attention fc."""
+    return [f"{name}.{p}" if name else p for name, mod in model.named_modules()
+            if isinstance(mod, (Conv2d, Attention)) for p, _ in mod.named_parameters(recurse=False)]
+
+
+class _Call(nn.Module):
+    """``fn(model, *args)`` as a module, for ``torch.func.functional_call``."""
+
+    def __init__(self, fn, model: nn.Module):
+        super().__init__()
+        self.fn, self.model = fn, model
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def call_cast(fn, model: nn.Module, dtype: torch.dtype | None, *args):
+    """``fn(model, *args)``, with ``dtype`` casts of the model's ``cast_names``
+    parameters in their place (a differentiable cast of each f32 master);
+    every other parameter and every buffer is the model's own, so BatchNorm's
+    running statistics update in place in f32. ``dtype=None`` calls it as it is."""
+    if dtype is None:
+        return fn(model, *args)
+    named = dict(model.named_parameters())
+    casts = {f"model.{name}": named[name].to(dtype) for name in cast_names(model)}
+    return torch.func.functional_call(_Call(fn, model), casts, args)
+
+
+def make_loss_of(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn",
+                 compute_dtype: torch.dtype | None = None):
     """``loss_of(model, frames, labels, pos_id, generator, teacher=None)
     -> (loss, kd)``; frames NHWC [P, n, H, W, 3] (oldest .. current), labels
-    [n, H, W]. ``use_dropout=False``: train-mode BN without dropout."""
+    [n, H, W]. ``use_dropout=False``: train-mode BN without dropout.
+    ``compute_dtype``: None (f32) or ``torch.bfloat16`` (mixed precision)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype} not in {COMPUTE_DTYPES}")
+    if compute_dtype is not None and conv_wgrad == "kernel":
+        raise ValueError("conv_wgrad='kernel' takes f32 only: the dilated-conv kernel (K5) in "
+                         "bf16 is not ported yet (ROADMAP, Queue 2: K5 in bf16)")
     if loss_fn is None:
         loss_fn = lambda lg, lb: cross_entropy(lg, lb, 250)
 
     def loss_of(model: TDNet, frames, labels, pos_id: int, generator, teacher=None):
-        ctx = Ctx(train=True, use_dropout=use_dropout, generator=generator,
-                  conv_wgrad=conv_wgrad)
-        res = clip_forward(model, frames, pos_id, ctx)
-        loss = loss_fn(res["out"], labels) + 0.5 * loss_fn(res["out_sub"], labels)
-        if model.cfg.aux:
-            loss = loss + 0.1 * loss_fn(res["auxout"], labels)
-        kd = torch.zeros((), device=loss.device)
-        if teacher is not None:
-            t_full, t_grp = apply_teacher(teacher, frames[-1], group_id=pos_id)
-            kd = (kl_divergence(res["out_lowres"], t_full)
-                  + 0.5 * kl_divergence(res["out_sub_lowres"], t_grp))
-            loss = loss + kd
+        with no_tf32():
+            ctx = Ctx(train=True, use_dropout=use_dropout, generator=generator,
+                      conv_wgrad=conv_wgrad)
+            if compute_dtype is not None:
+                frames = frames.to(compute_dtype)
+            res = call_cast(clip_forward, model, compute_dtype, frames, pos_id, ctx)
+            loss = loss_fn(res["out"], labels) + 0.5 * loss_fn(res["out_sub"], labels)
+            if model.cfg.aux:
+                loss = loss + 0.1 * loss_fn(res["auxout"], labels)
+            kd = torch.zeros((), device=loss.device)
+            if teacher is not None:
+                t_full, t_grp = call_cast(apply_teacher, teacher, compute_dtype, frames[-1],
+                                          pos_id)
+                kd = (kl_divergence(res["out_lowres"], t_full)
+                      + 0.5 * kl_divergence(res["out_sub_lowres"], t_grp))
+                loss = loss + kd
         return loss, kd
 
     return loss_of
 
 
-def make_train_step(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn"):
+def make_train_step(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn",
+                    compute_dtype: torch.dtype | None = None):
     """``step(state, frames, labels, pos_id, teacher=None) -> {loss, kd, lr}``.
-    After the step each parameter's ``.grad`` holds this step's gradient."""
-    loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad)
+    After the step each parameter's ``.grad`` holds this step's gradient, in
+    f32 with any ``compute_dtype``."""
+    loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad,
+                           compute_dtype=compute_dtype)
 
     def step(state: TrainState, frames, labels, pos_id: int, teacher: Teacher | None = None):
         model, opt = state.model, state.optimizer
-        opt.zero_grad(set_to_none=False)
-        loss, kd = loss_of(model, frames, labels, pos_id,
-                           step_generator(state.seed, state.it), teacher)
-        loss.backward()
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        lr = state.schedule(state.it)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with no_tf32():
+            opt.zero_grad(set_to_none=False)
+            loss, kd = loss_of(model, frames, labels, pos_id,
+                               step_generator(state.seed, state.it), teacher)
+            loss.backward()
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            lr = state.schedule(state.it)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         state.it += 1
         return {"loss": loss.detach(), "kd": kd.detach(), "lr": lr}
 
     return step
 
 
-def td4_full_recipe(*, seed: int = 0, conv_wgrad: str = "cudnn"):
+def td4_full_recipe(*, seed: int = 0, conv_wgrad: str = "cudnn",
+                    compute_dtype: torch.dtype | None = None):
     """The TD4-PSP18 full training recipe of ``configs/td4_psp18_cityscapes.yml``
     (model, teacher, loss and optimizer sections: kv_stride 3, aux head, OHEM,
     KD from a ResNet-101 teacher, AdaOptimizer) at its 769x1537 crop on one
     card at batch 1, as ``bench_train.py:49-64`` runs it on the TPU, on seeded
     random weights, frames and labels (a corner band at the ignore label 250).
+    ``compute_dtype``: None, the f32 recipe, or ``torch.bfloat16``, mixed
+    precision (for a YAML, ``utils.config.compute_dtype_from_yaml``).
 
     Returns (state, step, teacher, frames [4, 1, H, W, 3], labels [1, H, W],
     loss_fn), all on the card."""
@@ -126,5 +199,5 @@ def td4_full_recipe(*, seed: int = 0, conv_wgrad: str = "cudnn"):
     labels = torch.randint(0, cfg.nclass, (1, *cfg.in_size), generator=gen)
     labels[:, :64] = 250
     labels[:, :, :32] = 250
-    return (state, make_train_step(loss_fn=loss_fn, conv_wgrad=conv_wgrad), teacher, frames,
-            labels.to("cuda"), loss_fn)
+    step = make_train_step(loss_fn=loss_fn, conv_wgrad=conv_wgrad, compute_dtype=compute_dtype)
+    return state, step, teacher, frames, labels.to("cuda"), loss_fn

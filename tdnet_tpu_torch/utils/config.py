@@ -53,3 +53,11 @@ def opt_kwargs_from_yaml(cfg: dict) -> dict:
     max_iter = int(o.pop("max_iter", cfg["training"]["train_iters"]))
     return {k: (int(v) if k == "warmup_steps" else float(v)) for k, v in o.items()} | {
         "max_iter": max_iter}
+
+
+def compute_dtype_from_yaml(cfg: dict):
+    """cfg['training']['mixed_precision'] -> ``torch.bfloat16`` (mixed
+    precision), else None (the f32 recipe), as ``tdnet_tpu/cli/train.py:167-170``
+    reads it."""
+    import torch
+    return torch.bfloat16 if cfg["training"].get("mixed_precision") else None
