@@ -126,8 +126,9 @@ Phases (any failure exits non-zero):
     and bf16, the fused stem against the plain stem by phase 11's rules (the
     stem tail of every frame; f32 logits to 1e-3 x max|logits|; bf16 logits
     reported); one K4 launch a frame; latency, frames/s and peak memory;
-13. the dilated-conv kernel (K5) against its plain version at the recipe's
-    layer4 shapes (97x193 grid; 256->512 d4, 512->512 d4 and d8), f32 with
+13. the dilated-conv kernel (K5) against its plain version at layer4's shapes
+    (97x193 grid; TD4-PSP18's 256->512 d4, 512->512 d4 and d8, and TD2-PSP50's
+    512->512 d16), f32 with
     TF32 off: forward and dgrad to 5e-5 x max|ref|, and the autograd
     function's output, dx and dW against ``F.conv2d`` autograd (dW 1e-4 x
     max|ref|: a sum over 18,721 pixels); two identical calls bitwise equal,
@@ -136,6 +137,13 @@ Phases (any failure exits non-zero):
     tensor cores, the kernels line's, and f32 on the CUDA cores); at 512->512
     d4 the kernels that K5's and cuDNN's forward and dgrad run, with their
     device times (one trace of both) and the prep passes' share;
+13b. K5 in bf16 against its plain version (bf16 products summed in f32,
+    rounded once) at the same shapes: output and dx within 2^-7 x max|plain|
+    (one bf16 ulp at the largest output: both round one f32 sum), bf16, two
+    identical calls bitwise equal; the share of outputs off the plain
+    version's bits and each one's mean rounding bias against a float64 conv;
+    kernel, plain and cuDNN bf16 (``F.conv2d``, ``conv2d_input``) times with
+    their device times, and the bound in bf16;
 14. the phase-9 recipe with ``conv_wgrad="kernel"``: a warm-up step and 4
     steps, every loss finite, 16 forward and 16 dgrad K5 launches a step,
     ms/step and peak memory; then, from phase 9's initial state, dropout off
@@ -167,13 +175,38 @@ Phases (any failure exits non-zero):
     another order flips ReLUs all over the net. The probe: K2's bf16 forward
     off by each eps of ``PROBE_LADDER_BF16`` on one 64-row q block of the last
     hop, each probe's share of the limit printed; the check must flag
-    ``PROBE_EPS_BF16``.
+    ``PROBE_EPS_BF16``;
+16. the phase-9 recipe in bf16 with ``conv_wgrad="kernel"``: a warm-up step
+    and 4 steps, every loss finite, 16 forward and 16 dgrad bf16 K5 launches a
+    step and no f32 K5 launch, 3 + 3 of K2's and K3's bf16 kernels; ms/step,
+    peak memory, device ms a step and the idle share from a profiler trace of
+    2 steps; then, from phase 9's initial state, dropout off and on, the K5
+    path (K2, K3 and K5 kernels) against phase 9's float64 run by phase 15's
+    rule (``against_f64(..., bf16=True)``) beside the bf16 plain path (all
+    three swapped for their plain versions); its and K5's plain version's
+    shares of that rule beside the bf16 cuDNN path are printed, not held (two
+    bf16 paths that sum layer4's convs in other orders are no yardstick for
+    each other), with deterministic cuDNN's and plain K5's distances from
+    float64, as phase 14 prints them;
+17. the TD2-PSP50 full recipe (``td2_full_recipe``: ResNet-50 x 2 paths,
+    projected before pooling, a 2-path ResNet-101 teacher, OHEM, AdaOptimizer)
+    at 769x1537 with ``conv_wgrad="kernel"``, f32 and then bf16: a warm-up step
+    and 4 steps each, every loss finite, launches a step K5 6 + 6, K2 1 + 1, K3
+    1 + 1 in the step's dtype and none in the other; ms/step, peak memory,
+    device ms and the idle share; then one float64 run from the recipe's seeded
+    initial state (dropout off and on, as phase 9's), and the kernel path (K2,
+    K3 and K5) against it beside the plain path (all three swapped for their
+    plain versions), f32 by phase 9's float64 rule and bf16 by phase 15's; the
+    probe (K2's forward off on one 64-row q block of the hop) at each eps of
+    ``PROBE_LADDER_TD2``, each probe's share of the limit printed; the check
+    must flag ``PROBE_GATE_TD2``.
 The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward and backward in f32
 and in bf16, K3 in f32 and in bf16, K4 per dtype (at the TD2 stem shape) and
-K5 forward and dgrad (at 512->512 d4), each with launches, error, times,
-library time and bound (K1's library time is SDPA followed by ``torch.addmm``,
-with SDPA alone beside it; all but K5 add their device time); the last line
+K5 forward and dgrad in f32 and in bf16 (at 512->512 d4; launches of phases
+14 and 17, and 16 and 17), each with launches, error, times, library time and
+bound (K1's library time is SDPA followed by ``torch.addmm``, with SDPA alone
+beside it; all add their device time); the last line
 is ``{"ok": true, "device": {...}}``. TF32 stays off throughout, as the
 runtime and the trainer set it for their own work anyway.
 """
@@ -200,8 +233,12 @@ TRAIN_STEPS = 8
 K5_STEPS = 4
 STEM_SHAPES = [(513, 1025), (385, 769), (21, 35)]   # K4's input (H, W): TD2, PSP-101, ragged
 K5_GRID = (97, 193)                                 # the recipe's c4 grid at 769x1537
-K5_SHAPES = [(256, 512, 4), (512, 512, 4), (512, 512, 8)]   # layer4's (ci, co, dilation)
+# layer4's (ci, co, dilation): TD4-PSP18's (256->512 d4, 512->512 d4 and d8) and TD2-PSP50's
+# bottleneck conv2s (512->512 d4, d8 and d16)
+K5_SHAPES = [(256, 512, 4), (512, 512, 4), (512, 512, 8), (512, 512, 16)]
 K5_HEADLINE = (512, 512, 4)
+K5_BF16_RTOL = 2.0 ** -7   # phase 13b: x max|plain|, one bf16 ulp at the largest output
+TD2_STEPS = 4              # phase 17's timed steps, each dtype
 GRAD_RTOL = 1e-3     # per gradient tensor, x max(max|grad|, floor), in phases 9 and 14
 GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
 # phase 15's floor: one bf16 ulp (2^-8) of the largest max|grad|. A gradient that vanishes in
@@ -225,6 +262,10 @@ BF16_STEPS = 4          # phase 15's timed steps
 # the limits with them; PERF.md, runs B3 and B4 of the bf16 step); the ladder's shares are printed
 PROBE_EPS_BF16 = 3.0
 PROBE_LADDER_BF16 = (1.0, 3.0)
+# phase 17's probes (TD2-PSP50's one hop has PROBE_LQ q rows), f32 and bf16: each ladder's
+# shares are printed and the check must flag the gate
+PROBE_LADDER_TD2 = {"f32": (1e-3, 1e-2, 1e-1, 1.0), "bf16": (0.3, 1.0, 3.0)}
+PROBE_GATE_TD2 = {"f32": 1e-1, "bf16": 3.0}   # the smallest flagged off and on (PERF.md, run H3)
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): bytes/s of HBM3,
 # FLOP/s of f32 on the CUDA cores and of bf16 on the tensor cores; f32 products in
 # 3xTF32 on the tensor cores take three TF32 products each
@@ -1472,6 +1513,75 @@ def phase_dilated_conv(card: str) -> dict:
     return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
 
 
+def phase_dilated_conv_bf16(card: str) -> dict:
+    """Phase 13b: K5 in bf16 against its plain version and cuDNN's bf16 convs;
+    returns the kernels entries' numbers (at ``K5_HEADLINE``) for the forward
+    and the dgrad."""
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil, dgrad_weights, dilated_conv_plain
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    h, w = K5_GRID
+    log(f"[13b] dilated conv kernel in bf16 vs plain and cuDNN bf16 ({card}) at {h}x{w}; "
+        f"tolerance: output and dx {K5_BF16_RTOL:g} x max|plain|; two identical calls bitwise "
+        f"equal")
+    errs = dict(fwd=0.0, dgrad=0.0)
+    head = {}
+    for ci, co, d in K5_SHAPES:
+        x = torch.randn(1, ci, h, w, generator=gen).to(dev, bf)
+        wt = (torch.randn(co, ci, 3, 3, generator=gen) / (9 * ci) ** 0.5).to(dev, bf)
+        dy = torch.randn(1, co, h, w, generator=gen).to(dev, bf)
+        wd = dgrad_weights(wt)
+        x_dg = x.clone().requires_grad_(True)
+        y_dg = conv2d_dil(x_dg, wt, d, d)   # only x needs a gradient: the backward is the dgrad
+        dgrad = lambda: torch.autograd.grad(y_dg, x_dg, dy, retain_graph=True)[0]
+        fns = dict(  # part: (kernel, plain, cuDNN bf16), each one call
+            fwd=(lambda: conv2d_dil(x, wt, d, d), lambda: dilated_conv_plain(x, wt, d, d),
+                 lambda: F.conv2d(x, wt, padding=d, dilation=d)),
+            dgrad=(dgrad, lambda: dilated_conv_plain(dy, wd, d, d),
+                   lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=d, dilation=d)))
+        exact = dict(fwd=dilated_conv_plain(x.double(), wt.double(), d, d),
+                     dgrad=dilated_conv_plain(dy.double(), wd.double(), d, d))
+        flops = 2 * h * w * 9 * ci * co
+        b = bound(flops, 2 * (ci * h * w + co * h * w + 9 * ci * co), PEAK_BF16)
+        for part, (kernel_fn, plain_fn, cudnn_fn) in fns.items():
+            with torch.no_grad():
+                got, plain = kernel_fn(), plain_fn()
+                again = kernel_fn()
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs().max().item()
+            tol = K5_BF16_RTOL * plain.float().abs().max().item()
+            if not (got.dtype == bf and got.shape == plain.shape and err <= tol):
+                raise AssertionError(f"[13b] K5 bf16 {ci}->{co} d{d} {part}: {got.dtype} "
+                                     f"{tuple(got.shape)}, max abs err {err} > {tol}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"[13b] K5 bf16 {ci}->{co} d{d} {part}: two calls differ")
+            errs[part] = max(errs[part], err)
+            # how each rounds against float64: the share of outputs off the plain version's
+            # bits, and the mean of (|y| - |exact|) in units of bf16's spacing at |exact| (a
+            # long truncating chain on the tensor core shows as a bias the plain version lacks)
+            ulp = bf16_ulp(exact[part])
+            bias = {name: ((out.double().abs() - exact[part].abs()) / ulp).mean().item()
+                    for name, out in (("kernel", got), ("plain", plain))}
+            differ = (got != plain).double().mean().item()
+            with torch.no_grad():
+                t = [median_ms(fn) for fn in (kernel_fn, plain_fn, cudnn_fn)]
+                rows = [device_rows(fn) for fn in (kernel_fn, plain_fn, cudnn_fn)]
+            dev_ms = [None if r is None else sum(ms for _, ms in r) for r in rows]
+            shown = lambda v: "not measured" if v is None else f"{v:.3f}"
+            log(f"[13b] {ci}->{co} d{d} {part:5s}: max abs err {err:.3e} (tol {tol:.3e}), "
+                f"{differ:.2%} of outputs off the plain bits, mean (|y| - |f64|) / ulp kernel "
+                f"{bias['kernel']:+.2e} plain {bias['plain']:+.2e}; ms kernel {t[0]:.3f} "
+                f"(device {shown(dev_ms[0])}), plain {t[1]:.3f} (device {shown(dev_ms[1])}), "
+                f"cuDNN bf16 {t[2]:.3f} (device {shown(dev_ms[2])}); bound {b['bound_ms']:.4f} "
+                f"ms by {b['bound_by']}")
+            if (ci, co, d) == K5_HEADLINE:
+                log(f"[13b] {ci}->{co} d{d} {part} kernels: {format_rows(rows[0])}")
+                head[part] = dict(ms=t[0], device_ms=dev_ms[0], plain_ms=t[1], library_ms=t[2],
+                                  **b)
+        del y_dg, x_dg
+    return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
+
+
 def phase_train_k5(card: str, state, start, teacher, frames, labels, loss_fn, refs) -> dict:
     """The recipe with the dilated convs through K5; returns the forward and
     dgrad launches of the measured steps."""
@@ -1586,41 +1696,229 @@ def phase_train_bf16(card: str, state, start, teacher, frames, labels, loss_fn, 
     return dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3])
 
 
-def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, labels, ref,
-                     use_dropout: bool) -> None:
-    """The K5 path's loss and gradients against phase 9's float64 run ``ref``,
-    beside the cuDNN path's, from the state ``start`` (``against_f64``);
-    beside them, the distances from float64 of deterministic cuDNN and of
-    K5's plain version."""
+def run_steps(tag: str, step, state, frames, labels, teacher, n: int, counters):
+    """``n`` synchronized steps, pos_id 0, 1, ..., every loss finite, with the
+    launch ``counters`` ((function, attribute) pairs) set to 0 just before;
+    returns (ms of each step, each counter's launches); logs the peak MiB."""
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, frames, labels, i % state.model.cfg.path_num, teacher)
+        loss = m["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss) or not np.isfinite(m["kd"].item()):
+            raise AssertionError(f"[{tag}] step {i}: loss {loss}, kd {m['kd'].item()}")
+    launches = [getattr(fn, attr) for fn, attr in counters]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[{tag}] {n} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; median "
+        f"{float(np.median(times)):.1f} ms/step (min {min(times):.1f}, max {max(times):.1f}); "
+        f"peak memory {peak:.0f} MiB; launches " + ", ".join(
+            f"{fn.__name__}.{attr} {c}" for (fn, attr), c in zip(counters, launches)))
+    return times, launches
+
+
+def idle_share(tag: str, step, state, frames, labels, teacher, times, steps: int = 2) -> None:
+    """Device ms a step from a ``torch.profiler`` trace of ``steps`` steps (the
+    kernels' self device time), and the idle share against the traced wall
+    time and against the median of the untraced ``times``."""
+    from tdnet_tpu_torch.cli.profile import device_breakdown
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(state, frames, labels, i % state.model.cfg.path_num, teacher)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3 / steps
+    device_ms, families, _ = device_breakdown(prof, steps, train=True)
+    top = "; ".join(f"{k} {v:.2f}" for k, v in list(families.items())[:5])
+    log(f"[{tag}] device {device_ms:.2f} ms/step over {steps} traced steps ({top}); idle "
+        f"{1 - device_ms / traced:.3f} traced ({traced:.1f} ms/step), "
+        f"{1 - device_ms / float(np.median(times)):.3f} unprofiled")
+
+
+def plain_dilated_conv():
+    """K5's wrapper runs its plain version instead of the kernel (in the
+    forward and in the dgrad)."""
     from tdnet_tpu_torch.kernels import dilated_conv
+    plain_k5 = lambda x, w, p, d, counter, flip=False: dilated_conv.dilated_conv_plain(
+        x, dilated_conv.dgrad_weights(w) if flip else w, p, d)
+    return swapped(dilated_conv, "_forward", plain_k5)
+
+
+def phase_train_bf16_k5(card: str, state, start, teacher, frames, labels, loss_fn,
+                        refs) -> dict:
+    """Phase 16: the recipe in bf16 mixed precision with the dilated convs
+    through K5; returns the bf16 K5 forward and dgrad launches of the
+    measured steps."""
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step
+    bf = torch.bfloat16
+    step = make_train_step(loss_fn=loss_fn, conv_wgrad="kernel", compute_dtype=bf)
+    model, cfg = state.model, state.model.cfg
+    t0 = time.perf_counter()
+    m = step(state, frames, labels, 0, teacher)
+    torch.cuda.synchronize()
+    log(f"[16] TD4-PSP18 full recipe, compute_dtype bfloat16, conv_wgrad=kernel ({card}): "
+        f"warm-up step loss {m['loss'].item():.5f} ({time.perf_counter() - t0:.2f} s)")
+    counters = ((conv2d_dil, "bf16_launches"), (conv2d_dil, "bf16_backward_launches"),
+                (conv2d_dil, "launches"), (conv2d_dil, "backward_launches"),
+                (propagation_attention_train, "bf16_launches"),
+                (propagation_attention_train, "bf16_backward_launches"),
+                (dropout, "bf16_launches"), (dropout, "bf16_backward_launches"))
+    times, launches = run_steps("16", step, state, frames, labels, teacher, BF16_STEPS,
+                                counters)
+    k5 = 4 * cfg.path_num * BF16_STEPS   # 4 dilated convs in each path's layer4
+    want = [k5, k5, 0, 0] + [3 * BF16_STEPS] * 4
+    if launches != want:
+        raise AssertionError(f"[16] launches {launches}, expected {want}")
+    idle_share("16", step, state, frames, labels, teacher, times)
+    for use_dropout in (False, True):
+        compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, labels,
+                         refs[use_dropout], use_dropout, compute_dtype=bf, tag="16")
+    return dict(fwd=launches[0], dgrad=launches[1])
+
+
+def phase_td2_train(card: str) -> dict:
+    """Phase 17: the TD2-PSP50 full recipe with the dilated convs through K5,
+    f32 and bf16; returns each dtype's K5 forward and dgrad launches of the
+    measured steps."""
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step, td2_full_recipe
+    t0 = time.perf_counter()
+    state, _, teacher, frames, labels, loss_fn = td2_full_recipe(seed=SEED, conv_wgrad="kernel")
+    model, cfg = state.model, state.model.cfg
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    in_size = cfg.in_size
+    log(f"[17] TD2-PSP50 full recipe {in_size[0]}x{in_size[1]} b1, conv_wgrad=kernel ({card}): "
+        f"{cfg.backbone} x {cfg.path_num} paths, kv_stride {cfg.kv_stride}, pool_before_proj "
+        f"{cfg.pool_before_proj}, aux, OHEM n_min {in_size[0] * in_size[1] // 16}, KD from a "
+        f"{teacher.cfg.path_num}-path {teacher.cfg.backbone}, AdaOptimizer; "
+        f"{sum(p.numel() for p in model.parameters())} student parameters (built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    per_step = dict(k5=3 * cfg.path_num, k2=1, k3=1)   # 3 dilated conv2s a path; one hop
+    launches = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        step = make_train_step(loss_fn=loss_fn, conv_wgrad="kernel", compute_dtype=dtype)
+        t0 = time.perf_counter()
+        m = step(state, frames, labels, 0, teacher)
+        torch.cuda.synchronize()
+        log(f"[17] {name}: warm-up step loss {m['loss'].item():.5f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        pre, other = ("", "bf16_") if dtype is None else ("bf16_", "")
+        counters = [(fn, p + attr) for p in (pre, other) for fn in
+                    (conv2d_dil, propagation_attention_train, dropout)
+                    for attr in ("launches", "backward_launches")]
+        times, got = run_steps(f"17 {name}", step, state, frames, labels, teacher, TD2_STEPS,
+                               counters)
+        want = [TD2_STEPS * per_step[k] for k in ("k5", "k5", "k2", "k2", "k3", "k3")] + [0] * 6
+        if got != want:
+            raise AssertionError(f"[17] {name} launches {got}, expected {want}")
+        idle_share(f"17 {name}", step, state, frames, labels, teacher, times)
+        launches[name] = dict(fwd=got[0], dgrad=got[1])
+
+    t0 = time.perf_counter()
+    refs = f64_references(loss_fn, model, start, teacher, frames, labels)
+    log(f"[17] float64 run from the initial state at {in_size[0]}x{in_size[1]}, dropout off "
+        f"and on: losses {refs[False][0]:.6f} / {refs[True][0]:.6f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        for use_dropout in (False, True):
+            setting = f"{name}, dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
+
+            def run():
+                model.load_state_dict(start)
+                loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout,
+                                       conv_wgrad="kernel", compute_dtype=dtype)
+                return _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
+
+            path = run()
+            with plain_train_kernels(), plain_dilated_conv():
+                plain = run()
+            ref = refs[use_dropout]
+            held = against_f64(path, plain, ref, bf16=dtype is not None)
+            log(f"[17] kernel path (K2, K3, K5) vs float64, beside the plain path ({setting}): "
+                f"loss {path[0]:.6f}, plain {plain[0]:.6f}, float64 {ref[0]:.6f}; "
+                f"{describe(held)}")
+            if held.problem:
+                raise AssertionError(f"[17] kernel path vs float64 ({setting}): {held.problem}")
+            flagged = {}
+            for eps in PROBE_LADDER_TD2[name]:
+                with faulty_forward(eps):
+                    probed = run()
+                v = against_f64(probed, plain, ref, bf16=dtype is not None)
+                flagged[eps] = bool(v.problem)
+                log(f"[17] probe: K2's forward off by {eps:g} on rows {PROBE_ROWS.start}-"
+                    f"{PROBE_ROWS.stop - 1} of {PROBE_LQ} ({setting}): "
+                    f"{'flagged' if v.problem else 'passed'}, worst {v.worst[0]:.3f} of its "
+                    f"limit ({v.worst[1]})")
+            if not flagged[PROBE_GATE_TD2[name]]:
+                raise AssertionError(f"[17] the check passed K2's forward off by "
+                                     f"{PROBE_GATE_TD2[name]:g} ({setting}): it cannot see "
+                                     f"such a fault")
+    del state, teacher, model, refs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, labels, ref,
+                     use_dropout: bool, compute_dtype=None, tag: str = "14") -> None:
+    """The K5 path's loss and gradients against phase 9's float64 run ``ref``,
+    from the state ``start`` (``against_f64``). f32 (phase 14): beside the
+    cuDNN path. bf16 (phase 16): by phase 15's rule, beside the bf16 plain
+    path (K2, K3 and K5 swapped for their plain versions); the cuDNN path is
+    no yardstick there, since two bf16 paths that sum layer4's convs in other
+    orders round different outputs, and on a few gradients that are mostly
+    bf16 noise K5's plain version, which rounds as the TPU kernel does, lies
+    up to 1.85 of the limit beside cuDNN (PERF.md, run H3); both distances
+    beside cuDNN are printed. Beside them, the distances from float64 of
+    deterministic cuDNN and of K5's plain version."""
+    setting = f"dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
 
     def run(conv_wgrad):
         model.load_state_dict(start)
-        loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad)
+        loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad,
+                               compute_dtype=compute_dtype)
         return _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
 
     k5, cudnn = run("kernel"), run("cudnn")
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         _, g_det = run("cudnn")
-    plain_k5 = lambda x, w, p, d, counter, flip=False: dilated_conv.dilated_conv_plain(
-        x, dilated_conv.dgrad_weights(w) if flip else w, p, d)
-    with swapped(dilated_conv, "_forward", plain_k5):
-        _, g_plain = run("kernel")
-    held = against_f64(k5, cudnn, ref)
-    log(f"[14] K5 path vs float64, beside the cuDNN path (dropout "
-        f"{'on' if use_dropout else 'off'}, pos_id {POS_ID}): loss {k5[0]:.6f} / {cudnn[0]:.6f} "
-        f"/ {ref[0]:.6f}; {describe(held)}")
-    if held.problem:
-        raise AssertionError(f"[14] K5 path vs float64: {held.problem}")
+    with plain_dilated_conv():
+        plain = run("kernel")
+    beside_cudnn = against_f64(k5, cudnn, ref, bf16=compute_dtype is not None)
+    if compute_dtype is None:
+        held = beside_cudnn
+        log(f"[{tag}] K5 path vs float64, beside the cuDNN path ({setting}): loss {k5[0]:.6f} / "
+            f"{cudnn[0]:.6f} / {ref[0]:.6f}; {describe(held)}")
+    else:
+        with plain_train_kernels(), plain_dilated_conv():
+            all_plain = run("kernel")
+        held = against_f64(k5, all_plain, ref, bf16=True)
+        log(f"[{tag}] K5 path vs float64, beside the plain path ({setting}): loss {k5[0]:.6f} / "
+            f"{all_plain[0]:.6f} / {ref[0]:.6f}; {describe(held)}")
+        log(f"[{tag}] beside the cuDNN path (loss {cudnn[0]:.6f}), by the same rule: the K5 path "
+            f"worst {beside_cudnn.worst[0]:.3f} of its limit ({beside_cudnn.worst[1]}), K5's "
+            f"plain version {against_f64(plain, cudnn, ref, bf16=True).worst[0]:.3f}")
     farthest = {}
-    for name, grads in (("cuDNN", cudnn[1]), ("deterministic cuDNN", g_det),
-                        ("plain K5", g_plain)):
+    for name, grads in (("K5", k5[1]), ("cuDNN", cudnn[1]), ("deterministic cuDNN", g_det),
+                        ("plain K5", plain[1])):
         farthest[name] = max(
             ((grads[k].double() - g.to(grads[k].device)).abs().max().item()
              / max(g.abs().max().item(), held.floor), k) for k, g in ref[1].items())
-    log("[14] farthest gradient from float64, x max(max|grad|, floor): " + "; ".join(
+    log(f"[{tag}] farthest gradient from float64, x max(max|grad|, floor): " + "; ".join(
         f"{name} {e:.2e} ({k})" for name, (e, k) in farthest.items()))
+    if held.problem:
+        raise AssertionError(f"[{tag}] K5 path vs float64 ({setting}): {held.problem}")
 
 
 def main() -> int:
@@ -1676,8 +1974,12 @@ def main() -> int:
     for name, n in phase_psp101(card).items():
         stem_launches[name] += n
     k5 = phase_dilated_conv(card)
+    k5_bf16 = phase_dilated_conv_bf16(card)
     k5_launches = phase_train_k5(card, *recipe)
     bf16_launches = phase_train_bf16(card, *recipe)
+    k5_bf16_launches = phase_train_bf16_k5(card, *recipe)
+    del recipe
+    td2_launches = phase_td2_train(card)
 
     src = "tdnet_tpu_torch/csrc/"
     entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",
@@ -1713,7 +2015,13 @@ def main() -> int:
     entries += [{"name": f"dilated_conv_{part}", "route": "cuda",
                  "source": src + "dilated_conv.cu",
                  "replaces": "tdnet_tpu/kernels/dilated_conv.py:87",
-                 "launches": k5_launches[part], **k5[part]} for part in ("fwd", "dgrad")]
+                 "launches": k5_launches[part] + td2_launches["f32"][part], **k5[part]}
+                for part in ("fwd", "dgrad")]
+    entries += [{"name": f"dilated_conv_bf16_{part}", "route": "cuda",
+                 "source": src + "dilated_conv.cu",
+                 "replaces": f"tdnet_tpu/kernels/dilated_conv.py:{line}",
+                 "launches": k5_bf16_launches[part] + td2_launches["bf16"][part],
+                 **k5_bf16[part]} for part, line in (("fwd", 87), ("dgrad", 127))]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ how far it spreads.
         --dtype bfloat16 --stem_impl fused --out profiles/
     python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train --conv_wgrad kernel \\
         --out profiles/
-    python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train --dtype bfloat16
+    python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train td2-psp50-train \\
+        --dtype float32 bfloat16 --conv_wgrad cudnn kernel
 
 For each model (``psp101``: the single-frame PSPNet-101 baseline through
 ``stream.runtime.FrameRunner``), on seeded random weights and seeded
@@ -24,15 +25,16 @@ one pipelined pass over the 48 frames as a warm-up:
    traced run (the profiler's own host work makes it an upper bound);
 4. ``nvidia-smi`` SM clock, power draw and temperature just after.
 
-``td4-psp18-train`` is the TD4-PSP18 full training recipe at 769x1537
-(``train.trainer.td4_full_recipe``, dilated convs ``--conv_wgrad``), f32, or
-bf16 mixed precision with ``--dtype bfloat16`` (the streams' default dtype is
-bfloat16, the train step's float32): after 2
-warm-up steps, 8 synchronized
-steps (ms/step of each and the peak memory), then one ``torch.profiler``
-trace of 4 steps split by kernel family as above, per step, and the device
-time of the upsample's backward (its autograd node's kernels, since its
-matrix products fall in the GEMM family).
+``td4-psp18-train`` and ``td2-psp50-train`` are the TD4-PSP18 and TD2-PSP50
+full training recipes at 769x1537 (``train.trainer.td4_full_recipe``,
+``td2_full_recipe``; dilated convs ``--conv_wgrad``: ``kernel`` runs them
+through K5, in f32 or in bf16), f32, or bf16 mixed precision with ``--dtype
+bfloat16`` (the streams' default dtype is bfloat16, the train steps'
+float32): after 2 warm-up steps, 8 synchronized steps (ms/step of each and
+the peak memory), then one ``torch.profiler`` trace of 4 steps split by
+kernel family as above, per step, and the device time of the upsample's
+backward (its autograd node's kernels, since its matrix products fall in the
+GEMM family).
 
 TF32 is off, as in ``chip_smoke.py``. Prints one JSON object per model;
 ``--out`` also gets the profiler's kernel table, one file per model, and with
@@ -160,10 +162,12 @@ def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: boo
             "top_kernels": top, "smi_after_sm_clock_power_temp": after}
 
 
-def profile_train(conv_wgrad: str, dtype, out: str | None, shapes: bool, steps: int = 8,
-                  traced: int = 4) -> dict:
-    from tdnet_tpu_torch.train.trainer import td4_full_recipe
-    state, step, teacher, frames, labels, _ = td4_full_recipe(
+def profile_train(model: str, conv_wgrad: str, dtype, out: str | None, shapes: bool,
+                  steps: int = 8, traced: int = 4) -> dict:
+    from tdnet_tpu_torch.train import trainer
+    recipe = {"td4-psp18-train": trainer.td4_full_recipe,
+              "td2-psp50-train": trainer.td2_full_recipe}[model]
+    state, step, teacher, frames, labels, _ = recipe(
         conv_wgrad=conv_wgrad, compute_dtype=None if dtype == torch.float32 else dtype)
     p_num = state.model.cfg.path_num
     for i in range(2):
@@ -189,9 +193,9 @@ def profile_train(conv_wgrad: str, dtype, out: str | None, shapes: bool, steps: 
     # the upsample's backward by its autograd node (ops/resize.py's matrix products)
     resize_bwd = sum(e.device_time_total for e in prof.events()
                      if "evaluate_function:" in e.name and "_ResizeBilinearBackward" in e.name)
-    write_tables(prof, out, f"profile_td4-psp18-train_{str(dtype)[6:]}_{conv_wgrad}", shapes, 80)
-    return {"model": "td4-psp18-train", "dtype": str(dtype)[6:], "conv_wgrad": conv_wgrad,
-            "in_size": [769, 1537],
+    write_tables(prof, out, f"profile_{model}_{str(dtype)[6:]}_{conv_wgrad}", shapes, 80)
+    return {"model": model, "dtype": str(dtype)[6:], "conv_wgrad": conv_wgrad,
+            "in_size": list(state.model.cfg.in_size),
             "ms_per_step": times, "peak_mib": peak, "traced_wall_ms_per_step": traced_ms,
             "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / traced_ms,
             "families_ms_per_step": families,
@@ -203,13 +207,16 @@ def profile_train(conv_wgrad: str, dtype, out: str | None, shapes: bool, steps: 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", nargs="+", default=["td4-psp18", "td2-psp50"],
-                        choices=["td4-psp18", "td2-psp50", "psp101", "td4-psp18-train"])
-    parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
-                        help="default: bfloat16 for the streams, float32 for the train step")
+                        choices=["td4-psp18", "td2-psp50", "psp101", "td4-psp18-train",
+                                 "td2-psp50-train"])
+    parser.add_argument("--dtype", nargs="+", default=None, choices=["float32", "bfloat16"],
+                        help="each model runs in each; default: bfloat16 for the streams, "
+                             "float32 for the train steps")
     parser.add_argument("--stem_impl", default="plain", choices=["plain", "fused"],
                         help="the streams' stem: 'fused' runs deep-base stems through K4")
-    parser.add_argument("--conv_wgrad", default="cudnn", choices=["cudnn", "kernel"],
-                        help="the train step's dilated convs: 'kernel' runs them through K5")
+    parser.add_argument("--conv_wgrad", nargs="+", default=["cudnn"], choices=["cudnn", "kernel"],
+                        help="the train steps' dilated convs, each train model with each: "
+                             "'kernel' runs them through K5")
     parser.add_argument("--out", default=None, help="directory for the kernel tables")
     parser.add_argument("--shapes", action="store_true",
                         help="record input shapes; --out also gets the table by input shape")
@@ -221,13 +228,15 @@ def main(argv=None):
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     print(smi("name,power.limit"), flush=True)
     for arch in args.model:
-        if arch == "td4-psp18-train":
-            res = profile_train(args.conv_wgrad, dtypes[args.dtype or "float32"], args.out,
-                                args.shapes)
-        else:
-            res = profile_model(arch, dtypes[args.dtype or "bfloat16"], args.stem_impl, args.out,
-                                args.shapes)
-        print(json.dumps(res), flush=True)
+        train = arch.endswith("-train")
+        for dtype in args.dtype or ["float32" if train else "bfloat16"]:
+            if train:
+                for conv_wgrad in args.conv_wgrad:
+                    res = profile_train(arch, conv_wgrad, dtypes[dtype], args.out, args.shapes)
+                    print(json.dumps(res), flush=True)
+            else:
+                res = profile_model(arch, dtypes[dtype], args.stem_impl, args.out, args.shapes)
+                print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

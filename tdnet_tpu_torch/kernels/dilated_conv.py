@@ -1,22 +1,27 @@
-"""Stride-1 dilated 3x3 convolution with its gradient (K5).
+"""Stride-1 dilated 3x3 convolution with its gradient (K5), f32 or bf16.
 
 The residual blocks' 3x3 convs with dilation >= 4 in training, when the
 context asks for them (``Ctx(conv_wgrad="kernel")``; the JAX package's
-``conv_wgrad="pallas"``, ``tdnet_tpu/kernels/dilated_conv.py``). The CUDA
-kernel is ``csrc/dilated_conv.cu``: an implicit GEMM in 3xTF32 on the tensor
-cores over a padded-width row index, after two prep passes that split x and
-the weights into TF32 hi and lo (``conv_plan`` sizes the scratch; the C side
-checks it against its tiles and sizes the grid). ``dilated_conv_plain`` is
-its plain PyTorch version, the same sum of 9 shifted per-tap products as the
-TPU kernel's ``_dil_kernel``.
+``conv_wgrad="pallas"``, ``tdnet_tpu/kernels/dilated_conv.py``), in the f32
+recipe and in the bf16 mixed-precision one. The CUDA kernel is
+``csrc/dilated_conv.cu``: an implicit GEMM on the tensor cores over a
+padded-width row index, after two prep passes that lay out x and the weights
+(f32: 3xTF32, the prep passes split both into TF32 hi and lo; bf16: bf16
+products summed in f32; ``conv_plan`` sizes the scratch; the C side checks
+it against its tiles and sizes the grid). ``dilated_conv_plain`` is its
+plain PyTorch version with the TPU kernel's rounding (``_dil_kernel``): the
+sum of 9 shifted per-tap products taken in f32 and rounded once to the
+input's dtype.
 
 ``conv2d_dil`` is one ``torch.autograd.Function`` on both devices: its
 forward is the kernel (CUDA tensors) or the plain version (CPU tensors); its
 backward computes dx with the same forward on dy, the spatially flipped,
 IO-swapped weights (the kernel's weight pass flips and swaps them) and
 padding d*(k-1) - p (``_pd_bwd``), and dW with ``ops.conv.tap_wgrad``.
-``conv2d_dil.launches`` and ``.backward_launches`` count the kernel's
-forward and dgrad launches, where they launch. f32 only.
+``conv2d_dil.launches`` and ``.backward_launches`` count the f32 kernel's
+forward and dgrad launches, ``.bf16_launches`` and
+``.bf16_backward_launches`` the bf16 kernel's. x and w share one dtype,
+float32 or bfloat16; the output and dx take it.
 """
 
 from __future__ import annotations
@@ -29,29 +34,36 @@ import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
 from tdnet_tpu_torch.ops.conv import tap_wgrad
+from tdnet_tpu_torch.ops.dtype import at_least_f32
 
 SOURCES = ("dilated_conv.cu",)
 K = 3          # the kernel's taps per axis
 BM = 128       # GEMM rows (padded-width output pixels) a block of the kernel owns
 BN = 128       # output channels a block owns
-BK = 32        # input channels a stage: 4 k-steps of mma m16n8k8, one chain
+BK = 32        # f32 input channels a stage: 4 k-steps of mma m16n8k8, one chain
+BK_BF16 = 64   # bf16 input channels a stage: 4 k-steps of mma m16n8k16 (128 bytes, as f32's)
+DTYPES = {torch.float32: BK, torch.bfloat16: BK_BF16}   # the kernel's dtypes -> their BK
 
 
 def dilated_conv_plain(x: torch.Tensor, w: torch.Tensor, padding: int,
                        dilation: int) -> torch.Tensor:
     """x [n, ci, H, W], w [co, ci, 3, 3] -> [n, co, H + 2p - 2d, W + 2p - 2d]:
-    the sum over the 9 taps of the shifted input times that tap's [co, ci]."""
+    the sum over the 9 taps of the shifted input times that tap's [co, ci],
+    taken in f32 (float64 stays float64) and rounded once to x's dtype, as the
+    TPU kernel sums its taps (``preferred_element_type=f32``, then ``astype``).
+    bf16 products are exact in f32."""
     d = dilation
     ho = x.shape[2] + 2 * padding - d * (K - 1)
     wo = x.shape[3] + 2 * padding - d * (K - 1)
-    xp = torch.nn.functional.pad(x, (padding,) * 4)
+    xp = at_least_f32(torch.nn.functional.pad(x, (padding,) * 4))
+    w = at_least_f32(w)
     out = None
     for i in range(K):
         for j in range(K):
             xs = xp[:, :, i * d:i * d + ho, j * d:j * d + wo]
             t = torch.einsum("oc,nchw->nohw", w[:, :, i, j], xs)
             out = t if out is None else out + t
-    return out
+    return out.to(x.dtype)
 
 
 def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
@@ -77,15 +89,18 @@ class ConvPlan:
 
 
 @functools.cache
-def conv_plan(cin: int, cout: int, h: int, w: int, pad: int, dil: int) -> ConvPlan:
-    """The scratch sizes of one kernel call (``tdnet_dilated_conv``)."""
+def conv_plan(cin: int, cout: int, h: int, w: int, pad: int, dil: int,
+              dtype: torch.dtype = torch.float32) -> ConvPlan:
+    """The scratch sizes of one kernel call in ``dtype`` (``tdnet_dilated_conv``,
+    ``tdnet_dilated_conv_bf16``): channels rounded up to its stage's BK."""
     hp, wp = h + 2 * pad, w + 2 * pad
     ho, wo = hp - dil * (K - 1), wp - dil * (K - 1)
     if min(ho, wo) < 1:
         raise ValueError(f"empty output: {h}x{w}, padding {pad}, dilation {dil}")
     # the last row tile of BM GEMM rows reads up to its last row + the last tap's offset
     reach = -(-ho * wp // BM) * BM + (K - 1) * dil * (wp + 1)
-    return ConvPlan(wp=wp, ho=ho, wo=wo, hr=-(-reach // wp), kp=-(-cin // BK) * BK,
+    bk = DTYPES[dtype]
+    return ConvPlan(wp=wp, ho=ho, wo=wo, hr=-(-reach // wp), kp=-(-cin // bk) * bk,
                     np_=-(-cout // BN) * BN)
 
 
@@ -96,6 +111,8 @@ def build() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tdnet_dilated_conv.argtypes = [p] * 7 + [i] * 11 + [p]
     lib.tdnet_dilated_conv.restype = ctypes.c_int
+    lib.tdnet_dilated_conv_bf16.argtypes = [p] * 5 + [i] * 11 + [p]
+    lib.tdnet_dilated_conv_bf16.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,8 +122,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int) -> Non
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (K, K) or w.shape[1] != x.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)}: want [n, ci, H, W] "
                          f"and [co, ci, {K}, {K}]")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"the dilated conv takes float32, got {x.dtype} and {w.dtype}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"the dilated conv takes x and w both float32 or both bfloat16, got "
+                         f"{x.dtype} and {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -120,25 +138,28 @@ def _forward(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, coun
     """The conv of x with w ([cout, cin, 3, 3]) or, with ``flip``, with
     ``dgrad_weights(w)`` (w the forward's [cin, cout, 3, 3]): the kernel on
     CUDA tensors, the plain version on CPU tensors; a launch adds one to
-    ``conv2d_dil.<counter>``."""
+    ``conv2d_dil.<counter>`` (f32) or ``conv2d_dil.bf16_<counter>`` (bf16)."""
     if x.device.type == "cpu":
         return dilated_conv_plain(x, dgrad_weights(w) if flip else w, padding, dilation)
     n, cin, h, wd = x.shape
     cout = w.shape[0] if not flip else w.shape[1]
-    plan = conv_plan(cin, cout, h, wd, padding, dilation)
+    plan = conv_plan(cin, cout, h, wd, padding, dilation, x.dtype)
     x, w = x.contiguous(), w.contiguous()
-    scratch = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)
-    xh, xl = (scratch(n, plan.hr * plan.wp, plan.kp) for _ in range(2))
-    wh, wl = (scratch(K * K, plan.np_, plan.kp) for _ in range(2))
+    scratch = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    parts = 1 if bf16 else 2   # f32: the hi and lo halves of each operand
+    xs = [scratch(n, plan.hr * plan.wp, plan.kp) for _ in range(parts)]
+    ws = [scratch(K * K, plan.np_, plan.kp) for _ in range(parts)]
     y = scratch(n, cout, plan.ho, plan.wo)
     lib = build()
-    err = lib.tdnet_dilated_conv(x.data_ptr(), w.data_ptr(), xh.data_ptr(), xl.data_ptr(),
-                                 wh.data_ptr(), wl.data_ptr(), y.data_ptr(), n, cin, cout, h,
-                                 wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
-                                 torch.cuda.current_stream(x.device).cuda_stream)
+    launch = lib.tdnet_dilated_conv_bf16 if bf16 else lib.tdnet_dilated_conv
+    err = launch(x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in xs + ws), y.data_ptr(),
+                 n, cin, cout, h, wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dilated conv kernel failed: CUDA error {err}: "
                            f"{lib.tdnet_cuda_error_string(err).decode()}")
+    counter = f"bf16_{counter}" if bf16 else counter
     setattr(conv2d_dil, counter, getattr(conv2d_dil, counter) + 1)
     return y
 
@@ -167,10 +188,13 @@ class _DilatedConv(torch.autograd.Function):
 
 
 def conv2d_dil(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int) -> torch.Tensor:
-    """Differentiable stride-1 dilated 3x3 conv, NCHW input, OIHW weights, f32."""
+    """Differentiable stride-1 dilated 3x3 conv, NCHW input, OIHW weights, x and
+    w both float32 or both bfloat16."""
     _check(x, w, padding, dilation)
     return _DilatedConv.apply(x, w, padding, dilation)
 
 
 conv2d_dil.launches = 0
 conv2d_dil.backward_launches = 0
+conv2d_dil.bf16_launches = 0
+conv2d_dil.bf16_backward_launches = 0

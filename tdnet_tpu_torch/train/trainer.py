@@ -26,9 +26,13 @@ differentiable cast, so each master's gradient is the bf16 gradient cast up;
 the frames and the teacher's conv weights are cast too (once a step). Norm
 affines and BatchNorm running statistics stay f32: the statistics update in
 place from f32 moments into the f32 buffers (``_graft_bn_stats``), and the
-losses run in f32. K2 and K3 then run their bf16 kernels. The default, None,
-is the f32 recipe. K5 in bf16 is not ported: ``conv_wgrad="kernel"`` with
-bf16 raises.
+losses run in f32. K2 and K3 then run their bf16 kernels, and with
+``conv_wgrad="kernel"`` so does K5 (the JAX package's bf16 Pallas conv). The
+default, None, is the f32 recipe.
+
+``full_recipe(yaml)`` builds a YAML's full recipe on seeded random weights and
+data at its crop, batch 1; ``td4_full_recipe`` (TD4-PSP18) and
+``td2_full_recipe`` (TD2-PSP50) are its two configs.
 
 Every step, and every call of ``make_loss_of``'s function, runs without TF32
 (``ops.dtype.no_tf32``): cuDNN's convs and the f32 matrix products keep f32's
@@ -51,8 +55,10 @@ from tdnet_tpu_torch.ops.dtype import no_tf32
 from tdnet_tpu_torch.train.loss import cross_entropy, kl_divergence
 from tdnet_tpu_torch.train.optim import ada_optimizer
 
-RECIPE_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "configs", "td4_psp18_cityscapes.yml")
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "configs")
+RECIPE_YAML = os.path.join(CONFIGS, "td4_psp18_cityscapes.yml")
+TD2_RECIPE_YAML = os.path.join(CONFIGS, "td2_psp50_cityscapes.yml")
 
 
 @dataclasses.dataclass
@@ -114,9 +120,6 @@ def make_loss_of(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "c
     ``compute_dtype``: None (f32) or ``torch.bfloat16`` (mixed precision)."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {compute_dtype} not in {COMPUTE_DTYPES}")
-    if compute_dtype is not None and conv_wgrad == "kernel":
-        raise ValueError("conv_wgrad='kernel' takes f32 only: the dilated-conv kernel (K5) in "
-                         "bf16 is not ported yet (ROADMAP, Queue 2: K5 in bf16)")
     if loss_fn is None:
         loss_fn = lambda lg, lb: cross_entropy(lg, lb, 250)
 
@@ -170,34 +173,48 @@ def make_train_step(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str =
     return step
 
 
-def td4_full_recipe(*, seed: int = 0, conv_wgrad: str = "cudnn",
-                    compute_dtype: torch.dtype | None = None):
-    """The TD4-PSP18 full training recipe of ``configs/td4_psp18_cityscapes.yml``
-    (model, teacher, loss and optimizer sections: kv_stride 3, aux head, OHEM,
-    KD from a ResNet-101 teacher, AdaOptimizer) at its 769x1537 crop on one
-    card at batch 1, as ``bench_train.py:49-64`` runs it on the TPU, on seeded
-    random weights, frames and labels (a corner band at the ignore label 250).
+def full_recipe(yaml_path: str, *, seed: int = 0, conv_wgrad: str = "cudnn",
+                compute_dtype: torch.dtype | None = None, device: str = "cuda"):
+    """The full training recipe of a YAML config (model, teacher, loss and
+    optimizer sections: kv_stride 3, aux head, OHEM, KD from its grouped
+    ResNet-101 teacher, AdaOptimizer) at its crop on one card at batch 1, as
+    ``bench_train.py:49-64`` runs it on the TPU, on seeded random weights,
+    frames and labels (a corner band at the ignore label 250).
     ``compute_dtype``: None, the f32 recipe, or ``torch.bfloat16``, mixed
     precision (for a YAML, ``utils.config.compute_dtype_from_yaml``).
 
-    Returns (state, step, teacher, frames [4, 1, H, W, 3], labels [1, H, W],
-    loss_fn), all on the card."""
+    Returns (state, step, teacher, frames [P, 1, H, W, 3], labels [1, H, W],
+    loss_fn), all on ``device``."""
     from tdnet_tpu_torch.models import init_teacher
     from tdnet_tpu_torch.utils.config import (load_config, loss_fn_from_yaml,
                                               model_config_from_yaml, opt_kwargs_from_yaml,
                                               teacher_config_from_yaml)
-    yml = load_config(RECIPE_YAML)
+    yml = load_config(yaml_path)
     yml["training"]["batch_size"] = 1
     cfg = model_config_from_yaml(yml)
-    model = init_tdnet(cfg, torch.Generator().manual_seed(seed)).to("cuda")
+    model = init_tdnet(cfg, torch.Generator().manual_seed(seed)).to(device)
     teacher = init_teacher(teacher_config_from_yaml(yml),
-                           torch.Generator().manual_seed(seed + 1)).to("cuda")
+                           torch.Generator().manual_seed(seed + 1)).to(device)
     loss_fn = loss_fn_from_yaml(yml, n_devices=1)
     state = make_train_state(model, seed=seed, opt_kwargs=opt_kwargs_from_yaml(yml))
     gen = torch.Generator().manual_seed(seed + 2)
-    frames = torch.randn(cfg.path_num, 1, *cfg.in_size, 3, generator=gen).to("cuda")
+    frames = torch.randn(cfg.path_num, 1, *cfg.in_size, 3, generator=gen).to(device)
     labels = torch.randint(0, cfg.nclass, (1, *cfg.in_size), generator=gen)
     labels[:, :64] = 250
     labels[:, :, :32] = 250
     step = make_train_step(loss_fn=loss_fn, conv_wgrad=conv_wgrad, compute_dtype=compute_dtype)
-    return state, step, teacher, frames, labels.to("cuda"), loss_fn
+    return state, step, teacher, frames, labels.to(device), loss_fn
+
+
+def td4_full_recipe(**kw):
+    """The TD4-PSP18 full recipe of ``configs/td4_psp18_cityscapes.yml`` at
+    769x1537 (``full_recipe``'s keywords): 4 ResNet-18 paths, pooled before
+    the projections, a 4-path teacher."""
+    return full_recipe(RECIPE_YAML, **kw)
+
+
+def td2_full_recipe(**kw):
+    """The TD2-PSP50 full recipe of ``configs/td2_psp50_cityscapes.yml`` at
+    769x1537 (``full_recipe``'s keywords): 2 ResNet-50 paths, projected before
+    they pool, a ``pspnet_2p`` teacher."""
+    return full_recipe(TD2_RECIPE_YAML, **kw)

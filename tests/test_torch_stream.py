@@ -124,6 +124,14 @@ def test_synthetic_frames_pan_a_seeded_scene():
      "K5 dilated conv"),
     ("(anonymous namespace)::prep_weights(float const*, float*, float*, int, ...)",
      "K5 dilated conv"),
+    ("void (anonymous namespace)::dil_tc<(anonymous namespace)::F32>(float const*, ...)",
+     "K5 dilated conv"),
+    ("void (anonymous namespace)::dil_tc<(anonymous namespace)::Bf16>(__nv_bfloat16 const*, "
+     "...)", "K5 dilated conv"),
+    ("void (anonymous namespace)::prep_input<__nv_bfloat16>(__nv_bfloat16 const*, ...)",
+     "K5 dilated conv"),
+    ("void (anonymous namespace)::prep_weights<__nv_bfloat16>(__nv_bfloat16 const*, ...)",
+     "K5 dilated conv"),
     ("void at::native::(anonymous namespace)::fused_dropout_kernel_vec<float, float, ...>",
      "other"),
 ])

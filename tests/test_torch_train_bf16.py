@@ -18,7 +18,9 @@ takes them through ``utils/from_jax.py``.
   running statistics are f32, within atol / rtol 5e-2 of the f32 step's, and
   moved; the parameters cast are ``_cast_wb``'s ``w``/``b`` leaves mapped
   through the weight bridge's names.
-- ``conv_wgrad="kernel"`` (K5, f32 only) with bf16 raises.
+- ``compute_dtype`` other than None and bf16 (float16) raises. bf16 with
+  ``conv_wgrad="kernel"`` (K5 in bf16) is held in
+  ``tests/test_torch_train_bf16_k5.py``.
 The KD term's bf16 teacher is held in ``tests/test_torch_train_bf16_parts.py``.
 """
 
@@ -160,8 +162,6 @@ def test_cast_set_is_cast_wbs():
     assert want and set(cast_names(tdnet_from_jax(params, cfg))) == want
 
 
-def test_bf16_refuses_the_dilated_conv_kernel():
-    with pytest.raises(ValueError, match="K5"):
-        make_loss_of(conv_wgrad="kernel", compute_dtype=torch.bfloat16)
+def test_refuses_float16_compute():
     with pytest.raises(ValueError):
         make_train_step(compute_dtype=torch.float16)
