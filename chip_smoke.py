@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero):
 0. toolchain and card: torch, CUDA, nvcc, ``nvidia-smi`` name and power limit;
-1. build every kernel library from ``tdnet_tpu_torch/csrc``, and K1's
-   fault-check build (``FAULT_DEFINES``), one nvcc each, all at once;
+1. build every kernel library from ``tdnet_tpu_torch/csrc``, and the
+   fault-check builds of K1 (``FAULT_DEFINES``) and K5 (``K5_FAULT_DEFINES``),
+   one nvcc each, all at once;
 2. the propagation-attention kernel (K1) against its plain PyTorch version at
    the streaming hop shapes (and a ragged batch of 2), f32 (TF32 off) and
    bf16, with and without the fc; max abs error, two calls bitwise equal, the
@@ -136,14 +137,23 @@ Phases (any failure exits non-zero):
     ``torch.nn.grad.conv2d_input``) and the bound both ways (3xTF32 on the
     tensor cores, the kernels line's, and f32 on the CUDA cores); at 512->512
     d4 the kernels that K5's and cuDNN's forward and dgrad run, with their
-    device times (one trace of both) and the prep passes' share;
+    device times (one trace of both) and the prep passes' share; the sha256
+    of the kernel's output and dx at each shape (two trees compared bit for
+    bit);
 13b. K5 in bf16 against its plain version (bf16 products summed in f32,
     rounded once) at the same shapes: output and dx within 2^-7 x max|plain|
     (one bf16 ulp at the largest output: both round one f32 sum), bf16, two
-    identical calls bitwise equal; the share of outputs off the plain
-    version's bits and each one's mean rounding bias against a float64 conv;
-    kernel, plain and cuDNN bf16 (``F.conv2d``, ``conv2d_input``) times with
-    their device times, and the bound in bf16;
+    identical calls bitwise equal, the dgrad through autograd the direct
+    call's; the rounding gate: the kernel's mean (|y| - |f64|) / ulp against a
+    float64 conv within ``K5_BIAS_GATE`` of the plain version's (a long
+    truncating chain on the tensor cores biases it); the share of outputs off
+    the plain version's bits; each shape's grid and waves, and the kernel's
+    registers and local memory; the sha256 of its output and dx at each shape
+    (``k5_bf16_digests``); kernel (the dgrad by a direct call and through
+    autograd), plain and cuDNN bf16 (``F.conv2d``, ``conv2d_input``) times
+    with their device times, and the bound in bf16; the error word read after
+    every call; then, in a child process, K5 bf16 from the fault-check build
+    must be reported by ``check_fault``;
 14. the phase-9 recipe with ``conv_wgrad="kernel"``: a warm-up step and 4
     steps, every loss finite, 16 forward and 16 dgrad K5 launches a step,
     ms/step and peak memory; then, from phase 9's initial state, dropout off
@@ -215,6 +225,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import subprocess
@@ -238,6 +249,10 @@ K5_GRID = (97, 193)                                 # the recipe's c4 grid at 76
 K5_SHAPES = [(256, 512, 4), (512, 512, 4), (512, 512, 8), (512, 512, 16)]
 K5_HEADLINE = (512, 512, 4)
 K5_BF16_RTOL = 2.0 ** -7   # phase 13b: x max|plain|, one bf16 ulp at the largest output
+# phase 13b's rounding gate: |kernel's mean (|y| - |f64|) / ulp - plain's|. One chain over all
+# of K read +3.95e-3 at the d4 dgrad, chains of 64 channels about the plain version's (PERF.md
+# §6); a mean over ~9.6 M outputs has about 1e-4 of noise
+K5_BIAS_GATE = 1e-3
 TD2_STEPS = 4              # phase 17's timed steps, each dtype
 GRAD_RTOL = 1e-3     # per gradient tensor, x max(max|grad|, floor), in phases 9 and 14
 GRAD_FLOOR = 1e-5    # x the run's largest max|grad|: below it a gradient counts as vanishing
@@ -274,8 +289,10 @@ PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32X3 = 495e12 / 3
 BATCHED = (2, 700, 130)   # (n, Lq, Lkv): the batch axis of the kernel's grid
-# K1's fault-check build: producers that fill nothing, consumers that give up after 4 tries
+# the fault-check builds of K1 and of K5: producers that fill nothing, consumers that give up
+# after 4 tries
 FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K1_STARVE")
+K5_FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K5_STARVE")
 D_K, D_V = 64, 512
 N_FRAMES = 12
 SEED = 0
@@ -330,13 +347,15 @@ def phase_build() -> None:
     from tdnet_tpu_torch.kernels.build import compile_libraries
     mods = (propagation_attention, propagation_attention_train, dropout, fused_stem,
             dilated_conv)
-    debug = propagation_attention.library_name(FAULT_DEFINES)
+    debug = {propagation_attention.library_name(FAULT_DEFINES): FAULT_DEFINES,
+             dilated_conv.library_name(K5_FAULT_DEFINES): K5_FAULT_DEFINES}
     t0 = time.perf_counter()
     compile_libraries({**{m.__name__.rsplit(".", 1)[1]: m.SOURCES for m in mods},
-                       debug: propagation_attention.SOURCES}, {debug: FAULT_DEFINES})
-    log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} and K1's fault-check build "
-        f"({' '.join(FAULT_DEFINES)}) in {time.perf_counter() - t0:.1f} s (one nvcc each, "
-        f"concurrently)")
+                       **{name: m.SOURCES for name, m in zip(debug, (propagation_attention,
+                                                                     dilated_conv))}}, debug)
+    log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} and the fault-check builds "
+        f"of K1 ({' '.join(FAULT_DEFINES)}) and K5 ({' '.join(K5_FAULT_DEFINES)}) in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, concurrently)")
     propagation_attention.build()
 
 
@@ -394,37 +413,48 @@ def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
                 tf32x3=bound(flops, nbytes, PEAK_TF32X3))
 
 
-def fault_child() -> None:
-    """Phase 2's fault check, run in a child process (a fault there cannot end
-    the run): K1's bf16 kernels from the build of ``FAULT_DEFINES`` on a small
-    call, then ``check_fault``; prints one JSON line, whether it raised."""
-    from tdnet_tpu_torch.kernels import propagation_attention as pa
-    from tdnet_tpu_torch.kernels.grid import attention_bf16_plan, sm_count
-    q, k, v = (torch.randn(1, n, d, device="cuda").to(torch.bfloat16)
-               for n, d in ((700, D_K), (130, D_K), (130, D_V)))
-    plan = attention_bf16_plan(1, 700, 130, D_V, sm_count(0))
-    pa.launch_bf16(q, k, v, 8.0, None, None, plan, lib=pa.build(FAULT_DEFINES))
+def fault_child(kernel: str = "K1") -> None:
+    """A fault check, run in a child process (a fault there cannot end the
+    run): K1's bf16 kernels from the build of ``FAULT_DEFINES``, or K5's bf16
+    kernel from the build of ``K5_FAULT_DEFINES``, on a small call, then
+    ``check_fault``; prints one JSON line, whether it raised."""
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    if kernel == "K1":
+        from tdnet_tpu_torch.kernels import propagation_attention as pa
+        from tdnet_tpu_torch.kernels.grid import attention_bf16_plan, sm_count
+        q, k, v = (torch.randn(1, n, d, device="cuda").to(torch.bfloat16)
+                   for n, d in ((700, D_K), (130, D_K), (130, D_V)))
+        plan = attention_bf16_plan(1, 700, 130, D_V, sm_count(0))
+        pa.launch_bf16(q, k, v, 8.0, None, None, plan, lib=pa.build(FAULT_DEFINES))
+    else:
+        from tdnet_tpu_torch.kernels import dilated_conv as dc
+        x = torch.randn(1, 64, 13, 21, device="cuda").to(torch.bfloat16)
+        w = torch.randn(128, 64, 3, 3, device="cuda").to(torch.bfloat16)
+        dc.launch(x, w, 4, 4, lib=dc.build(K5_FAULT_DEFINES))
     torch.cuda.synchronize()
     try:
-        pa.check_fault("cuda")
+        check_fault("cuda")
         print(json.dumps({"reported": False}), flush=True)
     except RuntimeError as e:
         print(json.dumps({"reported": True, "error": str(e)}), flush=True)
 
 
-def phase_fault_report() -> None:
-    """A K1 bf16 consumer that gives up on a barrier is reported: ``fault_child``
-    in a child process must see ``check_fault`` raise."""
+def phase_fault_report(kernel: str = "K1", tag: str = "2") -> None:
+    """A bf16 consumer of ``kernel`` (K1 or K5) that gives up on a barrier is
+    reported: ``fault_child`` in a child process must see ``check_fault`` raise."""
+    defines = FAULT_DEFINES if kernel == "K1" else K5_FAULT_DEFINES
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.fault_child()"],
+    out = subprocess.run([sys.executable, "-c",
+                          f"import chip_smoke; chip_smoke.fault_child({kernel!r})"],
                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                          text=True, timeout=300)
     lines = out.stdout.strip().splitlines()
     got = json.loads(lines[-1]) if out.returncode == 0 and lines else {}
-    log(f"[2] K1's fault-check build ({' '.join(FAULT_DEFINES)}) in a child process: exit "
+    log(f"[{tag}] {kernel}'s fault-check build ({' '.join(defines)}) in a child process: exit "
         f"{out.returncode}, {got or out.stderr.strip()[-400:]} ({time.perf_counter() - t0:.1f} s)")
     if got.get("reported") is not True:
-        raise AssertionError("[2] a K1 consumer that gave up on its barrier was not reported")
+        raise AssertionError(f"[{tag}] a {kernel} consumer that gave up on its barrier was not "
+                             f"reported")
 
 
 def phase_kernel(card: str) -> dict:
@@ -934,6 +964,27 @@ def phase_dropout(card: str) -> dict:
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 numbers at |x| (7 fraction bits), normals only."""
     return 2.0 ** (torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126))) - 7)
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: two runs' outputs
+    compared bit for bit across processes."""
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy()).hexdigest()[:16]
+
+
+def rounding_bias(out: torch.Tensor, exact: torch.Tensor) -> float:
+    """The mean of (|out| - |exact|) in units of bf16's spacing at |exact|: a long
+    chain that truncates on the tensor core shows as a bias that one rounding of
+    an f32 sum lacks."""
+    return ((out.double().abs() - exact.abs()) / bf16_ulp(exact)).mean().item()
+
+
+def rounding_gate(got: torch.Tensor, plain: torch.Tensor,
+                  exact: torch.Tensor) -> tuple[float, float, bool]:
+    """Phase 13b's gate: the kernel's rounding bias against ``exact`` (float64),
+    the plain version's, and whether they lie within ``K5_BIAS_GATE``."""
+    bias, plain_bias = rounding_bias(got, exact), rounding_bias(plain, exact)
+    return bias, plain_bias, abs(bias - plain_bias) <= K5_BIAS_GATE
 
 
 def keep_rate_bf16(k2, lq: int, lkv: int, k) -> float:
@@ -1459,7 +1510,8 @@ def phase_dilated_conv(card: str) -> dict:
             if name.endswith("vs plain"):
                 part = name.split()[0]
                 errs[part] = max(errs[part], err)
-        log(f"[13] {ci}->{co} d{d} max abs err: " + ", ".join(f"{k} {v}" for k, v in found.items()))
+        log(f"[13] {ci}->{co} d{d} max abs err: " + ", ".join(f"{k} {v}" for k, v in found.items())
+            + f"; sha256 of the kernel's output {digest(y)}, of its dx {digest(xg.grad)}")
         del yc, checks
 
         x_dg = x.clone().requires_grad_(True)
@@ -1513,17 +1565,45 @@ def phase_dilated_conv(card: str) -> dict:
     return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
 
 
-def phase_dilated_conv_bf16(card: str) -> dict:
-    """Phase 13b: K5 in bf16 against its plain version and cuDNN's bf16 convs;
-    returns the kernels entries' numbers (at ``K5_HEADLINE``) for the forward
-    and the dgrad."""
-    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil, dgrad_weights, dilated_conv_plain
+def k5_bf16_digests() -> None:
+    """Phase 13b's inputs (its seed and draws) through ``conv2d_dil`` and its
+    autograd dgrad, logged as sha256 digests; the package's public API alone,
+    so that the same function run with another checkout's package compares
+    the two kernels bit for bit."""
+    from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 4)
     h, w = K5_GRID
+    for ci, co, d in K5_SHAPES:
+        x = torch.randn(1, ci, h, w, generator=gen).to(dev, bf).requires_grad_(True)
+        wt = (torch.randn(co, ci, 3, 3, generator=gen) / (9 * ci) ** 0.5).to(dev, bf)
+        dy = torch.randn(1, co, h, w, generator=gen).to(dev, bf)
+        y = conv2d_dil(x, wt, d, d)
+        dx, = torch.autograd.grad(y, x, dy)
+        log(f"[13b] {ci}->{co} d{d} sha256 of the kernel's output {digest(y)}, of its dx "
+            f"{digest(dx)}")
+
+
+def phase_dilated_conv_bf16(card: str) -> dict:
+    """Phase 13b: K5 in bf16 against its plain version and cuDNN's bf16 convs;
+    returns the kernels entries' numbers (at ``K5_HEADLINE``) for the forward
+    and the dgrad (its ms the direct call's, as cuDNN's ``conv2d_input``)."""
+    from tdnet_tpu_torch.kernels.dilated_conv import (BM, BN, bf16_attributes, conv2d_dil,
+                                                      conv_plan, dgrad_weights,
+                                                      dilated_conv_plain, launch)
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.grid import sm_count
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    h, w = K5_GRID
+    sms, attrs = sm_count(0), bf16_attributes()
     log(f"[13b] dilated conv kernel in bf16 vs plain and cuDNN bf16 ({card}) at {h}x{w}; "
         f"tolerance: output and dx {K5_BF16_RTOL:g} x max|plain|; two identical calls bitwise "
-        f"equal")
+        f"equal; rounding gate |kernel's mean (|y| - |f64|) / ulp - plain's| <= "
+        f"{K5_BIAS_GATE:g}; dil_wgmma: {attrs['registers']} registers a thread at launch (its "
+        f"consumers take 240 by setmaxnreg), {attrs['local_bytes']} bytes of local memory a "
+        f"thread")
+    k5_bf16_digests()
     errs = dict(fwd=0.0, dgrad=0.0)
     head = {}
     for ci, co, d in K5_SHAPES:
@@ -1531,13 +1611,19 @@ def phase_dilated_conv_bf16(card: str) -> dict:
         wt = (torch.randn(co, ci, 3, 3, generator=gen) / (9 * ci) ** 0.5).to(dev, bf)
         dy = torch.randn(1, co, h, w, generator=gen).to(dev, bf)
         wd = dgrad_weights(wt)
+        plan = conv_plan(ci, co, h, w, d, d, bf)
+        tiles = -(-plan.ho * plan.wp // BM)
+        log(f"[13b] {ci}->{co} d{d}: grid {plan.np_ // BN} x {tiles} = "
+            f"{plan.np_ // BN * tiles} blocks, one an SM: {plan.np_ // BN * tiles / sms:.2f} "
+            f"waves on {sms} SMs")
         x_dg = x.clone().requires_grad_(True)
         y_dg = conv2d_dil(x_dg, wt, d, d)   # only x needs a gradient: the backward is the dgrad
         dgrad = lambda: torch.autograd.grad(y_dg, x_dg, dy, retain_graph=True)[0]
         fns = dict(  # part: (kernel, plain, cuDNN bf16), each one call
             fwd=(lambda: conv2d_dil(x, wt, d, d), lambda: dilated_conv_plain(x, wt, d, d),
                  lambda: F.conv2d(x, wt, padding=d, dilation=d)),
-            dgrad=(dgrad, lambda: dilated_conv_plain(dy, wd, d, d),
+            dgrad=(lambda: launch(dy, wt, d, d, flip=True),
+                   lambda: dilated_conv_plain(dy, wd, d, d),
                    lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=d, dilation=d)))
         exact = dict(fwd=dilated_conv_plain(x.double(), wt.double(), d, d),
                      dgrad=dilated_conv_plain(dy.double(), wd.double(), d, d))
@@ -1548,6 +1634,7 @@ def phase_dilated_conv_bf16(card: str) -> dict:
                 got, plain = kernel_fn(), plain_fn()
                 again = kernel_fn()
             torch.cuda.synchronize()
+            check_fault("cuda")
             err = (got.float() - plain.float()).abs().max().item()
             tol = K5_BF16_RTOL * plain.float().abs().max().item()
             if not (got.dtype == bf and got.shape == plain.shape and err <= tol):
@@ -1555,30 +1642,41 @@ def phase_dilated_conv_bf16(card: str) -> dict:
                                      f"{tuple(got.shape)}, max abs err {err} > {tol}")
             if not torch.equal(got, again):
                 raise AssertionError(f"[13b] K5 bf16 {ci}->{co} d{d} {part}: two calls differ")
+            if part == "dgrad" and not torch.equal(dgrad(), got):
+                raise AssertionError(f"[13b] K5 bf16 {ci}->{co} d{d}: the autograd dgrad is not "
+                                     f"the direct call's")
             errs[part] = max(errs[part], err)
             # how each rounds against float64: the share of outputs off the plain version's
-            # bits, and the mean of (|y| - |exact|) in units of bf16's spacing at |exact| (a
-            # long truncating chain on the tensor core shows as a bias the plain version lacks)
-            ulp = bf16_ulp(exact[part])
-            bias = {name: ((out.double().abs() - exact[part].abs()) / ulp).mean().item()
-                    for name, out in (("kernel", got), ("plain", plain))}
+            # bits, and the rounding gate (each one's mean rounding bias)
+            bias, plain_bias, ok = rounding_gate(got, plain, exact[part])
             differ = (got != plain).double().mean().item()
+            timed = (kernel_fn, plain_fn, cudnn_fn) + ((dgrad,) if part == "dgrad" else ())
             with torch.no_grad():
-                t = [median_ms(fn) for fn in (kernel_fn, plain_fn, cudnn_fn)]
-                rows = [device_rows(fn) for fn in (kernel_fn, plain_fn, cudnn_fn)]
+                t = [median_ms(fn) for fn in timed]
+                rows = [device_rows(fn) for fn in timed]
+            check_fault("cuda")
             dev_ms = [None if r is None else sum(ms for _, ms in r) for r in rows]
             shown = lambda v: "not measured" if v is None else f"{v:.3f}"
+            via = (f", through autograd {t[3]:.3f} (device {shown(dev_ms[3])})"
+                   if part == "dgrad" else "")
             log(f"[13b] {ci}->{co} d{d} {part:5s}: max abs err {err:.3e} (tol {tol:.3e}), "
                 f"{differ:.2%} of outputs off the plain bits, mean (|y| - |f64|) / ulp kernel "
-                f"{bias['kernel']:+.2e} plain {bias['plain']:+.2e}; ms kernel {t[0]:.3f} "
-                f"(device {shown(dev_ms[0])}), plain {t[1]:.3f} (device {shown(dev_ms[1])}), "
-                f"cuDNN bf16 {t[2]:.3f} (device {shown(dev_ms[2])}); bound {b['bound_ms']:.4f} "
-                f"ms by {b['bound_by']}")
+                f"{bias:+.2e} plain {plain_bias:+.2e} (gate {'passed' if ok else 'FAILED'}); "
+                f"ms kernel {t[0]:.3f} (device {shown(dev_ms[0])}){via}, plain {t[1]:.3f} "
+                f"(device {shown(dev_ms[1])}), cuDNN bf16 {t[2]:.3f} (device "
+                f"{shown(dev_ms[2])}); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+            if not ok:
+                raise AssertionError(f"[13b] K5 bf16 {ci}->{co} d{d} {part}: rounding bias "
+                                     f"{bias:+.3e} against the plain version's "
+                                     f"{plain_bias:+.3e}, more than {K5_BIAS_GATE:g} apart")
             if (ci, co, d) == K5_HEADLINE:
                 log(f"[13b] {ci}->{co} d{d} {part} kernels: {format_rows(rows[0])}")
                 head[part] = dict(ms=t[0], device_ms=dev_ms[0], plain_ms=t[1], library_ms=t[2],
                                   **b)
+                if part == "dgrad":
+                    head[part].update(autograd_ms=t[3], autograd_device_ms=dev_ms[3])
         del y_dg, x_dg
+    phase_fault_report("K5", "13b")
     return {part: dict(max_abs_err=errs[part], **head[part]) for part in ("fwd", "dgrad")}
 
 
@@ -1699,7 +1797,9 @@ def phase_train_bf16(card: str, state, start, teacher, frames, labels, loss_fn, 
 def run_steps(tag: str, step, state, frames, labels, teacher, n: int, counters):
     """``n`` synchronized steps, pos_id 0, 1, ..., every loss finite, with the
     launch ``counters`` ((function, attribute) pairs) set to 0 just before;
-    returns (ms of each step, each counter's launches); logs the peak MiB."""
+    returns (ms of each step, each counter's launches); logs the peak MiB. The
+    error word of K1 and K5 is read after each step."""
+    from tdnet_tpu_torch.kernels.fault import check_fault
     for fn, attr in counters:
         setattr(fn, attr, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -1710,6 +1810,7 @@ def run_steps(tag: str, step, state, frames, labels, teacher, n: int, counters):
         m = step(state, frames, labels, i % state.model.cfg.path_num, teacher)
         loss = m["loss"].item()
         times.append((time.perf_counter() - t0) * 1e3)
+        check_fault("cuda")
         losses.append(loss)
         if not np.isfinite(loss) or not np.isfinite(m["kd"].item()):
             raise AssertionError(f"[{tag}] step {i}: loss {loss}, kd {m['kd'].item()}")
@@ -1727,6 +1828,7 @@ def idle_share(tag: str, step, state, frames, labels, teacher, times, steps: int
     kernels' self device time), and the idle share against the traced wall
     time and against the median of the untraced ``times``."""
     from tdnet_tpu_torch.cli.profile import device_breakdown
+    from tdnet_tpu_torch.kernels.fault import check_fault
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1734,6 +1836,7 @@ def idle_share(tag: str, step, state, frames, labels, teacher, times, steps: int
             step(state, frames, labels, i % state.model.cfg.path_num, teacher)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3 / steps
+    check_fault("cuda")
     device_ms, families, _ = device_breakdown(prof, steps, train=True)
     top = "; ".join(f"{k} {v:.2f}" for k, v in list(families.items())[:5])
     log(f"[{tag}] device {device_ms:.2f} ms/step over {steps} traced steps ({top}); idle "
@@ -1881,6 +1984,7 @@ def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, label
     up to 1.85 of the limit beside cuDNN (PERF.md, run H3); both distances
     beside cuDNN are printed. Beside them, the distances from float64 of
     deterministic cuDNN and of K5's plain version."""
+    from tdnet_tpu_torch.kernels.fault import check_fault
     setting = f"dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
 
     def run(conv_wgrad):
@@ -1890,6 +1994,7 @@ def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, label
         return _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
 
     k5, cudnn = run("kernel"), run("cudnn")
+    check_fault("cuda")
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         _, g_det = run("cudnn")

@@ -61,7 +61,7 @@ REPEATS = 7
 # fragments its name contains
 FAMILIES = (
     ("K4 fused stem", ("stem_tc",)),
-    ("K5 dilated conv", ("dil_tc", "prep_input", "prep_weights")),
+    ("K5 dilated conv", ("dil_tc", "dil_wgmma", "prep_input", "prep_weights")),
     ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "rowt_bf16",
                                         "dkdv_bf16", "dq_bf16")),
     ("K3 dropout", ("dropout_vec4", "dropout_scalar", "dropout_bf16")),
@@ -164,6 +164,7 @@ def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: boo
 
 def profile_train(model: str, conv_wgrad: str, dtype, out: str | None, shapes: bool,
                   steps: int = 8, traced: int = 4) -> dict:
+    from tdnet_tpu_torch.kernels.fault import check_fault
     from tdnet_tpu_torch.train import trainer
     recipe = {"td4-psp18-train": trainer.td4_full_recipe,
               "td2-psp50-train": trainer.td2_full_recipe}[model]
@@ -180,6 +181,7 @@ def profile_train(model: str, conv_wgrad: str, dtype, out: str | None, shapes: b
         t0 = time.perf_counter()
         step(state, frames, labels, i % p_num, teacher)["loss"].item()
         times.append((time.perf_counter() - t0) * 1e3)
+    check_fault("cuda")
     peak = torch.cuda.max_memory_allocated() / 2**20
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=shapes) as prof:
@@ -188,6 +190,7 @@ def profile_train(model: str, conv_wgrad: str, dtype, out: str | None, shapes: b
             step(state, frames, labels, i % p_num, teacher)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / traced
+    check_fault("cuda")
     after = smi("clocks.sm,power.draw,temperature.gpu")
     device_ms, families, top = device_breakdown(prof, traced, train=True)
     # the upsample's backward by its autograd node (ops/resize.py's matrix products)

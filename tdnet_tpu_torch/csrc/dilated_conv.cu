@@ -16,40 +16,40 @@
 // 0.535 ms with every product in 3xTF32 on the tensor cores (495 / 3 TFLOP/s); bf16 0.089 ms
 // at 989 TFLOP/s; memory traffic 0.025 ms (f32) or 0.013 ms (bf16) at 3.35 TB/s.
 //
-// Design: an implicit GEMM on mma.sync in three launches, one template over the precision:
-//   F32:  m16n8k8 in 3xTF32 (tf32x3.cuh); the prep passes split each operand into hi =
-//         rna_tf32(v) and lo = rna_tf32(v - hi), so the main loop splits nothing.
-//   Bf16: m16n8k16, bf16 operands, f32 accumulator: one product where 3xTF32 takes three;
-//         the prep passes only pad and relayout.
-//   1. prep_input: one read of x (NCHW) writes NHWC images zero-padded by p on every side
-//      (Hp x Wp), channels rounded up to a multiple of BK with zeros, and enough zero rows
-//      below that the last tile's reads stay in range.
+// Design: an implicit GEMM in three launches, two prep passes shared by both precisions and
+// a main kernel for each:
+//   1. prep_input (bf16: prep_input_bf16): one read of x (NCHW) writes NHWC images
+//      zero-padded by p on every side (Hp x Wp), channels rounded up to a multiple of BK with
+//      zeros, and enough zero rows below that the last tile's reads stay in range. f32 splits
+//      each value into hi = rna_tf32(v) and lo = rna_tf32(v - hi) (3xTF32, tf32x3.cuh), so no
+//      main loop splits.
 //   2. prep_weights: w (OIHW) -> [9, Np, Kp], K-contiguous, zero-padded; for the dgrad the
 //      same pass flips the taps and swaps O and I.
-//   3. dil_tc: output pixel (h, w) is GEMM row h*Wp + w, for w over the whole padded width,
-//      so tap (i, j) reads A rows shifted by the constant i*d*Wp + j*d: every A tile is a
-//      plain rectangle of the padded input, loaded by 16-byte cp.async with no gather and no
-//      mask. Rows with w >= Wo are computed and dropped in the epilogue (2d / Wp extra work:
-//      4% at d4, 8% at d8 and 14% at d16 on the 193-wide grid). M = Ho*Wp, N = co,
-//      K = 9 * Kp. A block owns 128 rows x 128 channels (8 warps, 64 x 32 each) and walks K in
-//      stages of one tap and BK channels (32 f32 or 64 bf16: a tile row is 128 bytes either
-//      way, so the swizzle and the ldmatrix addresses are the same in bytes), in a ring of
-//      swizzled tiles (F32: 3 stages of A hi, A lo, B hi, B lo, 192 KB; Bf16: 4 stages of A,
-//      B, 128 KB; one block an SM); ldmatrix reads the A and B fragments. Each stage's 4
-//      k-steps (F32: of three products, lo*hi, hi*lo, hi*hi; Bf16: of one) go to a fresh
-//      accumulator that is added in round-to-nearest f32: the tensor core truncates as it
-//      accumulates: one chain over all 9 * Kp / 16 bf16 k-steps put 0.13-0.25% of the bf16
-//      outputs off the plain version's bits, with a mean rounding bias up to 100x the plain
-//      version's; short chains put 0.02% off, with the plain version's bias (PERF.md, runs
-//      H2 and H3). Each output element is summed by one thread in a fixed order, with no
-//      split-K and no atomics, so two runs give the same bits. The epilogue writes y as NCHW
-//      through shared memory, coalesced along pixels.
-// The tiles are K-major rectangles, the layout wgmma and TMA need; this kernel uses neither.
+//   3. Output pixel (h, w) is GEMM row h*Wp + w, for w over the whole padded width, so tap
+//      (i, j) reads A rows shifted by the constant i*d*Wp + j*d: every A tile is a plain
+//      rectangle of the padded input, with no gather and no mask. Rows with w >= Wo are
+//      computed and dropped in the epilogue (2d / Wp extra work: 4% at d4, 8% at d8 and 14%
+//      at d16 on the 193-wide grid). M = Ho*Wp, N = co, K = 9 * Kp; a block owns 128 rows x
+//      128 channels. A tile row is 128 bytes (32 f32 or 64 bf16 channels), stored in the
+//      128-byte swizzle (the 16-byte chunk c of row r at c ^ (r % 8)).
+//      dil_tc<F32>: mma.sync m16n8k8 in 3xTF32, 8 warps (64 x 32 each), stages of one tap
+//      and 32 channels loaded by all threads with 16-byte cp.async into a 3-stage ring of
+//      A hi, A lo, B hi, B lo (192 KB, one block an SM), fragments by ldmatrix.
+//      dil_wgmma (bf16, k5:: below): wgmma m64n128k16 with both operands in shared memory,
+//      fed by TMA; stages of one tap and 64 channels, tap-major as dil_tc's.
+//   The tensor core truncates as it accumulates, so each chain is short: a stage's 4 k-steps
+//   (f32: three products each, lo*hi, hi*lo, hi*hi; bf16: one), started from zero and added
+//   to the tile's sum in round-to-nearest f32, stage after stage. One chain over all
+//   9 * Kp / 16 bf16 k-steps put 0.13-0.25% of the outputs off the plain version's bits, with
+//   a mean rounding bias up to 100x the plain version's; chains of 64 channels put 0.02% off,
+//   with the plain version's bias (PERF.md §6). Each output element is summed by one thread
+//   in a fixed order, with no split-K and no atomics, so two runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -59,30 +59,26 @@ using bf16 = __nv_bfloat16;
 constexpr int BM = 128;        // GEMM rows (padded-width output pixels) per block
 constexpr int BN = 128;        // output channels per block
 constexpr int ROW = 128;       // bytes of a tile row: BK elements
-constexpr int THREADS = 256;   // 8 warps: 2 along M (64 rows) x 4 along N (32 channels)
+constexpr int THREADS = 256;   // dil_tc: 8 warps, 2 along M (64 rows) x 4 along N (32 channels)
 constexpr int TILE = BM * ROW; // bytes of one operand tile (BM == BN)
 constexpr int YS = BM + 4;     // row stride of the epilogue's [BN][YS] f32 tile
 constexpr int PT = 32;         // the prep passes' square tile
+constexpr int BK_BF16 = ROW / 2;   // bf16 channels a stage
 
 static_assert(BM == BN, "A and B tiles share one layout");
 
-// the precisions: element type, operand tiles per matrix (hi and lo, or one), channels of a
+// dil_tc's precision: element type, operand tiles per matrix (hi and lo), channels of a
 // stage, stages in the ring
 struct F32 {
   using T = float;
   static constexpr int OPS = 2, BK = ROW / 4, STAGES = 3;
-};
-struct Bf16 {
-  using T = bf16;
-  static constexpr int OPS = 1, BK = ROW / 2, STAGES = 4;
 };
 
 template <class P>
 constexpr size_t smem_bytes() {
   return (size_t)P::STAGES * 2 * P::OPS * TILE;
 }
-static_assert(BN * YS * 4 <= smem_bytes<F32>() && BN * YS * 4 <= smem_bytes<Bf16>(),
-              "the epilogue's tile fits in the ring");
+static_assert(BN * YS * 4 <= smem_bytes<F32>(), "the epilogue's tile fits in the ring");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -122,6 +118,36 @@ prep_input(const T* __restrict__ x, T* __restrict__ xh, T* __restrict__ xl, int 
     put(s[tx][i], xh, xl, ((size_t)b * rows + (size_t)hp * Wp + w0 + i) * Kp + c0 + tx);
 }
 
+// The same for bf16 (xs [n, R, Kp], Kp a multiple of 64), in tiles of 64 padded columns x 64
+// channels of one padded row, each thread reading 16 values, so that enough reads are in
+// flight: reads coalesced along w, two channels a thread packed into one word of the staging
+// tile [64 columns][33 words] (no bank conflicts either way), writes of a pixel's 64 channels
+// (128 bytes) by one warp.
+__global__ void __launch_bounds__(THREADS)
+prep_input_bf16(const bf16* __restrict__ x, bf16* __restrict__ xs, int C, int H, int W, int Kp,
+                int Wp, int pad) {
+  __shared__ uint32_t s[2 * PT][PT + 1];
+  const int w0 = blockIdx.x * 2 * PT, hp = blockIdx.y, kt = Kp / (2 * PT);
+  const int b = blockIdx.z / kt, c0 = (blockIdx.z % kt) * 2 * PT;
+  const int lane = threadIdx.x % PT, warp = threadIdx.x / PT, h = hp - pad;
+  for (int i = warp; i < PT; i += THREADS / PT)   // channels c0 + 2i, + 1
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int p = lane + PT * k, w = w0 + p - pad, c = c0 + 2 * i;
+      const bool inside = h >= 0 && h < H && w >= 0 && w < W;
+      const size_t at = (((size_t)b * C + c) * H + h) * W + w;
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      __nv_bfloat162 v;
+      v.x = inside && c < C ? x[at] : zero;
+      v.y = inside && c + 1 < C ? x[at + (size_t)H * W] : zero;
+      s[p][i] = *reinterpret_cast<uint32_t*>(&v);
+    }
+  __syncthreads();
+  uint32_t* out = reinterpret_cast<uint32_t*>(xs + ((size_t)b * gridDim.y + hp) * Wp * Kp + c0);
+  for (int p = warp; p < 2 * PT && w0 + p < Wp; p += THREADS / PT)
+    out[(size_t)(w0 + p) * (Kp / 2) + lane] = s[p][lane];
+}
+
 // w [wo, wi, 3, 3] -> wh (, wl) [9, Np, Kp]: B[t, n, k] = w[n, k, t] (forward: N = wo,
 // K = wi) or, with flip, w[k, n, 8 - t] (dgrad: N = wi, K = wo), zero beyond N and K. A
 // block stages the 32 x 288 contiguous values of 32 of w's rows and writes a 32 x 32 (n, k)
@@ -158,24 +184,12 @@ __device__ __forceinline__ void ldsm4(uint32_t f[4], const unsigned char* p) {
                : "r"((uint32_t)__cvta_generic_to_shared(p)));
 }
 
-// c += a b, m16n8k16, bf16 operands, f32 accumulator; fragments as ldmatrix gives them
-// (A: rows g and g + 8 at k 2t.. and 2t + 8..; B: k 2t.. and 2t + 8.. of column g)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void store(float* y, size_t i, float v) { y[i] = v; }
-__device__ __forceinline__ void store(bf16* y, size_t i, float v) {
-  y[i] = __float2bfloat16_rn(v);
-}
 
 // y[b, n, h, w] for GEMM rows m = h * Wp + w in [m0, m0 + BM) and channels n in
 // [n0, n0 + BN): sum over the 9 taps and Kp channels of A[m + tap offset, k] B[tap, n, k],
-// A = the padded input of image b = blockIdx.z (R rows; F32: xh + xl), B = the weights
-// (F32: wh + wl). Stages run tap-major, BK channels each.
+// A = the padded input of image b = blockIdx.z (R rows; xh + xl), B = the weights
+// (wh + wl). Stages run tap-major, BK channels each.
 template <class P>
 __global__ void __launch_bounds__(THREADS, 1)
 dil_tc(const typename P::T* __restrict__ xh, const typename P::T* __restrict__ xl,
@@ -219,7 +233,7 @@ dil_tc(const typename P::T* __restrict__ xh, const typename P::T* __restrict__ x
 
   // fragments: A rows 64 wm + 16 mi (mi < 4) by ldmatrix.x4 (lanes 0-15 rows of k half 0,
   // 16-31 of half 1); B channels 32 wn + 16 np (np < 2), two n8 tiles an ldmatrix.x4
-  // (lanes 8-15 and 24-31 give k half 1). A k-step is two 16-byte chunks: 8 f32 or 16 bf16.
+  // (lanes 8-15 and 24-31 give k half 1). A k-step is two 16-byte chunks: 8 f32.
   const int a_row = 64 * wm + (lane & 7) + (lane & 8), a_half = lane >> 4;
   const int b_row = 32 * wn + (lane & 7) + ((lane >> 4) << 3), b_half = (lane >> 3) & 1;
 
@@ -236,49 +250,28 @@ dil_tc(const typename P::T* __restrict__ xh, const typename P::T* __restrict__ x
     cp_commit();
     const unsigned char* st = smem + (s % STAGES) * 2 * OPS * TILE;
     float t[4][4][4] = {};   // this stage's chain, from zero
-    if constexpr (OPS == 2) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        FragB bf[4];
+    for (int kk = 0; kk < 4; ++kk) {
+      FragB bf[4];
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int o = tile_offset(b_row + 16 * np, 2 * kk + b_half);
-          uint32_t r[4];
-          ldsm4(r, st + 2 * TILE + o);
-          bf[2 * np].hi[0] = r[0], bf[2 * np].hi[1] = r[1];
-          bf[2 * np + 1].hi[0] = r[2], bf[2 * np + 1].hi[1] = r[3];
-          ldsm4(r, st + 3 * TILE + o);
-          bf[2 * np].lo[0] = r[0], bf[2 * np].lo[1] = r[1];
-          bf[2 * np + 1].lo[0] = r[2], bf[2 * np + 1].lo[1] = r[3];
-        }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int o = tile_offset(a_row + 16 * mi, 2 * kk + a_half);
-          FragA af;
-          ldsm4(af.hi, st + o);
-          ldsm4(af.lo, st + TILE + o);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma3(t[mi][ni], af, bf[ni]);
-        }
+      for (int np = 0; np < 2; ++np) {
+        const int o = tile_offset(b_row + 16 * np, 2 * kk + b_half);
+        uint32_t r[4];
+        ldsm4(r, st + 2 * TILE + o);
+        bf[2 * np].hi[0] = r[0], bf[2 * np].hi[1] = r[1];
+        bf[2 * np + 1].hi[0] = r[2], bf[2 * np + 1].hi[1] = r[3];
+        ldsm4(r, st + 3 * TILE + o);
+        bf[2 * np].lo[0] = r[0], bf[2 * np].lo[1] = r[1];
+        bf[2 * np + 1].lo[0] = r[2], bf[2 * np + 1].lo[1] = r[3];
       }
-    } else {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t bf[4][2];
+      for (int mi = 0; mi < 4; ++mi) {
+        const int o = tile_offset(a_row + 16 * mi, 2 * kk + a_half);
+        FragA af;
+        ldsm4(af.hi, st + o);
+        ldsm4(af.lo, st + TILE + o);
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t r[4];
-          ldsm4(r, st + TILE + tile_offset(b_row + 16 * np, 2 * kk + b_half));
-          bf[2 * np][0] = r[0], bf[2 * np][1] = r[1];
-          bf[2 * np + 1][0] = r[2], bf[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          uint32_t af[4];
-          ldsm4(af, st + tile_offset(a_row + 16 * mi, 2 * kk + a_half));
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(t[mi][ni], af, bf[ni]);
-        }
+        for (int ni = 0; ni < 4; ++ni) mma3(t[mi][ni], af, bf[ni]);
       }
     }
 #pragma unroll
@@ -317,41 +310,165 @@ dil_tc(const typename P::T* __restrict__ xh, const typename P::T* __restrict__ x
       if (dst[q] >= 0) store(y, (size_t)(n0 + c) * plane + dst[q], ys[c * YS + lane + 32 * q]);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 (hopper.cuh): dil_wgmma, a producer warpgroup (one thread issues the TMA copies) and
+// two consumer warpgroups (64 GEMM rows each, all 128 channels: a 64-register accumulator a
+// thread) on a ring of STAGES mbarriered stages, as K1's bf16 kernels
+// (propagation_attention.cu). A stage is one tap and 64 channels, tap-major as dil_tc's: the
+// tap's [128 rows][64] box of the padded input (at its row shift) and its [128 n][64 k]
+// weights. Its 4 k16 steps run as one wgmma group into a fresh 64-register chain; the next
+// stage's group is issued into the other chain before this one is added to the sum, so the
+// tensor cores run on while the CUDA cores add. Each output is the sum of the same chains in
+// the same order as the mma.sync kernel this one replaced, and comes out with its bits
+// (PERF.md §6): a stage of one kernel row (a box of BM + 2d rows serving its three taps, A
+// from L2 once a row instead of once a tap) summed in another order, and phase 16 of
+// chip_smoke.py, which holds the bf16 recipe's gradients to a float64 run, failed it. A
+// consumer's wait that gives up sets the error word `fault` and exits (bar_wait_or_flag, as
+// K1's; a trap makes ptxas spill in a warpgroup that takes registers by setmaxnreg; the exit
+// makes it wait for each wgmma as it issues (C7518), which measured no slower here than a wait
+// that goes on, PERF.md §6); the host reads the word where it synchronizes
+// (kernels/fault.py:check_fault). A build with -DTDNET_K5_STARVE (and few
+// TDNET_CONSUMER_POLLS) has producers that fill nothing, for the check that the word is
+// reported (chip_smoke.py phase 13b). The epilogue writes y from the accumulators' registers,
+// NCHW: a warp's store covers 8 consecutive pixels of 4 channels.
+// ---------------------------------------------------------------------------
+
+namespace k5 {
+
+constexpr int CONSUMERS = 2;                  // warpgroups, 64 GEMM rows each
+constexpr int THREADS = 128 * (1 + CONSUMERS);
+constexpr int PRODUCER_REGS = 24;             // registers a producer thread keeps
+constexpr int CONSUMER_REGS = 240;            // and a consumer thread takes
+constexpr int A_BYTES = BM * ROW;             // a stage: the input box, then the weights
+constexpr int STAGE = A_BYTES + BN * ROW;
+constexpr int STAGES = 4;                     // 6 measured slower at d4 (PERF.md §6)
+constexpr int SMEM = 1024 + STAGES * (STAGE + 16) + 8;   // ring_smem(STAGES, STAGE, 0)
+static_assert(SMEM <= 232448, "the ring fits a block's shared memory");
+
+// Block (x, y, z): channels [BN x, + BN) and GEMM rows [BM y, + BM) of image z. Stage s is
+// tap t = s / kc and channels [64 c, + 64), c = s % kc: the padded input's rows
+// [BM y + (t / 3) d Wp + (t % 3) d, + BM) through tm_x ([n][R][Kp], boxes of 64 x BM) and tap
+// t's weights through tm_w ([9][Np][Kp], boxes of 64 x BN).
+__global__ void __launch_bounds__(THREADS, 1)
+dil_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+          bf16* __restrict__ y, unsigned int* __restrict__ fault, int kc, int co, int Ho, int Wo,
+          int Wp, int dil) {
+  extern __shared__ unsigned char smem_k5[];
+  const int steps = 9 * kc;
+  const Ring ring(smem_k5, STAGES, STAGE, 0);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
+  init_ring<CONSUMERS>(ring, STAGES);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
+  if (role == 0) {   // the producer
+    reg_dealloc<PRODUCER_REGS>();
+#ifdef TDNET_K5_STARVE
+    return;   // the fault check's build: no stage ever fills
+#endif
+    if (threadIdx.x != 0) return;
+    for (int s = 0; s < steps; ++s) {
+      wait_free(ring, s, STAGES);
+      const int tap = s / kc, c0 = (s - tap * kc) * BK_BF16;
+      unsigned char* st = ring.base + (s % STAGES) * STAGE;
+      uint64_t* full = ring.full + s % STAGES;
+      bar_expect(full, STAGE);
+      tma_load_3d(st, &tm_x, c0, m0 + (tap / 3) * dil * Wp + (tap % 3) * dil, b, full);
+      tma_load_3d(st + A_BYTES, &tm_w, c0, n0, tap, full);
+    }
+    return;
+  }
+  reg_alloc<CONSUMER_REGS>();
+  const int cg = role - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  int in = 0, out = 0;     // the ring slots of the next stage to issue and of the oldest issued
+  uint32_t in_phase = 0;   // the full barrier's phase of the next stage to issue
+  // Wait for the next stage, then issue its chain into c as one wgmma group: 4 k16 steps, the
+  // first with scale-d 0 (the chain starts from zero).
+  auto issue = [&](float* c) {
+    bar_wait_or_flag(ring.full + in, in_phase, fault);
+    const unsigned char* st = ring.base + in * STAGE;
+    const uint64_t a = sw128_desc(st + 64 * cg * ROW), w = sw128_desc(st + A_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)   // 32 bytes a step: 2 in the descriptor's units
+      wgmma_ss_128<0>(c, a + 2 * kk, w + 2 * kk, kk);
+    wgmma_commit();
+    if (++in == STAGES) in = 0, in_phase ^= 1;
+  };
+  float acc[64], c0[64], c1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // The oldest stage's chain, retired by a wait: free its slot and add the chain to the sum.
+  auto retire = [&](float* c) {
+    fence_regs<64>(c);
+    if (lane == 0) bar_arrive(ring.empty + out);
+    if (++out == STAGES) out = 0;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += c[i];
+  };
+  // Stage s + 1's chain is issued before stage s's is added. The loop issues unconditionally,
+  // two stages a turn, so each chain's registers are the same at every turn: ptxas serializes
+  // every wgmma of the kernel when it cannot follow which group an accumulator belongs to
+  // (C7514; PERF.md §6).
+  issue(c0);
+  int s = 0;
+  for (; s + 2 < steps; s += 2) {   // stage s's chain in c0, in flight
+    issue(c1);
+    wgmma_wait<1>();
+    retire(c0);
+    issue(c0);
+    wgmma_wait<1>();
+    retire(c1);
+  }
+  if (s + 1 < steps) {   // two stages left
+    issue(c1);
+    wgmma_wait<1>();
+    retire(c0);
+    wgmma_wait<0>();
+    retire(c1);
+  } else {
+    wgmma_wait<0>();
+    retire(c0);
+  }
+
+  // acc[4 j + 2 h + e]: GEMM row 16 warp + g + 8 h of the warpgroup's 64, channel 8 j + 2 t + e
+  const int g = lane >> 2, t = lane & 3;
+  const size_t plane = (size_t)Ho * Wo;
+  y += (size_t)b * co * plane;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 64 * cg + 16 * warp + g + 8 * h, r = m / Wp, w = m - r * Wp;
+    if (r >= Ho || w >= Wo) continue;
+    bf16* yp = y + (size_t)r * Wo + w;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n0 + 8 * j + 2 * t + e;
+        if (c < co) yp[(size_t)c * plane] = __float2bfloat16_rn(acc[4 * j + 2 * h + e]);
+      }
+  }
+}
+
+}  // namespace k5
+
 int ceil_to(int a, int m) { return (a + m - 1) / m * m; }
 
-// The three launches of one conv in precision P; xs, ws: the scratch's operands (F32: hi and
-// lo; Bf16: one, the second unused).
-template <class P>
-int dilated_conv(const void* x, const void* w, void* const xs[2], void* const ws[2], void* y,
-                 int n, int cin, int cout, int H, int W, int pad, int dil, int flip, int hr,
-                 int Kp, int Np, void* stream) {
-  using T = typename P::T;
-  const int Hp = H + 2 * pad, Wp = W + 2 * pad, Ho = Hp - 2 * dil, Wo = Wp - 2 * dil;
-  const long long M = (long long)Ho * Wp, tiles = (M + BM - 1) / BM;
-  uintptr_t bits = 0;
-  for (int o = 0; o < P::OPS; ++o) bits |= (uintptr_t)xs[o] | (uintptr_t)ws[o];
-  if (n < 1 || n > 65535 || cin < 1 || cout < 1 || Ho < 1 || Wo < 1 || dil < 1 || hr < Hp ||
-      Kp != ceil_to(cin, P::BK) || Np != ceil_to(cout, BN) || tiles > 65535 ||
-      (long long)hr * Wp < tiles * BM + 2LL * dil * Wp + 2 * dil ||
-      (long long)n * (Kp / PT) > 65535 || (long long)hr * Wp >= (1LL << 31) || bits % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  T *xh = (T*)xs[0], *xl = (T*)xs[1], *wh = (T*)ws[0], *wl = (T*)ws[1];
-  prep_input<T><<<dim3((Wp + PT - 1) / PT, hr, n * (Kp / PT)), THREADS, 0, st>>>(
-      (const T*)x, xh, xl, cin, H, W, Kp, Wp, pad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  prep_weights<T><<<dim3(Kp / PT, Np / PT), THREADS, 0, st>>>(
-      (const T*)w, wh, wl, flip ? cin : cout, flip ? cout : cin, Np, Kp, flip);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  constexpr int smem = (int)smem_bytes<P>();
-  err = cudaFuncSetAttribute(dil_tc<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dil_tc<P><<<dim3(Np / BN, (unsigned)tiles, n), THREADS, smem, st>>>(
-      xh, xl, wh, wl, (T*)y, Kp, Np, cout, Ho, Wo, Wp, hr * Wp, dil);
-  return (int)cudaGetLastError();
-}
+// The geometry of one conv and the checks both precisions make of its plan: 0, or
+// cudaErrorInvalidValue for a plan that does not fit the tiles.
+struct Geometry {
+  int Hp, Wp, Ho, Wo;
+  long long tiles;
+  Geometry(int H, int W, int pad, int dil)
+      : Hp(H + 2 * pad), Wp(W + 2 * pad), Ho(Hp - 2 * dil), Wo(Wp - 2 * dil),
+        tiles(((long long)Ho * Wp + BM - 1) / BM) {}
+  int check(int n, int cin, int cout, int dil, int hr, int Kp, int Np, int bk) const {
+    const bool bad =
+        n < 1 || n > 65535 || cin < 1 || cout < 1 || Ho < 1 || Wo < 1 || dil < 1 || hr < Hp ||
+        Kp != ceil_to(cin, bk) || Np != ceil_to(cout, BN) || tiles > 65535 ||
+        (long long)hr * Wp < tiles * BM + 2LL * dil * Wp + 2 * dil ||
+        (long long)n * (Kp / PT) > 65535 || (long long)hr * Wp >= (1LL << 31);
+    return bad ? (int)cudaErrorInvalidValue : 0;
+  }
+};
 
 }  // namespace
 
@@ -368,21 +485,62 @@ extern "C" {
 int tdnet_dilated_conv(const void* x, const void* w, void* xh, void* xl, void* wh, void* wl,
                        void* y, int n, int cin, int cout, int H, int W, int pad, int dil,
                        int flip, int hr, int Kp, int Np, void* stream) {
-  void* const xs[2] = {xh, xl};
-  void* const ws[2] = {wh, wl};
-  return dilated_conv<F32>(x, w, xs, ws, y, n, cin, cout, H, W, pad, dil, flip, hr, Kp, Np,
-                           stream);
+  const Geometry g(H, W, pad, dil);
+  int err = g.check(n, cin, cout, dil, hr, Kp, Np, F32::BK);
+  if (err == 0 && ((uintptr_t)xh | (uintptr_t)xl | (uintptr_t)wh | (uintptr_t)wl) % 16 != 0)
+    err = (int)cudaErrorInvalidValue;
+  if (err != 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  prep_input<float><<<dim3((g.Wp + PT - 1) / PT, hr, n * (Kp / PT)), THREADS, 0, st>>>(
+      (const float*)x, (float*)xh, (float*)xl, cin, H, W, Kp, g.Wp, pad);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  prep_weights<float><<<dim3(Kp / PT, Np / PT), THREADS, 0, st>>>(
+      (const float*)w, (float*)wh, (float*)wl, flip ? cin : cout, flip ? cout : cin, Np, Kp,
+      flip);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  constexpr int smem = (int)smem_bytes<F32>();
+  if ((err = allow_smem<dil_tc<F32>>(smem)) != 0) return err;
+  dil_tc<F32><<<dim3(Np / BN, (unsigned)g.tiles, n), THREADS, smem, st>>>(
+      (const float*)xh, (const float*)xl, (const float*)wh, (const float*)wl, (float*)y, Kp, Np,
+      cout, g.Ho, g.Wo, g.Wp, hr * g.Wp, dil);
+  return (int)cudaGetLastError();
 }
 
 // The same in bf16: x, w and y bf16; one scratch each, xs [n, hr * Wp, Kp] and ws [9, Np, Kp]
-// bf16, Kp = cin rounded up to 64.
-int tdnet_dilated_conv_bf16(const void* x, const void* w, void* xs, void* ws, void* y, int n,
-                            int cin, int cout, int H, int W, int pad, int dil, int flip, int hr,
-                            int Kp, int Np, void* stream) {
-  void* const xp[2] = {xs, nullptr};
-  void* const wp[2] = {ws, nullptr};
-  return dilated_conv<Bf16>(x, w, xp, wp, y, n, cin, cout, H, W, pad, dil, flip, hr, Kp, Np,
-                            stream);
+// bf16, Kp = cin rounded up to 64; `fault` the error word (one uint32 of device memory, which
+// a consumer warpgroup that gives up on a barrier sets to 1).
+int tdnet_dilated_conv_bf16(const void* x, const void* w, void* xs, void* ws, void* y,
+                            void* fault, int n, int cin, int cout, int H, int W, int pad,
+                            int dil, int flip, int hr, int Kp, int Np, void* stream) {
+  const Geometry g(H, W, pad, dil);
+  int err = g.check(n, cin, cout, dil, hr, Kp, Np, BK_BF16);
+  if (err != 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  prep_input_bf16<<<dim3((g.Wp + 2 * PT - 1) / (2 * PT), hr, n * (Kp / (2 * PT))), THREADS, 0,
+                    st>>>((const bf16*)x, (bf16*)xs, cin, H, W, Kp, g.Wp, pad);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  prep_weights<bf16><<<dim3(Kp / PT, Np / PT), THREADS, 0, st>>>(
+      (const bf16*)w, (bf16*)ws, nullptr, flip ? cin : cout, flip ? cout : cin, Np, Kp, flip);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  CUtensorMap tx, tw;
+  if ((err = bf16_tensor_map(&tx, xs, Kp, (uint64_t)hr * g.Wp, n, BM)) != 0 ||
+      (err = bf16_tensor_map(&tw, ws, Kp, Np, 9, BN)) != 0 ||
+      (err = allow_smem<k5::dil_wgmma>(k5::SMEM)) != 0)
+    return err;
+  k5::dil_wgmma<<<dim3(Np / BN, (unsigned)g.tiles, n), k5::THREADS, k5::SMEM, st>>>(
+      tx, tw, (bf16*)y, (unsigned int*)fault, Kp / BK_BF16, cout, g.Ho, g.Wo, g.Wp, dil);
+  return (int)cudaGetLastError();
+}
+
+// dil_wgmma's registers a thread at launch (the consumers take CONSUMER_REGS by setmaxnreg)
+// and its local memory a thread in bytes (spills)
+int tdnet_dilated_conv_bf16_attributes(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, k5::dil_wgmma);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 const char* tdnet_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) helpers for the kernels that run on wgmma, mbarriers and bulk copies: the
-// fused stem (fused_stem.cu, K4) and the bf16 propagation attention
-// (propagation_attention.cu, K1). The tensor maps of TMA copies are encoded on the host by
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so a library needs
-// no -lcuda.
+// fused stem (fused_stem.cu, K4), the bf16 propagation attention (propagation_attention.cu,
+// K1) and the bf16 dilated conv (dilated_conv.cu, K5); K1 and K5 share the ring of TMA
+// stages (Ring) and the consumers' error word (bar_wait_or_flag). The tensor maps of TMA
+// copies are encoded on the host by cuTensorMapEncodeTiled, looked up at run time through
+// the CUDA runtime, so a library needs no -lcuda.
 
 #pragma once
 
@@ -33,6 +34,39 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (a warpgroup's 64 x 128 f32 fragment) = a b + (scale_d ? d : 0): a 64 x 16 bf16 K-major,
+// b 128 n x 16 k bf16 K-major (TRANS_B 0) or N-major (1), both from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_128(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The compiler must not move reads of a wgmma accumulator above the wait for it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // this thread's shared-memory accesses (generic proxy) before the async proxy's (wgmma
@@ -121,6 +155,59 @@ __device__ __forceinline__ void bar_wait_or_flag(uint64_t* bar, uint32_t parity,
         : "r"(saddr(bar)), "r"(parity)
         : "memory");
   }
+}
+
+// The dynamic shared memory from its first 1024-byte boundary: `head` bytes (K1's attention
+// kernels' q tile), the ring of `stages` stages of `stage` bytes, then the barriers: a full
+// and an empty one a stage, and one for the head.
+struct Ring {
+  unsigned char* head;
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* head_full;
+  __device__ Ring(unsigned char* smem, int stages, int stage, int head_bytes) {
+    head = smem + ((1024 - (saddr(smem) & 1023)) & 1023);
+    base = head + head_bytes;
+    full = reinterpret_cast<uint64_t*>(base + (size_t)stages * stage);
+    empty = full + stages;
+    head_full = empty + stages;
+  }
+};
+
+inline size_t ring_smem(int stages, int stage, int head_bytes) {
+  return 1024 + head_bytes + (size_t)stages * (stage + 16) + 8;
+}
+
+// One thread: the full barriers expect one arrival (the producer's, with the stage's bytes),
+// the empty ones one arrival from each warp of the RW consumer warpgroups.
+template <int RW>
+__device__ __forceinline__ void init_ring(const Ring& ring, int stages) {
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) {
+      bar_init<1>(ring.full + s);
+      bar_init<4 * RW>(ring.empty + s);
+    }
+  if (threadIdx.x == 0) bar_init<1>(ring.head_full);
+  __syncthreads();
+}
+
+// The producer's wait before it refills stage s for chunk ch (the first round finds it free).
+__device__ __forceinline__ void wait_free(const Ring& ring, int ch, int stages) {
+  const int round = ch / stages;
+  if (round > 0) bar_wait(ring.empty + ch % stages, (round - 1) & 1);
+}
+
+// Let KERNEL take `smem` bytes of dynamic shared memory; the attribute is set once for each
+// larger size.
+template <auto KERNEL>
+int allow_smem(size_t smem) {
+  static size_t allowed = 0;
+  if (smem <= allowed) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) allowed = smem;
+  return (int)err;
 }
 
 // The tensor map of a bf16 tensor [d2][d1][d0] (d0 innermost, contiguous) read in boxes of

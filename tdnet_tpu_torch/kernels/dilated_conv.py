@@ -3,15 +3,16 @@
 The residual blocks' 3x3 convs with dilation >= 4 in training, when the
 context asks for them (``Ctx(conv_wgrad="kernel")``; the JAX package's
 ``conv_wgrad="pallas"``, ``tdnet_tpu/kernels/dilated_conv.py``), in the f32
-recipe and in the bf16 mixed-precision one. The CUDA kernel is
+recipe and in the bf16 mixed-precision one. The CUDA kernels are
 ``csrc/dilated_conv.cu``: an implicit GEMM on the tensor cores over a
 padded-width row index, after two prep passes that lay out x and the weights
-(f32: 3xTF32, the prep passes split both into TF32 hi and lo; bf16: bf16
-products summed in f32; ``conv_plan`` sizes the scratch; the C side checks
-it against its tiles and sizes the grid). ``dilated_conv_plain`` is its
-plain PyTorch version with the TPU kernel's rounding (``_dil_kernel``): the
-sum of 9 shifted per-tap products taken in f32 and rounded once to the
-input's dtype.
+(f32: ``mma.sync`` in 3xTF32, the prep passes split both into TF32 hi and lo;
+bf16: ``wgmma`` fed by TMA, bf16 products summed in f32 chains of one tap and
+64 channels, tap-major as the f32 kernel's). ``conv_plan`` sizes the scratch;
+the C side checks it against its tiles and sizes the grid.
+``dilated_conv_plain`` is its plain PyTorch version with the TPU kernel's
+rounding (``_dil_kernel``): the sum of 9 shifted per-tap products taken in
+f32 and rounded once to the input's dtype.
 
 ``conv2d_dil`` is one ``torch.autograd.Function`` on both devices: its
 forward is the kernel (CUDA tensors) or the plain version (CPU tensors); its
@@ -21,7 +22,10 @@ padding d*(k-1) - p (``_pd_bwd``), and dW with ``ops.conv.tap_wgrad``.
 ``conv2d_dil.launches`` and ``.backward_launches`` count the f32 kernel's
 forward and dgrad launches, ``.bf16_launches`` and
 ``.bf16_backward_launches`` the bf16 kernel's. x and w share one dtype,
-float32 or bfloat16; the output and dx take it.
+float32 or bfloat16; the output and dx take it. The bf16 kernel's consumer
+warpgroups report a barrier they gave up on in the error word that K5 shares
+with K1 (``kernels/fault.py``): its callers read it with ``check_fault``
+where they synchronize.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.fault import fault_word
 from tdnet_tpu_torch.ops.conv import tap_wgrad
 from tdnet_tpu_torch.ops.dtype import at_least_f32
 
@@ -41,7 +46,7 @@ K = 3          # the kernel's taps per axis
 BM = 128       # GEMM rows (padded-width output pixels) a block of the kernel owns
 BN = 128       # output channels a block owns
 BK = 32        # f32 input channels a stage: 4 k-steps of mma m16n8k8, one chain
-BK_BF16 = 64   # bf16 input channels a stage: 4 k-steps of mma m16n8k16 (128 bytes, as f32's)
+BK_BF16 = 64   # bf16 input channels a stage: 4 k-steps of wgmma k16, one chain
 DTYPES = {torch.float32: BK, torch.bfloat16: BK_BF16}   # the kernel's dtypes -> their BK
 
 
@@ -104,18 +109,41 @@ def conv_plan(cin: int, cout: int, h: int, w: int, pad: int, dil: int,
                     np_=-(-cout // BN) * BN)
 
 
-@functools.cache
-def build() -> ctypes.CDLL:
-    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
-    lib = load_library("dilated_conv", SOURCES)
+def library_name(defines: tuple[str, ...] = ()) -> str:
+    return "dilated_conv" + "".join(f"-{d}" for d in defines)
+
+
+@functools.lru_cache(maxsize=None)
+def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc.
+    ``defines``: a debug build's ``-D`` flags (``chip_smoke.py``'s fault check)."""
+    lib = load_library(library_name(defines), SOURCES, defines)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tdnet_dilated_conv.argtypes = [p] * 7 + [i] * 11 + [p]
     lib.tdnet_dilated_conv.restype = ctypes.c_int
-    lib.tdnet_dilated_conv_bf16.argtypes = [p] * 5 + [i] * 11 + [p]
+    lib.tdnet_dilated_conv_bf16.argtypes = [p] * 6 + [i] * 11 + [p]
     lib.tdnet_dilated_conv_bf16.restype = ctypes.c_int
-    lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdnet_dilated_conv_bf16_attributes.argtypes = [ctypes.POINTER(i)] * 2
+    lib.tdnet_dilated_conv_bf16_attributes.restype = ctypes.c_int
+    lib.tdnet_cuda_error_string.argtypes = [i]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"dilated conv kernel failed: CUDA error {err}: "
+                           f"{lib.tdnet_cuda_error_string(err).decode()}")
+
+
+def bf16_attributes() -> dict:
+    """The bf16 main kernel's registers a thread at launch (its consumers take
+    more by ``setmaxnreg``) and local memory a thread in bytes (spills)."""
+    lib = build()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    _raise_on(lib, lib.tdnet_dilated_conv_bf16_attributes(ctypes.byref(regs),
+                                                          ctypes.byref(local)))
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int) -> None:
@@ -133,14 +161,11 @@ def _check(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int) -> Non
         raise ValueError(f"empty output: {tuple(x.shape)}, padding {padding}, dilation {dilation}")
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, counter: str,
-             flip: bool = False) -> torch.Tensor:
-    """The conv of x with w ([cout, cin, 3, 3]) or, with ``flip``, with
-    ``dgrad_weights(w)`` (w the forward's [cin, cout, 3, 3]): the kernel on
-    CUDA tensors, the plain version on CPU tensors; a launch adds one to
-    ``conv2d_dil.<counter>`` (f32) or ``conv2d_dil.bf16_<counter>`` (bf16)."""
-    if x.device.type == "cpu":
-        return dilated_conv_plain(x, dgrad_weights(w) if flip else w, padding, dilation)
+def launch(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, flip: bool = False,
+           lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """The kernel's conv of CUDA tensors x and w ([cout, cin, 3, 3]) or, with
+    ``flip``, of x and ``dgrad_weights(w)`` (w the forward's [cin, cout, 3, 3]),
+    from ``lib`` (default ``build()``); counts no launch."""
     n, cin, h, wd = x.shape
     cout = w.shape[0] if not flip else w.shape[1]
     plan = conv_plan(cin, cout, h, wd, padding, dilation, x.dtype)
@@ -151,15 +176,31 @@ def _forward(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, coun
     xs = [scratch(n, plan.hr * plan.wp, plan.kp) for _ in range(parts)]
     ws = [scratch(K * K, plan.np_, plan.kp) for _ in range(parts)]
     y = scratch(n, cout, plan.ho, plan.wo)
-    lib = build()
-    launch = lib.tdnet_dilated_conv_bf16 if bf16 else lib.tdnet_dilated_conv
-    err = launch(x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in xs + ws), y.data_ptr(),
-                 n, cin, cout, h, wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dilated conv kernel failed: CUDA error {err}: "
-                           f"{lib.tdnet_cuda_error_string(err).decode()}")
-    counter = f"bf16_{counter}" if bf16 else counter
+    lib = lib or build()
+    if bf16:
+        err = lib.tdnet_dilated_conv_bf16(
+            x.data_ptr(), w.data_ptr(), xs[0].data_ptr(), ws[0].data_ptr(), y.data_ptr(),
+            fault_word(x.device).data_ptr(), n, cin, cout, h, wd, padding, dilation, int(flip),
+            plan.hr, plan.kp, plan.np_, torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        err = lib.tdnet_dilated_conv(
+            x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in xs + ws), y.data_ptr(), n, cin,
+            cout, h, wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err)
+    return y
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, counter: str,
+             flip: bool = False) -> torch.Tensor:
+    """The conv of x with w ([cout, cin, 3, 3]) or, with ``flip``, with
+    ``dgrad_weights(w)`` (w the forward's [cin, cout, 3, 3]): the kernel on
+    CUDA tensors, the plain version on CPU tensors; a launch adds one to
+    ``conv2d_dil.<counter>`` (f32) or ``conv2d_dil.bf16_<counter>`` (bf16)."""
+    if x.device.type == "cpu":
+        return dilated_conv_plain(x, dgrad_weights(w) if flip else w, padding, dilation)
+    y = launch(x, w, padding, dilation, flip)
+    counter = f"bf16_{counter}" if x.dtype == torch.bfloat16 else counter
     setattr(conv2d_dil, counter, getattr(conv2d_dil, counter) + 1)
     return y
 

@@ -19,9 +19,10 @@ runs on Hopper's ``wgmma``, fed by TMA, in the tiling that
 kernels in a given tiling (``cli/attention_sweep.py`` times the tilings).
 
 A bf16 consumer warpgroup that gives up waiting on a barrier sets an error
-word, one int32 a device that this module owns, and exits: the launch then
-ends with part of its output unwritten. ``check_fault(device)`` reads the word
-(a synchronizing copy) and raises; the runtime calls it only where it
+word, one int32 a device that K1 shares with K5 (``kernels/fault.py``), and
+exits: the launch then ends with part of its output unwritten.
+``check_fault(device)`` (imported here from there) reads the word (a
+synchronizing copy) and raises; the runtime calls it only where it
 synchronizes anyway (``stream/runtime.py``), so the hot path gains no
 synchronization.
 """
@@ -35,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.fault import check_fault, fault_word  # noqa: F401
 from tdnet_tpu_torch.kernels.grid import (FC_FIXED, Q_BLOCK, Bf16Plan, attention_bf16_plan,
                                           column_width, sm_count)
 from tdnet_tpu_torch.ops.attention import scaled_dot_attention
@@ -193,35 +195,6 @@ def _launch_f32(q, k, v, temperature, fc_w, fc_b, plan: ForwardPlan) -> torch.Te
     return out
 
 
-_fault_words: dict[int, torch.Tensor] = {}   # CUDA device index -> its error word
-
-
-def _index(device) -> int:
-    device = torch.device(device)
-    return torch.cuda.current_device() if device.index is None else device.index
-
-
-def _fault_word(device: torch.device) -> torch.Tensor:
-    i = _index(device)
-    if i not in _fault_words:
-        _fault_words[i] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _fault_words[i]
-
-
-def check_fault(device) -> None:
-    """Raise if a bf16 launch on ``device`` since the last check had a consumer
-    warpgroup give up on a barrier (and clear the word). Reads one int32 from
-    the device, so it waits for the device's queued work."""
-    if torch.device(device).type != "cuda":
-        return
-    word = _fault_words.get(_index(device))
-    if word is not None and word.item():
-        word.zero_()
-        raise RuntimeError("K1 (the propagation attention's bf16 kernels): a consumer warpgroup "
-                           "gave up waiting on a barrier, so a launch left part of its output "
-                           "unwritten")
-
-
 def launch_bf16(q, k, v, temperature: float, fc_w, fc_b, plan: Bf16Plan,
                 lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """The bf16 kernels in the tiling ``plan`` on checked CUDA tensors (as
@@ -232,7 +205,7 @@ def launch_bf16(q, k, v, temperature: float, fc_w, fc_b, plan: Bf16Plan,
     n, lq, _ = q.shape
     err = lib.tdnet_propagation_attention_bf16(
         _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out), _ptr(stats),
-        _ptr(_fault_word(v.device)), n, lq, k.shape[1], v.shape[2], 1.0 / temperature, *plan,
+        _ptr(fault_word(v.device)), n, lq, k.shape[1], v.shape[2], 1.0 / temperature, *plan,
         torch.cuda.current_stream(v.device).cuda_stream)
     _raise_on(lib, err)
     return out
