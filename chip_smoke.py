@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero):
 0. toolchain and card: torch, CUDA, nvcc, ``nvidia-smi`` name and power limit;
 1. build every kernel library from ``tdnet_tpu_torch/csrc``, and the
-   fault-check builds of K1 (``FAULT_DEFINES``) and K5 (``K5_FAULT_DEFINES``),
-   one nvcc each, all at once;
+   fault-check builds of K1 (``FAULT_DEFINES``), K5 (``K5_FAULT_DEFINES``) and
+   K2 (``K2_FAULT_DEFINES``), one nvcc each, all at once;
 2. the propagation-attention kernel (K1) against its plain PyTorch version at
    the streaming hop shapes (and a ragged batch of 2), f32 (TF32 off) and
    bf16, with and without the fc; max abs error, two calls bitwise equal, the
@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    fc, ``F.scaled_dot_product_attention`` followed by ``torch.addmm`` (the
    same function), SDPA alone, and the bound (bf16 on the tensor cores; f32
    both ways, on the CUDA cores and in 3xTF32 on the tensor cores); K1's
-   error word read after every call (``check_fault``) and clear; then, in a
+   error word read after every call (``check_fault``) and clear; the sha256
+   of K1's bf16 outputs at these shapes (``k1_bf16_digests``: K2's forward
+   shares K1's kernels, so two trees are compared bit for bit); then, in a
    child process, K1 bf16 from the fault-check build (producers that fill
    nothing, consumers that give up after 4 tries) must be reported by
    ``check_fault``;
@@ -57,7 +59,10 @@ Phases (any failure exits non-zero):
    SDPA's on one line;
 7b. K2 in bf16 against its plain bf16 version (the TPU kernel's rounding
    points, ``kernels/propagation_attention_train.py``) at the same hops and
-   seed, dropout off and on: every output within one bf16 ulp of
+   seed and a ragged batch of 2 (``BATCHED``), dropout off and on (and, by the
+   same rules alone, d_v 128 and 384 at ``K2_DV_CASES``), each
+   kernel's registers and local memory and each shape's grids and waves
+   logged, K2's error word read after every call: every output within one bf16 ulp of
    max|plain output| (both round one f32 sum a row to bf16; the sums' orders
    differ), dq, dk and dv within ``BF16_GRAD_RTOL`` x max|grad| of each
    tensor (ds rounds to bf16 from f32 sums taken in other orders), every
@@ -65,7 +70,13 @@ Phases (any failure exits non-zero):
    (q = 0 and v one-hot on 512 keys at a time, so an output is nonzero exactly
    where its key is kept); kernel, plain and ``F.scaled_dot_product_attention``
    (bf16, scale 1/8, no dropout) times, forward and backward, with the
-   kernels' device times; the bounds in bf16 on the tensor cores;
+   kernels' device times; the bounds in bf16 on the tensor cores; then, in a
+   child process, K2 bf16 from its fault-check build must be reported;
+7c. K2 in bf16 on the inputs of one bf16 TD4-PSP18 step (its three calls, each
+   with the dy its backward received, ``step_attention_inputs``) beside randn
+   inputs at the same shapes: the score spread, phase 7b's rules, two runs
+   bitwise equal, then forward and backward timed in turns (step, randn,
+   step, randn) with each kernel's device ms and the SM clock and power;
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
    backward (from a seeded dy) bit-identical, the same mask; keep rate within
    0.9 +- 1e-3;
@@ -172,7 +183,8 @@ Phases (any failure exits non-zero):
 15. the phase-9 recipe in bf16 mixed precision (``compute_dtype=
     torch.bfloat16``): a warm-up step and 4 steps, every loss finite, 3
     launches a step of each of K2's bf16 forward and backward and K3's bf16
-    forward and backward and no f32 launch, ms/step and peak memory; then,
+    forward and backward and no f32 launch, ms/step and peak memory, the error
+    word read after every step and comparison (phases 16 and 17 too); then,
     from phase 9's initial state, dropout off and on, the kernel path against
     phase 9's float64 run beside the bf16 plain path (K2 and K3 swapped for
     their bf16 plain versions): the kernel path's loss no farther from
@@ -289,10 +301,13 @@ PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32X3 = 495e12 / 3
 BATCHED = (2, 700, 130)   # (n, Lq, Lkv): the batch axis of the kernel's grid
+# phase 7b's narrower values (n, Lq, Lkv, d_v): the other widths K2's kernels take
+K2_DV_CASES = [(1, 257, 97, 128), (2, 130, 260, 384)]
 # the fault-check builds of K1 and of K5: producers that fill nothing, consumers that give up
 # after 4 tries
 FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K1_STARVE")
 K5_FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K5_STARVE")
+K2_FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K2_STARVE")
 D_K, D_V = 64, 512
 N_FRAMES = 12
 SEED = 0
@@ -347,15 +362,16 @@ def phase_build() -> None:
     from tdnet_tpu_torch.kernels.build import compile_libraries
     mods = (propagation_attention, propagation_attention_train, dropout, fused_stem,
             dilated_conv)
-    debug = {propagation_attention.library_name(FAULT_DEFINES): FAULT_DEFINES,
-             dilated_conv.library_name(K5_FAULT_DEFINES): K5_FAULT_DEFINES}
+    debug_mods = (propagation_attention, dilated_conv, propagation_attention_train)
+    debug = {m.library_name(d): d for m, d in zip(debug_mods, (FAULT_DEFINES, K5_FAULT_DEFINES,
+                                                                K2_FAULT_DEFINES))}
     t0 = time.perf_counter()
     compile_libraries({**{m.__name__.rsplit(".", 1)[1]: m.SOURCES for m in mods},
-                       **{name: m.SOURCES for name, m in zip(debug, (propagation_attention,
-                                                                     dilated_conv))}}, debug)
+                       **{name: m.SOURCES for name, m in zip(debug, debug_mods)}}, debug)
     log(f"[1] built {', '.join(s for m in mods for s in m.SOURCES)} and the fault-check builds "
-        f"of K1 ({' '.join(FAULT_DEFINES)}) and K5 ({' '.join(K5_FAULT_DEFINES)}) in "
-        f"{time.perf_counter() - t0:.1f} s (one nvcc each, concurrently)")
+        f"of K1 ({' '.join(FAULT_DEFINES)}), K5 ({' '.join(K5_FAULT_DEFINES)}) and K2 "
+        f"({' '.join(K2_FAULT_DEFINES)}) in {time.perf_counter() - t0:.1f} s (one nvcc each, "
+        f"concurrently)")
     propagation_attention.build()
 
 
@@ -415,8 +431,9 @@ def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
 
 def fault_child(kernel: str = "K1") -> None:
     """A fault check, run in a child process (a fault there cannot end the
-    run): K1's bf16 kernels from the build of ``FAULT_DEFINES``, or K5's bf16
-    kernel from the build of ``K5_FAULT_DEFINES``, on a small call, then
+    run): K1's bf16 kernels from the build of ``FAULT_DEFINES``, K5's bf16
+    kernel from the build of ``K5_FAULT_DEFINES``, or K2's bf16 forward and
+    backward from the build of ``K2_FAULT_DEFINES``, on a small call, then
     ``check_fault``; prints one JSON line, whether it raised."""
     from tdnet_tpu_torch.kernels.fault import check_fault
     if kernel == "K1":
@@ -426,6 +443,14 @@ def fault_child(kernel: str = "K1") -> None:
                    for n, d in ((700, D_K), (130, D_K), (130, D_V)))
         plan = attention_bf16_plan(1, 700, 130, D_V, sm_count(0))
         pa.launch_bf16(q, k, v, 8.0, None, None, plan, lib=pa.build(FAULT_DEFINES))
+    elif kernel == "K2":
+        from tdnet_tpu_torch.kernels import propagation_attention_train as pat
+        n, lq, lkv = BATCHED
+        q, k, v, dy = (torch.randn(n, m, d, device="cuda").to(torch.bfloat16)
+                       for m, d in ((lq, D_K), (lkv, D_K), (lkv, D_V), (lq, D_V)))
+        lib = pat.build(K2_FAULT_DEFINES)
+        _, stats, bits = pat.launch_bf16_forward(q, k, v, 8.0, 0.1, SEED, lib=lib)
+        pat.launch_bf16_backward(q, k, v, dy, stats, bits, 8.0, 0.1, SEED, lib=lib)
     else:
         from tdnet_tpu_torch.kernels import dilated_conv as dc
         x = torch.randn(1, 64, 13, 21, device="cuda").to(torch.bfloat16)
@@ -440,9 +465,9 @@ def fault_child(kernel: str = "K1") -> None:
 
 
 def phase_fault_report(kernel: str = "K1", tag: str = "2") -> None:
-    """A bf16 consumer of ``kernel`` (K1 or K5) that gives up on a barrier is
+    """A bf16 consumer of ``kernel`` (K1, K2 or K5) that gives up on a barrier is
     reported: ``fault_child`` in a child process must see ``check_fault`` raise."""
-    defines = FAULT_DEFINES if kernel == "K1" else K5_FAULT_DEFINES
+    defines = {"K1": FAULT_DEFINES, "K2": K2_FAULT_DEFINES, "K5": K5_FAULT_DEFINES}[kernel]
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c",
                           f"import chip_smoke; chip_smoke.fault_child({kernel!r})"],
@@ -528,8 +553,28 @@ def phase_kernel(card: str) -> dict:
                             if dtype == torch.float32 else " in bf16"))
             del t, ref_in
     log("[2] K1's error word clear after every call above")
+    k1_bf16_digests()
     phase_fault_report()
     return headline
+
+
+def k1_bf16_digests() -> None:
+    """K1's bf16 outputs at phase 2's shapes (and the ragged batch), without and
+    with the fc, on seeded inputs, logged as sha256 digests; the package's
+    public API alone, so that the same function run with another checkout's
+    package compares the two trees' K1 bit for bit."""
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    gen = torch.Generator().manual_seed(SEED + 9)
+    for n, lq, lkv in [(1, *shape) for shape in SHAPES] + [BATCHED]:
+        q, k = (torch.randn(n, m, D_K, generator=gen).to("cuda", torch.bfloat16)
+                for m in (lq, lkv))
+        v = torch.randn(n, lkv, D_V, generator=gen).to("cuda", torch.bfloat16)
+        w = (torch.randn(D_V, D_V, generator=gen) * 0.05).to("cuda", torch.bfloat16)
+        b = (torch.randn(D_V, generator=gen) * 0.1).to("cuda", torch.bfloat16)
+        plain = fused_propagation_attention(q, k, v, temperature=8.0)
+        fc = fused_propagation_attention(q, k, v, temperature=8.0, fc_w=w, fc_b=b)
+        log(f"[2] K1 bf16 n={n} {lq} x {lkv} sha256 without the fc {digest(plain)}, with it "
+            f"{digest(fc)}")
 
 
 def stream_frames(in_size, dtype):
@@ -988,40 +1033,71 @@ def rounding_gate(got: torch.Tensor, plain: torch.Tensor,
 
 
 def keep_rate_bf16(k2, lq: int, lkv: int, k) -> float:
-    """K2 bf16's keep rate at (lq, lkv) from its forward: with q = 0 (uniform p)
-    and v one-hot on a block of 512 keys (key 512 c + j -> column j), output
-    (i, j) is nonzero exactly where key 512 c + j is kept for row i."""
-    kept = 0
-    q = torch.zeros(1, lq, D_K, device="cuda", dtype=torch.bfloat16)
+    """K2 bf16's keep rate at (lq, lkv) from its forward on keys k [n, lkv, 64]:
+    with q = 0 (uniform p) and v one-hot on a block of 512 keys (key 512 c + j
+    -> column j), output (b, i, j) is nonzero exactly where key 512 c + j is
+    kept for row i of batch b."""
+    kept, n = 0, k.shape[0]
+    q = torch.zeros(n, lq, D_K, device="cuda", dtype=torch.bfloat16)
     for c0 in range(0, lkv, D_V):
-        v = torch.zeros(1, lkv, D_V, device="cuda", dtype=torch.bfloat16)
+        v = torch.zeros(n, lkv, D_V, device="cuda", dtype=torch.bfloat16)
         width = min(D_V, lkv - c0)
-        v[0, c0 + torch.arange(width), torch.arange(width)] = 1.0
+        v[:, c0 + torch.arange(width), torch.arange(width)] = 1.0
         o = k2(q, k, v, temperature=8.0, dropout_rate=0.1, seed=SEED + 17)
         kept += (o[..., :width] != 0).sum().item()
-    return kept / (lq * lkv)
+    return kept / (n * lq * lkv)
+
+
+def k2_bf16_layout(n: int, lq: int, lkv: int) -> str:
+    """K2 bf16's grids at (n, lq, lkv): each kernel's blocks and waves (blocks over
+    the card's block slots: two an SM for the stats, p v and dq kernels, one for
+    the t and dk/dv passes)."""
+    from tdnet_tpu_torch.kernels.grid import (sm_count, train_backward_grids,
+                                              train_backward_plan, train_forward_grids,
+                                              train_forward_plan, train_waves)
+    sms = sm_count(0)
+    fwd = train_forward_plan(n, lq, lkv, D_V, sms)
+    bwd = train_backward_plan(n, lq, lkv, D_V, sms)
+    grids = {**train_forward_grids(fwd, n, lq, lkv, D_V),
+             **train_backward_grids(bwd, n, lq, lkv)}
+    per_sm = dict(stats=2, pv=2, t=1, dkdv=1, dq=2)
+    return "; ".join(f"{name} {g[0]}x{g[1]}x{g[2]} = {g[0] * g[1] * g[2]} blocks, "
+                     f"{train_waves(g[0] * g[1] * g[2], per_sm[name], sms):.2f} waves"
+                     for name, g in grids.items())
 
 
 def phase_train_attention_bf16(card: str) -> dict:
     """Phase 7b: K2 in bf16 against its plain bf16 version; returns the kernels
     entries' numbers."""
+    from tdnet_tpu_torch.kernels.fault import check_fault
     from tdnet_tpu_torch.kernels.propagation_attention_train import (
-        propagation_attention_train as k2, propagation_attention_train_plain as p2)
+        bf16_attributes, propagation_attention_train as k2,
+        propagation_attention_train_plain as p2)
     bf = torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 3)
     log(f"[7b] training attention kernel vs plain in bf16 ({card}); rule: every output within "
         f"one bf16 ulp of max|plain output|, dq/dk/dv within {BF16_GRAD_RTOL:g} x max|grad| of "
         f"each tensor; keep rate 0.9 +- 1e-3; the forward and the backward bitwise equal "
-        f"across two runs")
+        f"across two runs; K2's error word read after every call")
+    for drop in (False, True):
+        attrs = bf16_attributes(drop)
+        log(f"[7b] kernels at d_v {D_V}, dropout {'on' if drop else 'off'}: " + "; ".join(
+            f"{name} {a['registers']} registers a thread at launch, {a['local_bytes']} bytes of "
+            f"local memory" for name, a in attrs.items()) + " (consumers take 232 or 240 "
+            "registers by setmaxnreg)")
     res = dict(fwd_err=0.0, bwd_err=0.0)
-    for lq, lkv in TRAIN_SHAPES:
-        q, k = (torch.randn(1, n, D_K, generator=gen).to("cuda", bf) for n in (lq, lkv))
-        v = torch.randn(1, lkv, D_V, generator=gen).to("cuda", bf)
-        dy = torch.randn(1, lq, D_V, generator=gen).to("cuda", bf)
+    for n, lq, lkv in [(1, *shape) for shape in TRAIN_SHAPES] + [BATCHED]:
+        q, k = (torch.randn(n, m, D_K, generator=gen).to("cuda", bf) for m in (lq, lkv))
+        v = torch.randn(n, lkv, D_V, generator=gen).to("cuda", bf)
+        dy = torch.randn(n, lq, D_V, generator=gen).to("cuda", bf)
+        log(f"[7b] n={n} {lq} x {lkv} grids: {k2_bf16_layout(n, lq, lkv)}")
         for rate in (0.0, 0.1):
             kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
-            got, want = _fwd_bwd(k2, q, k, v, dy, **kw), _fwd_bwd(p2, q, k, v, dy, **kw)
+            got = _fwd_bwd(k2, q, k, v, dy, **kw)
+            check_fault("cuda")
+            want = _fwd_bwd(p2, q, k, v, dy, **kw)
             again = _fwd_bwd(k2, q, k, v, dy, **kw)
+            check_fault("cuda")
             same = [torch.equal(got[0], again[0]),
                     all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))]
             f_err = (got[0].float() - want[0].float()).abs().max().item()
@@ -1029,37 +1105,67 @@ def phase_train_attention_bf16(card: str) -> dict:
             shares = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
                       for a, b in zip(got[1:], want[1:])]
             dtypes = {t.dtype for t in got}
-            log(f"[7b] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} (one "
-                f"ulp {f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
+            log(f"[7b] n={n} {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
+                f"(one ulp {f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
                 f"{', '.join(f'{x:.2e}' for x in shares)}; second forward / backward "
                 f"{' / '.join('bitwise equal' if x else 'DIFFERENT' for x in same)}; dtypes "
                 f"{sorted(str(d) for d in dtypes)}")
             if not (f_err <= f_tol and max(shares) <= BF16_GRAD_RTOL and dtypes == {bf}):
                 raise AssertionError(f"[7b] K2 bf16 disagrees with its plain version at "
-                                     f"{lq}x{lkv} dropout {rate}")
+                                     f"n={n} {lq}x{lkv} dropout {rate}")
             if not all(same):
-                raise AssertionError(f"[7b] K2 bf16 is not deterministic at {lq}x{lkv}: {same}")
+                raise AssertionError(f"[7b] K2 bf16 is not deterministic at n={n} {lq}x{lkv}: "
+                                     f"{same}")
             res["fwd_err"] = max(res["fwd_err"], f_err)
             res["bwd_err"] = max(res["bwd_err"], max(
                 (a.float() - b.float()).abs().max().item() for a, b in zip(got[1:], want[1:])))
             del got, want, again
         rate = keep_rate_bf16(k2, lq, lkv, k)
-        log(f"[7b] {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {lq * lkv} elements")
+        check_fault("cuda")
+        log(f"[7b] n={n} {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {n * lq * lkv} "
+            f"elements")
         if abs(rate - 0.9) > 1e-3:
             raise AssertionError(f"[7b] K2 bf16 keep rate {rate} outside 0.9 +- 1e-3")
-        times = _train_attention_times(q, k, v, dy, k2, p2, tag="7b")
-        io = 2 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, bf16
-        fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_BF16)
-        bwd_b = bound(2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_BF16)
-        log(f"[7b] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
-            f"{times['kernel'][1]:.3f}, plain {times['plain'][0]:.3f} / "
-            f"{times['plain'][1]:.3f}, F.scaled_dot_product_attention (bf16, no dropout) "
-            f"{times['sdpa'][0]:.3f} / {times['sdpa'][1]:.3f}; bounds in bf16 "
-            f"({PEAK_BF16 / 1e12:.0f} TFLOP/s): forward {2 * lq * lkv * (D_K + D_V) / 1e9:.2f} "
-            f"GFLOP {fwd_b['bound_ms']:.4f} ms, backward "
-            f"{2 * lq * lkv * (2 * D_V + 3 * D_K) / 1e9:.2f} GFLOP {bwd_b['bound_ms']:.4f} ms")
+        if n == 1:
+            times = _train_attention_times(q, k, v, dy, k2, p2, tag="7b")
+            check_fault("cuda")
+            io = 2 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, bf16
+            fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_BF16)
+            bwd_b = bound(2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_BF16)
+            log(f"[7b] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
+                f"{times['kernel'][1]:.3f} (device {times['device'][0]} / "
+                f"{times['device'][1]}), "
+                f"plain {times['plain'][0]:.3f} / {times['plain'][1]:.3f}, "
+                f"F.scaled_dot_product_attention (bf16, no dropout) {times['sdpa'][0]:.3f} / "
+                f"{times['sdpa'][1]:.3f}; bounds in bf16 ({PEAK_BF16 / 1e12:.0f} TFLOP/s): "
+                f"forward {2 * lq * lkv * (D_K + D_V) / 1e9:.2f} GFLOP "
+                f"{fwd_b['bound_ms']:.4f} ms, "
+                f"backward {2 * lq * lkv * (2 * D_V + 3 * D_K) / 1e9:.2f} GFLOP "
+                f"{bwd_b['bound_ms']:.4f} ms")
+            last = dict(times=times, fwd_b=fwd_b, bwd_b=bwd_b)
         del q, k, v, dy
-    # the kernels entries report the last hop, the largest
+    for n, lq, lkv, dv in K2_DV_CASES:   # the rules only
+        q, k = (torch.randn(n, m, D_K, generator=gen).to("cuda", bf) for m in (lq, lkv))
+        v, dy = (torch.randn(n, m, dv, generator=gen).to("cuda", bf) for m in (lkv, lq))
+        for rate in (0.0, 0.1):
+            kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
+            got = _fwd_bwd(k2, q, k, v, dy, **kw)
+            check_fault("cuda")
+            want = _fwd_bwd(p2, q, k, v, dy, **kw)
+            f_err = (got[0].float() - want[0].float()).abs().max().item()
+            f_tol = bf16_ulp(want[0].float().abs().max()).item()
+            shares = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                      for a, b in zip(got[1:], want[1:])]
+            log(f"[7b] n={n} {lq} x {lkv}, d_v {dv}, dropout {rate}: output max abs err "
+                f"{f_err:.3e} (one ulp {f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
+                f"{', '.join(f'{x:.2e}' for x in shares)}")
+            if not (f_err <= f_tol and max(shares) <= BF16_GRAD_RTOL):
+                raise AssertionError(f"[7b] K2 bf16 disagrees with its plain version at "
+                                     f"n={n} {lq}x{lkv} d_v {dv} dropout {rate}")
+    log("[7b] K2's error word clear after every call above")
+    phase_fault_report("K2", "7b")
+    # the kernels entries report the last training hop, the largest
+    times, fwd_b, bwd_b = last["times"], last["fwd_b"], last["bwd_b"]
     return {
         "fwd": dict(max_abs_err=res["fwd_err"], ms=times["kernel"][0],
                     device_ms=times["device"][0], plain_ms=times["plain"][0],
@@ -1067,6 +1173,106 @@ def phase_train_attention_bf16(card: str) -> dict:
         "bwd": dict(max_abs_err=res["bwd_err"], ms=times["kernel"][1],
                     device_ms=times["device"][1], plain_ms=times["plain"][1],
                     library_ms=times["sdpa"][1], **bwd_b)}
+
+
+def recording_train_attention(calls: list):
+    """The training hops go through K2's wrapper as before, and ``calls`` gets,
+    for each call, copies of its q, k, v and keywords, and of the dy its
+    backward receives (a hook on the output)."""
+    from tdnet_tpu_torch.kernels import propagation_attention_train as pat
+    from tdnet_tpu_torch.nn import encoding
+
+    def record(q, k, v, **kw):
+        rec = dict(q=q.detach().clone(), k=k.detach().clone(), v=v.detach().clone(), **kw)
+        calls.append(rec)
+        out = pat.propagation_attention_train(q, k, v, **kw)
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("dy", g.detach().clone()))
+        return out
+    return swapped(encoding, "propagation_attention_train", record)
+
+
+def step_attention_inputs() -> list[dict]:
+    """The inputs of K2's three calls in one bf16 step of the TD4-PSP18 full
+    recipe (seeded, from its initial state, pos_id 0): q, k, v, temperature,
+    dropout rate and seed of each call, and the dy its backward received."""
+    from tdnet_tpu_torch.train.trainer import td4_full_recipe
+    state, step, teacher, frames, labels, _ = td4_full_recipe(seed=SEED,
+                                                              compute_dtype=torch.bfloat16)
+    calls: list[dict] = []
+    with recording_train_attention(calls):
+        step(state, frames, labels, 0, teacher)
+    torch.cuda.synchronize()
+    del state, step, teacher, frames, labels
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_step_inputs_bf16(card: str) -> None:
+    """Phase 7c: K2 in bf16 on the inputs of one bf16 TD4-PSP18 step (each of its
+    three calls, with the dy its backward received, ``step_attention_inputs``)
+    beside ``randn`` inputs at the same shape (and the call's rate and seed): how
+    peaked each softmax is (``score_spread``), both held to phase 7b's rules and
+    repeating bitwise, then timed in turns (step, randn, step, randn): forward and
+    backward, the median of 10 CUDA-event calls, each kernel's device ms, and the
+    SM clock and power after each; K2's error word read after every call."""
+    from tdnet_tpu_torch.cli.profile import smi
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention_train import (
+        propagation_attention_train as k2, propagation_attention_train_plain as p2)
+    t0 = time.perf_counter()
+    calls = step_attention_inputs()
+    log(f"[7c] K2 bf16 on one bf16 TD4-PSP18 step's inputs ({card}): {len(calls)} calls "
+        f"recorded ({time.perf_counter() - t0:.1f} s); rules as phase 7b's")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for i, call in enumerate(calls):
+        if "dy" not in call:
+            raise AssertionError(f"[7c] call {i}: its backward received no dy")
+        n, lq, _ = call["q"].shape
+        lkv = call["k"].shape[1]
+        kw = dict(temperature=call["temperature"], dropout_rate=call["dropout_rate"],
+                  seed=call["seed"])
+        randn = {name: torch.randn(*call[name].shape, generator=gen).to("cuda", torch.bfloat16)
+                 for name in ("q", "k", "v", "dy")}
+        cases = {"step": call, "randn": randn}
+        for name, c in cases.items():
+            got, want = _fwd_bwd(k2, c["q"], c["k"], c["v"], c["dy"], **kw), \
+                _fwd_bwd(p2, c["q"], c["k"], c["v"], c["dy"], **kw)
+            again = _fwd_bwd(k2, c["q"], c["k"], c["v"], c["dy"], **kw)
+            check_fault("cuda")
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            f_err = (got[0].float() - want[0].float()).abs().max().item()
+            f_tol = bf16_ulp(want[0].float().abs().max()).item()
+            shares = [(a.float() - b.float()).abs().max().item()
+                      / max(b.float().abs().max().item(), 1e-30)
+                      for a, b in zip(got[1:], want[1:])]
+            log(f"[7c] call {i} {name} inputs {n}x{lq}x{lkv}, temperature "
+                f"{kw['temperature']:g}, "
+                f"dropout {kw['dropout_rate']:g}: output max abs err {f_err:.3e} (one ulp "
+                f"{f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
+                f"{', '.join(f'{x:.2e}' for x in shares)}; two runs "
+                f"{'bitwise equal' if same else 'DIFFERENT'}; "
+                f"{score_spread(c['q'], c['k'], kw['temperature'])}")
+            if not (f_err <= f_tol and max(shares) <= BF16_GRAD_RTOL and same
+                    and all(t.dtype == torch.bfloat16 for t in got)):
+                raise AssertionError(f"[7c] K2 bf16 on call {i}'s {name} inputs: output err "
+                                     f"{f_err} > {f_tol}, grads {shares}, or two runs differ")
+            del got, want, again
+        for name in ("step", "randn", "step", "randn"):
+            c = cases[name]
+            leaves = [c[x].detach().requires_grad_(True) for x in ("q", "k", "v")]
+            fwd = lambda: k2(*leaves, **kw)
+            out = fwd()
+            bwd = lambda: torch.autograd.grad(out, leaves, c["dy"], retain_graph=True)
+            ms = (median_ms(fwd), median_ms(bwd))
+            rows = (device_rows(fwd), device_rows(bwd))
+            check_fault("cuda")
+            log(f"[7c] call {i} {lq} x {lkv} on the {name} inputs ({card}): forward {ms[0]:.3f} "
+                f"ms, backward {ms[1]:.3f} ms; forward device ms: {format_rows(rows[0])}; "
+                f"backward device ms: {format_rows(rows[1])}; after it "
+                f"{smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
+            del out, leaves
+    log("[7c] K2's error word clear after every call above")
 
 
 def phase_dropout_bf16(card: str) -> dict:
@@ -1722,6 +1928,7 @@ def phase_train_bf16(card: str, state, start, teacher, frames, labels, loss_fn, 
     """Phase 15: the recipe in bf16 mixed precision; returns the bf16 K2 and K3
     launches of the measured steps."""
     from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
     from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
     from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step
     bf = torch.bfloat16
@@ -1736,25 +1943,7 @@ def phase_train_bf16(card: str, state, start, teacher, frames, labels, loss_fn, 
                 (propagation_attention_train, "bf16_backward_launches"),
                 (dropout, "bf16_launches"), (dropout, "bf16_backward_launches"),
                 (propagation_attention_train, "launches"), (dropout, "launches"))
-    for fn, attr in counters:
-        setattr(fn, attr, 0)
-    torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
-    for i in range(BF16_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = step(state, frames, labels, i % cfg.path_num, teacher)
-        loss = m["loss"].item()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        if not np.isfinite(loss) or not np.isfinite(m["kd"].item()):
-            raise AssertionError(f"[15] step {i}: loss {loss}, kd {m['kd'].item()}")
-    launches = [getattr(fn, attr) for fn, attr in counters]
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"[15] {BF16_STEPS} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; median "
-        f"{float(np.median(times)):.1f} ms/step (min {min(times):.1f}, max {max(times):.1f}); "
-        f"peak memory {peak:.0f} MiB; bf16 launches K2 fwd/bwd {launches[0]}/{launches[1]}, "
-        f"K3 fwd/bwd {launches[2]}/{launches[3]}; f32 K2/K3 launches {launches[4]}/{launches[5]}")
+    _, launches = run_steps("15", step, state, frames, labels, teacher, BF16_STEPS, counters)
     if launches != [3 * BF16_STEPS] * 4 + [0, 0]:
         raise AssertionError(f"[15] launches {launches}, expected {3 * BF16_STEPS} of each bf16 "
                              f"kernel and no f32 launch")
@@ -1791,6 +1980,8 @@ def phase_train_bf16(card: str, state, start, teacher, frames, labels, loss_fn, 
         if not flagged[PROBE_EPS_BF16]:
             raise AssertionError(f"[15] the check passed K2's bf16 forward off by "
                                  f"{PROBE_EPS_BF16:g} ({setting}): it cannot see such a fault")
+        check_fault("cuda")
+    log("[15] the error word clear after every step and comparison above")
     return dict(fwd=launches[0], bwd=launches[1], drop=launches[2] + launches[3])
 
 
@@ -1894,6 +2085,7 @@ def phase_td2_train(card: str) -> dict:
     measured steps."""
     from tdnet_tpu_torch.kernels.dilated_conv import conv2d_dil
     from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
     from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
     from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step, td2_full_recipe
     t0 = time.perf_counter()
@@ -1967,6 +2159,8 @@ def phase_td2_train(card: str) -> dict:
                 raise AssertionError(f"[17] the check passed K2's forward off by "
                                      f"{PROBE_GATE_TD2[name]:g} ({setting}): it cannot see "
                                      f"such a fault")
+            check_fault("cuda")
+    log("[17] the error word clear after every step and comparison above")
     del state, teacher, model, refs
     torch.cuda.empty_cache()
     return launches
@@ -2059,6 +2253,7 @@ def main() -> int:
     phase_train_build()
     k2 = phase_train_attention(card)
     k2_bf16 = phase_train_attention_bf16(card)
+    phase_step_inputs_bf16(card)
     k3 = phase_dropout(card)
     k3_bf16 = phase_dropout_bf16(card)
     recipe, train_launches = phase_train(card)

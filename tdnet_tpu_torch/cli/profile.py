@@ -62,13 +62,15 @@ REPEATS = 7
 FAMILIES = (
     ("K4 fused stem", ("stem_tc",)),
     ("K5 dilated conv", ("dil_tc", "dil_wgmma", "prep_input", "prep_weights")),
-    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "rowt_bf16",
-                                        "dkdv_bf16", "dq_bf16")),
+    ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "rowt_wgmma",
+                                        "row_terms", "dkdv_wgmma", "dq_wgmma",
+                                        "sum_scaled<1>")),
     ("K3 dropout", ("dropout_vec4", "dropout_scalar", "dropout_bf16")),
-    # in a train step this family is K2's forward: stats_f32, shared with K1, and pv_fma; in
-    # bf16 stats_bf16 and pv_bf16
+    # in a train step this family is K2's forward: f32 stats_f32, shared with K1, and pv_fma;
+    # bf16 the keep bits, K1's attn_bf16 (stats, and p v with the mask) and, where its keys
+    # split, the sum of the partial outputs
     ("K1 propagation attention", ("stats_f32", "pv_tc", "fc_tc", "pv_fma",
-                                  "attn_bf16", "fc_bf16", "stats_bf16", "pv_bf16")),
+                                  "attn_bf16", "fc_bf16", "sum_scaled<0>", "keep_bits")),
     ("convolutions (cuDNN)", ("conv", "xmma", "cutlass", "cudnn", "gemm",
                               "nchwToNhwc", "nhwcToNchw")),
     ("adaptive pool", ("adaptive_average_pool",)),

@@ -31,3 +31,9 @@ __host__ __device__ __forceinline__ bool tdnet_keep(uint32_t seed, uint64_t idx,
                                                     uint32_t threshold) {
   return tdnet_dropout_hash(seed, idx) < threshold;
 }
+
+// A launch's dropout: the seed, the keep threshold (0: no dropout) and 1 / (1 - rate) in f32.
+struct Drop {
+  uint32_t seed, threshold;
+  float inv_keep;
+};

@@ -1,15 +1,20 @@
 // Hopper (sm_90a) helpers for the kernels that run on wgmma, mbarriers and bulk copies: the
 // fused stem (fused_stem.cu, K4), the bf16 propagation attention (propagation_attention.cu,
-// K1) and the bf16 dilated conv (dilated_conv.cu, K5); K1 and K5 share the ring of TMA
-// stages (Ring) and the consumers' error word (bar_wait_or_flag). The tensor maps of TMA
-// copies are encoded on the host by cuTensorMapEncodeTiled, looked up at run time through
-// the CUDA runtime, so a library needs no -lcuda.
+// K1, and attention_bf16.cuh, shared with K2's forward), the bf16 training attention
+// (propagation_attention_train.cu, K2) and the bf16 dilated conv (dilated_conv.cu, K5); K1, K2
+// and K5 share the ring of TMA stages (Ring) and the consumers' error word
+// (bar_wait_or_flag). The tensor maps of TMA copies are encoded on the host by
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so a library needs
+// no -lcuda; the last 64 maps encoded are kept and reused for the same tensor and box.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include <mutex>
 
 namespace {
 
@@ -210,25 +215,82 @@ int allow_smem(size_t smem) {
   return (int)err;
 }
 
+// cuTensorMapEncodeTiled, looked up once through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The encoder, looked up once; the calling thread is first bound to its device's primary
+// context (a driver call from a thread the runtime has not used yet, such as autograd's
+// backward thread, finds no current context and fails with CUDA_ERROR_INVALID_CONTEXT).
+inline int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled encode = nullptr;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!encode) {
+    void* found_fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &found_fn, cudaEnableDefault,
+                                  &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !found_fn) return (int)cudaErrorSymbolNotFound;
+    encode = (EncodeTiled)found_fn;
+  }
+  *fn = encode;
+  return 0;
+}
+
+// The last maps encoded, by (base, dims, box rows, kind): a call whose tensors sit where the
+// last call's did (the caching allocator hands the same blocks back) copies its maps instead
+// of encoding them. A lock keeps calls from two host threads (a forward, autograd's backward
+// thread) apart.
+struct MapCache {
+  std::mutex lock;
+  struct Entry {
+    const void* base;
+    uint64_t d0, d1, d2;
+    uint32_t rows, kind;
+    CUtensorMap map;
+  };
+  static constexpr int SIZE = 64;
+  Entry entries[SIZE] = {};
+  int next = 0;
+  const CUtensorMap* find(const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                          uint32_t rows, uint32_t kind) const {
+    for (const Entry& e : entries)
+      if (e.base == base && e.d0 == d0 && e.d1 == d1 && e.d2 == d2 && e.rows == rows &&
+          e.kind == kind)
+        return &e.map;
+    return nullptr;
+  }
+  void put(const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows,
+           uint32_t kind, const CUtensorMap& map) {
+    entries[next] = Entry{base, d0, d1, d2, rows, kind, map};
+    next = (next + 1) % SIZE;
+  }
+};
+
+inline MapCache& map_cache() {
+  static MapCache cache;
+  return cache;
+}
+
 // The tensor map of a bf16 tensor [d2][d1][d0] (d0 innermost, contiguous) read in boxes of
 // 64 x rows x 1 elements with the 128-byte swizzle (a box row is one 128-byte swizzle row);
 // elements outside the tensor read as zero. Returns a CUDA error code, 0 on success.
 inline int bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
                            uint64_t d2, uint32_t rows) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorSymbolNotFound;
-    encode = (Encode)fn;
+  std::lock_guard<std::mutex> guard(map_cache().lock);
+  if (const CUtensorMap* hit = map_cache().find(base, d0, d1, d2, rows, 0)) {
+    *map = *hit;
+    return 0;
   }
+  EncodeTiled encode;
+  const int err = encode_tiled(&encode);
+  if (err != 0) return err;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};   // bytes, of dims 1 and 2
   const cuuint32_t box[3] = {64, rows, 1};
@@ -237,7 +299,45 @@ inline int bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) {
+    fprintf(stderr, "cuTensorMapEncodeTiled (bf16 [%llu][%llu][%llu] at %p, boxes of %u rows): "
+            "CUresult %d\n", (unsigned long long)d2, (unsigned long long)d1,
+            (unsigned long long)d0, base, rows, (int)r);
+    return (int)cudaErrorInvalidValue;
+  }
+  map_cache().put(base, d0, d1, d2, rows, 0, *map);
+  return 0;
+}
+
+// The tensor map of a 32-bit tensor [d2][d1][d0] (f32 or bit words) read in boxes of
+// box0 x rows x 1 (box0 a multiple of 4, no swizzle); elements outside the tensor read as zero.
+inline int f32_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                          uint64_t d2, uint32_t box0, uint32_t rows) {
+  const uint32_t kind = 1 + box0;
+  std::lock_guard<std::mutex> guard(map_cache().lock);
+  if (const CUtensorMap* hit = map_cache().find(base, d0, d1, d2, rows, kind)) {
+    *map = *hit;
+    return 0;
+  }
+  EncodeTiled encode;
+  const int err = encode_tiled(&encode);
+  if (err != 0) return err;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
+  const cuuint32_t box[3] = {box0, rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    fprintf(stderr, "cuTensorMapEncodeTiled (32-bit [%llu][%llu][%llu] at %p, boxes of %u x %u): "
+            "CUresult %d\n", (unsigned long long)d2, (unsigned long long)d1,
+            (unsigned long long)d0, base, box0, rows, (int)r);
+    return (int)cudaErrorInvalidValue;
+  }
+  map_cache().put(base, d0, d1, d2, rows, kind, *map);
+  return 0;
 }
 
 }  // namespace

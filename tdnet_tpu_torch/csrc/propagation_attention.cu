@@ -46,13 +46,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bf16.cuh"
 #include "attention_f32.cuh"
 #include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // f32: stats_f32, pv_tc and, where the keys are split into ranges, sum_parts (both
@@ -307,29 +306,29 @@ int run_f32(const float* q, const float* k, const float* v, const float* w, cons
 }
 
 // ---------------------------------------------------------------------------
-// bf16 (hopper.cuh): three kernels on wgmma (f32 accumulate), each fed by TMA copies through
-// a ring of `stages` shared-memory stages on mbarriers (full: the copies landed; empty: the
-// consumers are done with the stage), which one producer thread fills. A block is a producer
-// warpgroup (0) and RW consumer warpgroups (1 ..); consumer warpgroup cg owns rows [64 cg,
-// + 64) of the block's rows. setmaxnreg gives the producer's registers to the consumers:
-// RW = 1 runs two blocks an SM with 232 registers a consumer thread, RW = 2 one with 240.
-// The producer's waits trap; a consumer's wait that gives up sets the error word `fault` and
-// exits (bar_wait_or_flag in hopper.cuh), which the host reads where it synchronizes
-// (kernels/propagation_attention.py:check_fault): no launch ends with a tile unwritten and no
-// error. A build with -DTDNET_K1_STARVE (and few TDNET_CONSUMER_POLLS) has producers that fill
-// nothing, for the check that the word is reported (chip_smoke.py phase 2).
-// Every tile in shared memory is stored in wgmma's 128-byte swizzle, as the tensor maps'
-// SWIZZLE_128B writes it: 128-byte rows of 64 bf16, the 16-byte chunk c of row r at
-// c ^ (r % 8), 1024-byte aligned; rows past the tensors read as zeros.
-//   attn_bf16<1, -, 128, true> (stats): per q row, m = max_j s_j c and l = sum_j 2^(s_j c - m)
-//       over all keys, s = q k^T, c = scale log2 e: the block's q tile (loaded once) the A
-//       operand and a K chunk the B operand, both K-major; each chunk's score tile is issued
-//       before the last one is folded, so the tensor cores overlap the CUDA cores;
-//   attn_bf16<RW, CW, BK, false> (p v): o = p v over the block's CW columns of v, the score
-//       tile formed again a chunk, p = 2^(s c - m) (1 / l) in registers and rounded to bf16
-//       in place as the A operand of p v (the accumulator layout of m64nBK is the A layout
-//       of m64n16 a k step), v's chunk the B operand, N-major in 64-column slabs (wgmma's
-//       transpose bit; no transposing copy);
+// bf16 (hopper.cuh, attention_bf16.cuh): three kernels on wgmma (f32 accumulate), each fed
+// by TMA copies through a ring of `stages` shared-memory stages on mbarriers (full: the copies
+// landed; empty: the consumers are done with the stage), which one producer thread fills. A
+// block is a producer warpgroup (0) and RW consumer warpgroups (1 ..); consumer warpgroup cg
+// owns rows [64 cg, + 64) of the block's rows. setmaxnreg gives the producer's registers to
+// the consumers: RW = 1 runs two blocks an SM with 232 registers a consumer thread, RW = 2
+// one with 240. The producer's waits trap; a consumer's wait that gives up sets the error word
+// `fault` and exits (bar_wait_or_flag in hopper.cuh), which the host reads where it
+// synchronizes (kernels/fault.py:check_fault): no launch ends with a tile unwritten and no
+// error. A build with -DTDNET_K1_STARVE (and few TDNET_CONSUMER_POLLS) has producers that
+// fill nothing, for the check that the word is reported (chip_smoke.py phase 2).
+// The stats and p v kernels (attn_bf16, attention_bf16.cuh) are shared with K2's bf16
+// forward, which adds the mask and key ranges; K1 runs them without either, so its outputs
+// keep PR 10's bits (chip_smoke.py:k1_bf16_digests):
+//   attn_bf16<1, -, 128, true, false> (stats): per q row, m = max_j s_j c and l = sum_j
+//       2^(s_j c - m) over all keys, s = q k^T, c = scale log2 e: the block's q tile (loaded
+//       once) the A operand and a K chunk the B operand, both K-major; each chunk's score tile
+//       is issued before the last one is folded, so the tensor cores overlap the CUDA cores;
+//   attn_bf16<RW, CW, BK, false, false> (p v): o = p v over the block's CW columns of v, the
+//       score tile formed again a chunk, p = 2^(s c - m) (1 / l) in registers and rounded to
+//       bf16 in place as the A operand of p v (the accumulator layout of m64nBK is the A
+//       layout of m64n16 a k step), v's chunk the B operand, N-major in 64-column slabs
+//       (wgmma's transpose bit; no transposing copy);
 //   fc_bf16<RW, CW>: y = o w + bias, o's 64-deep chunk the A operand (K-major) and w's the
 //       B operand (N-major).
 // Bound by arithmetic (0.100 ms at the TD2 hop, all three); the p v kernel does most of it:
@@ -341,321 +340,10 @@ int run_f32(const float* q, const float* k, const float* v, const float* w, cons
 
 namespace k1 {
 
-constexpr int ROW = 128;                      // bytes of a swizzle row: 64 bf16
-constexpr int MAX_SMEM = 232448;              // bytes of shared memory a block may have
+using namespace attn;
+
 constexpr int AUX_STAGES = 4;                 // ring stages of the stats and fc kernels
 constexpr int STATS_KEYS = 128;               // keys a chunk of the stats kernel
-constexpr int PRODUCER_REGS = 24;             // registers a producer thread keeps
-template <int RW>
-constexpr int BLOCKS_PER_SM = RW == 1 ? 2 : 1;
-// a consumer thread's registers: its count at launch (65,536 over the SM's threads, 128 or
-// 168) and its share of what the producer gives up
-template <int RW>
-constexpr int CONSUMER_REGS = RW == 1 ? 232 : 240;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// A wgmma's n extent is 128 columns (two 64-column slabs) in p v and the fc (a warpgroup's
-// CW columns take CW / 128 of them) and BK keys in the score tile.
-
-// d (a warpgroup's 64 x 64 f32 fragment) = a b + (scale_d ? d : 0): a 64 x 16 bf16 K-major,
-// b 64 n x 16 k bf16 K-major (TRANS_B 0) or N-major (1), both from shared memory
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss_64(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
-}
-
-// d (a warpgroup's 64 x 128 f32 fragment) = a b + (scale_d ? d : 0): a 64 x 16 bf16 in
-// registers (the A fragment of mma.sync m16n8k16 a warp, warp w rows 16 w ..), b 128 n x 16 k
-// bf16 from shared memory, K-major (TRANS_B 0) or N-major (1)
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_rs_128(float* d, const uint32_t a[4], uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The descriptor of an N-major B tile with the 128-byte swizzle: slabs of 64 columns, one
-// 128-byte row a k, `slab` bytes apart; groups of 8 k rows 1024 bytes apart in a slab.
-__device__ __forceinline__ uint64_t sw128_n_desc(const void* p, int slab) {
-  return (uint64_t)((saddr(p) >> 4) & 0x3FFF) | (uint64_t)((slab >> 4) & 0x3FFF) << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-// Issue s (the warpgroup's 64 x BK score tile, unscaled, f32) = q k^T over d_k = 64 as one
-// wgmma group: 4 k16 steps, the warpgroup's 64 q rows (descriptor qd) and the K chunk's rows
-// at kt both K-major in shared memory. The caller waits for the group and fences s.
-template <int BK>
-__device__ __forceinline__ void issue_scores(float* s, uint64_t qd, const unsigned char* kt) {
-  const uint64_t desc = sw128_desc(kt);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {   // 32 bytes a step: 2 in the descriptor's units
-    if constexpr (BK == 64) wgmma_ss_64<0>(s, qd + 2 * kk, desc + 2 * kk, kk);
-    else wgmma_ss_128<0>(s, qd + 2 * kk, desc + 2 * kk, kk);
-  }
-  wgmma_commit();
-}
-
-// p = 2^(s c - m) (1 / l) of the score tile as bf16 A fragments of p v, pa[kk] for keys
-// [k0 + 16 kk, + 16); keys from lkv on give 0 (MASK: the chunk reaches past the keys).
-// s[4 j + e]: row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2.
-template <int BK, bool MASK>
-__device__ __forceinline__ void probs(uint32_t (*pa)[4], const float* s, float c,
-                                      const float m[2], const float il[2], int k0, int lkv) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    float p[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p[e] = ex2(fmaf(s[4 * j + e], c, -m[e >> 1])) * il[e >> 1];
-      if (MASK && k0 + 8 * j + 2 * t + (e & 1) >= lkv) p[e] = 0.f;
-    }
-    pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
-    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
-  }
-}
-
-// Issue acc += p v over a chunk as one wgmma group: p's A fragments pa (keys [16 kk, + 16)
-// of the chunk), v's chunk the CW / 64 slabs from vt, each a 128-byte row a key.
-template <int CW, int BK>
-__device__ __forceinline__ void issue_pv(float (*acc)[64], const uint32_t (*pa)[4],
-                                         const unsigned char* vt) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)   // 16 keys: 16 rows of 128 bytes a slab
-#pragma unroll
-    for (int hh = 0; hh < CW / 128; ++hh)
-      wgmma_rs_128<1>(acc[hh], pa[kk],
-                      sw128_n_desc(vt + 2 * hh * BK * ROW + kk * 16 * ROW, BK * ROW), 1);
-  wgmma_commit();
-}
-
-// Fold a chunk's scores into this thread's row statistics: m = max s c, l = sum 2^(s c - m)
-// of rows g (h = 0) and g + 8 (h = 1); keys from lkv on left out (MASK: the chunk reaches past
-// the keys).
-template <int BK, bool MASK>
-__device__ __forceinline__ void fold_stats(float m[2], float l[2], const float* s, float c,
-                                           int k0, int lkv) {
-  const int t = threadIdx.x & 3;
-  auto valid = [&](int j, int e) { return !MASK || k0 + 8 * j + 2 * t + e < lkv; };
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float cm = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (valid(j, e)) cm = fmaxf(cm, s[4 * j + 2 * h + e] * c);
-    if (cm == -INFINITY) continue;   // no key of this thread in the chunk
-    if (cm > m[h]) {
-      l[h] *= ex2(m[h] - cm);
-      m[h] = cm;
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (valid(j, e)) sum += ex2(fmaf(s[4 * j + 2 * h + e], c, -m[h]));
-    l[h] += sum;
-  }
-}
-
-// Merge two (max, sum of 2^(x - max)) pairs; an empty pair has max -inf.
-__device__ __forceinline__ void merge2(float& m, float& l, float mo, float lo) {
-  const float mn = fmaxf(m, mo);
-  const float a = m == -INFINITY ? 0.f : l * ex2(m - mn);
-  const float b = mo == -INFINITY ? 0.f : lo * ex2(mo - mn);
-  m = mn;
-  l = a + b;
-}
-
-template <int CW, int BK, bool STATS>
-__host__ __device__ constexpr int attn_stage() {
-  return BK * ROW * (1 + (STATS ? 0 : CW / 64));   // the K chunk, then V's CW / 64 slabs
-}
-
-// Block (x, y, z): q rows [64 RW x, + 64 RW) of batch z; pv: columns [CW y, + CW). q, k and v
-// through tm_q ([n][lq][64], boxes of 64 x 64 RW), tm_k ([n][lkv][64], boxes of 64 x BK) and
-// tm_v ([n][lkv][dv], boxes of 64 x BK); stats: row_max and row_sum [n, lq] out; pv: in, and
-// o [n, lq, dv] out.
-template <int RW, int CW, int BK, bool STATS>
-__global__ void __launch_bounds__(128 * (RW + 1), BLOCKS_PER_SM<RW>)
-attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-          const __grid_constant__ CUtensorMap tm_v, float* __restrict__ row_max,
-          float* __restrict__ row_sum, bf16* __restrict__ o, unsigned int* __restrict__ fault,
-          int lq, int lkv, int dv, float c, int stages) {
-  constexpr int STAGE = attn_stage<CW, BK, STATS>(), Q_BYTES = 64 * RW * ROW;
-  extern __shared__ unsigned char smem_k1[];
-  const Ring ring(smem_k1, stages, STAGE, Q_BYTES);
-  const int b = blockIdx.z, d0 = blockIdx.y * CW, chunks = (lkv + BK - 1) / BK;
-  init_ring<RW>(ring, stages);
-  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
-  if (role == 0) {   // the producer
-    reg_dealloc<PRODUCER_REGS>();
-#ifdef TDNET_K1_STARVE
-    return;   // the fault check's build: no stage ever fills
-#endif
-    if (threadIdx.x != 0) return;
-    bar_expect(ring.head_full, Q_BYTES);
-    tma_load_3d(ring.head, &tm_q, 0, blockIdx.x * 64 * RW, b, ring.head_full);
-    for (int ch = 0; ch < chunks; ++ch) {
-      wait_free(ring, ch, stages);
-      const int s = ch % stages;
-      unsigned char* st = ring.base + s * STAGE;
-      bar_expect(ring.full + s, STAGE);
-      tma_load_3d(st, &tm_k, 0, ch * BK, b, ring.full + s);
-      if constexpr (!STATS)
-#pragma unroll
-        for (int j = 0; j < CW / 64; ++j)
-          tma_load_3d(st + (1 + j) * BK * ROW, &tm_v, d0 + 64 * j, ch * BK, b, ring.full + s);
-    }
-    return;
-  }
-  reg_alloc<CONSUMER_REGS<RW>>();
-  const int cg = role - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row = blockIdx.x * 64 * RW + 64 * cg + 16 * warp + g;   // and row + 8
-  const uint64_t qd = sw128_desc(ring.head + cg * 64 * ROW);   // rows past lq read as zeros
-  bar_wait_or_flag(ring.head_full, 0, fault);
-  // A chunk: its score tile on the tensor cores, then (stats) folded into the row statistics
-  // or (p v) exponentiated into p and multiplied into acc. The stats loop runs one chunk
-  // ahead: chunk ch + 1's score tile is issued into the other of two buffers before chunk
-  // ch is folded, so the tensor cores form it meanwhile (the loop takes two chunks a turn,
-  // so that each buffer is a fixed set of registers). The same lookahead in the p v loop,
-  // with p in two buffers, measured slower (PERF.md, run P3).
-  auto stage = [&](int ch) { return ring.base + (ch % stages) * STAGE; };
-  auto wait_chunk = [&](int ch) {
-    bar_wait_or_flag(ring.full + ch % stages, (ch / stages) & 1, fault);
-  };
-  auto release = [&](int ch) {
-    if (lane == 0) bar_arrive(ring.empty + ch % stages);
-  };
-  float* stats_m = row_max + (size_t)b * lq;
-  float* stats_l = row_sum + (size_t)b * lq;
-  float s0[BK / 2], s1[BK / 2];
-  wait_chunk(0);
-  issue_scores<BK>(s0, qd, stage(0));
-  if constexpr (STATS) {
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    // chunk ch's scores in cur (issued), chunk ch + 1's go to nxt
-    auto step = [&](float* cur, float* nxt, int ch) {
-      if (ch >= chunks) return;
-      if (ch + 1 < chunks) {
-        wait_chunk(ch + 1);
-        issue_scores<BK>(nxt, qd, stage(ch + 1));
-        wgmma_wait<1>();
-      } else {
-        wgmma_wait<0>();
-      }
-      fence_regs<BK / 2>(cur);
-      release(ch);
-      if (ch * BK + BK <= lkv) fold_stats<BK, false>(m, l, cur, c, ch * BK, lkv);
-      else fold_stats<BK, true>(m, l, cur, c, ch * BK, lkv);
-    };
-    for (int ch = 0; ch < chunks; ch += 2) {
-      step(s0, s1, ch);
-      step(s1, s0, ch + 1);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {   // a row's 4 threads are the 4 lanes of a quad
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
-        const float lo = __shfl_xor_sync(0xffffffffu, l[h], off);
-        merge2(m[h], l[h], mo, lo);
-      }
-      if (t == 0 && row + 8 * h < lq) {
-        stats_m[row + 8 * h] = m[h];
-        stats_l[row + 8 * h] = l[h];
-      }
-    }
-  } else {
-    float m[2], il[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      m[h] = r < lq ? stats_m[r] : 0.f;
-      il[h] = r < lq ? 1.f / stats_l[r] : 1.f;
-    }
-    float acc[CW / 128][64];
-#pragma unroll
-    for (int hh = 0; hh < CW / 128; ++hh)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[hh][i] = 0.f;
-    wgmma_wait<0>();
-    fence_regs<BK / 2>(s0);
-    for (int ch = 0; ch < chunks; ++ch) {
-      uint32_t pa[BK / 16][4];
-      if (ch * BK + BK <= lkv) probs<BK, false>(pa, s0, c, m, il, ch * BK, lkv);
-      else probs<BK, true>(pa, s0, c, m, il, ch * BK, lkv);
-      issue_pv<CW, BK>(acc, pa, stage(ch) + BK * ROW);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int hh = 0; hh < CW / 128; ++hh) fence_regs<64>(acc[hh]);
-      release(ch);
-      if (ch + 1 < chunks) {
-        wait_chunk(ch + 1);
-        issue_scores<BK>(s0, qd, stage(ch + 1));
-        wgmma_wait<0>();
-        fence_regs<BK / 2>(s0);
-      }
-    }
-    o += (size_t)b * lq * dv + d0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      if (r >= lq) continue;
-#pragma unroll
-      for (int hh = 0; hh < CW / 128; ++hh)
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<uint32_t*>(o + (size_t)r * dv + 128 * hh + 8 * j + 2 * t) =
-              pack_bf16(acc[hh][4 * j + 2 * h], acc[hh][4 * j + 2 * h + 1]);
-    }
-  }
-}
 
 template <int RW, int CW>
 __host__ __device__ constexpr int fc_stage() {
@@ -736,22 +424,6 @@ fc_bf16(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtens
     }
 }
 
-template <int RW, int CW, int BK, bool STATS>
-int launch_attn(const bf16* q, const CUtensorMap& tk, const CUtensorMap& tv, float* row_max,
-                float* row_sum, bf16* o, unsigned int* fault, int n, int lq, int lkv, int dv,
-                float c, int stages, cudaStream_t st) {
-  const size_t smem = ring_smem(stages, attn_stage<CW, BK, STATS>(), 64 * RW * ROW);
-  if (stages < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq;
-  int err = bf16_tensor_map(&tq, q, DK, lq, n, 64 * RW);
-  constexpr auto kernel = attn_bf16<RW, CW, BK, STATS>;
-  if (err != 0 || (err = allow_smem<kernel>(smem)) != 0) return err;
-  const dim3 grid((lq + 64 * RW - 1) / (64 * RW), STATS ? 1 : dv / CW, n);
-  kernel<<<grid, 128 * (RW + 1), smem, st>>>(tq, tk, tv, row_max, row_sum, o, fault, lq, lkv,
-                                             dv, c, stages);
-  return (int)cudaGetLastError();
-}
-
 template <int RW, int CW>
 int launch_fc(const bf16* x, const bf16* w, const bf16* bias, bf16* y, unsigned int* fault,
               int m, int dv, cudaStream_t st) {
@@ -796,13 +468,15 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* w, const b
       (err = bf16_tensor_map(&tv, v, dv, lkv, n, keys)) != 0)
     return err;
   const float c = scale * LOG2E;
-  err = launch_attn<1, 128, STATS_KEYS, true>(q, ts, ts, row_max, row_sum, nullptr, fault, n, lq,
-                                              lkv, dv, c, AUX_STAGES, st);
+  const AttnOut stats{row_max, row_sum, nullptr, nullptr, nullptr, fault};
+  const Drop none{0u, 0u, 1.f};
+  err = launch_attn<1, 128, STATS_KEYS, true, false>(q, ts, ts, stats, n, lq, lkv, dv, c,
+                                                     AUX_STAGES, lkv, 1, none, st);
   if (err != 0) return err;
-  bf16* o = w ? o_tmp : out;
+  const AttnOut pv{row_max, row_sum, w ? o_tmp : out, nullptr, nullptr, fault};
 #define K1_PV(RW, CW, BK) \
-  launch_attn<RW, CW, BK, false>(q, tk, tv, row_max, row_sum, o, fault, n, lq, lkv, dv, c, \
-                                 stages, st)
+  launch_attn<RW, CW, BK, false, false>(q, tk, tv, pv, n, lq, lkv, dv, c, stages, lkv, 1, none, \
+                                        st)
   switch (tiling) {
     case 0: err = K1_PV(1, 128, 64); break;
     case 1: err = K1_PV(1, 128, 128); break;

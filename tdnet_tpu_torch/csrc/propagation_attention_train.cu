@@ -1,4 +1,6 @@
-// Training propagation attention for Hopper (sm_90a), f32:
+// Training propagation attention for Hopper (sm_90a). bf16: see "bf16 (mixed-precision
+// training)" below (wgmma and TMA, K1's forward kernels of attention_bf16.cuh with the mask,
+// a backward of three passes). f32:
 //   forward  o = dropout(softmax(q k^T * scale)) v, on the CUDA cores, each output summed
 //            over the keys in order as a plain f32 GEMM sums it;
 //   backward dq, dk, dv, on the tensor cores in error-compensated TF32 (3xTF32, tf32x3.cuh),
@@ -84,16 +86,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
+#include "attention_bf16.cuh"
 #include "attention_f32.cuh"
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
-
-struct Drop {
-  uint32_t seed, threshold;
-  float inv_keep;
-};
 
 constexpr int BKV = 32;         // keys per block of dkdv_tc
 constexpr int PIECE = 128;      // dy columns per streamed piece
@@ -602,662 +602,659 @@ int backward_dv(int dv, const float* q, const float* k, const float* v, const fl
 }
 
 
-// ---- bf16 (mixed-precision training): the TPU kernels' rounding points, on mma.sync
-// m16n8k16 bf16 with f32 accumulation, one product where 3xTF32 takes three.
-//   forward  s = q k^T (bf16 operands, f32 sums) * scale; p = exp(s - m) / l in f32; the mask
-//            and 1 / (1 - rate) in f32 on p; pd rounded to bf16; o = pd v in f32, rounded once
-//            to bf16 (_fwd_kernel, propagation_attention_train.py:71-80).
-//   backward dv = pd^T dy with pd rounded to bf16; dpd = dy v^T in f32; ds = p (dp - t) rounded
-//            to bf16, t = sum_j dp p in f32 as the TPU kernel forms it (rowt_bf16); dq = scale
-//            ds k rounded to bf16; dk = scale ds^T q and dv summed in f32 over every q range and
-//            rounded to bf16 once (_bwd_kernel, :83-112, :202-207).
-// Every s, in the stats, p v and backward passes alike, is the same 4 k16 steps in order
-// from a zero accumulator, then the scale: p is the same to the bit in all three.
-// Tiles live in shared memory as bf16 rows padded by 16 bytes (row strides 144, 1040 and 80
-// bytes), so ldmatrix's eight 16-byte rows fall in distinct banks.
-namespace k2bf16 {
+// ---- bf16 (mixed-precision training): the TPU kernels' rounding points on wgmma (bf16
+// operands, f32 accumulate), every tile brought in by TMA through a ring of shared-memory
+// stages that one producer thread fills (hopper.cuh, attention_bf16.cuh).
+//   forward  keep_bits, then K1's bf16 kernels (attention_bf16.cuh) with the mask: stats (m, l
+//            in log2 units), then p v with p = 2^(s c - m) (1 / l), c = scale log2 e, times
+//            keep ? 1 / (1 - rate) : 0 in f32, rounded to bf16 as the A operand of p v, o
+//            summed in f32 and rounded once (_fwd_kernel, propagation_attention_train.py:
+//            71-80). Where q blocks alone leave SMs idle (2,145 rows), the keys split into
+//            ranges: stats ranges merged in order by the p v kernel, p v ranges summed in order
+//            by sum_scaled<0>. The merged (m, l) and the keep bits are saved for the backward;
+//            o is not.
+//   backward dv = bf16(pd)^T dy; dp = dy v^T in f32 through the mask; t = sum_j dp p in f32 as
+//            the TPU kernel forms it; ds = bf16(p (dp - t)); dq = scale ds k and dk = scale
+//            ds^T q summed in f32 and rounded once; dv summed in f32 over every q range and
+//            rounded once (_bwd_kernel, :83-112, :202-207). p is formed in every pass as the
+//            forward forms it, from s (4 k16 steps from zero) and the saved (m, l).
+//   keep_bits   the mask once a call as bits [n][lq][words] (dropout_hash.cuh's function of
+//               (seed, (b lq + r) lkv + j)): a hash is some 20 integer operations, about an
+//               element's share of the products on the tensor cores, so the p v kernel (once
+//               a column block) and the backward's passes read bits instead of hashing.
+// Three backward passes, no atomics (partials summed in a fixed order; two runs give the same
+// bits):
+//   rowt_wgmma  t, forward-shaped: a block owns 128 q rows (two consumer warpgroups of 64) and
+//               a range of keys; its q tile and dy tile stay in shared memory (dy [128][d_v],
+//               128 KB at d_v 512, loaded once: streaming it in d_v slabs beside v's would
+//               read it again for every key chunk, twice the L2 traffic of v's chunks), and
+//               32-key chunks of k and v stream through the ring; s = q k^T (4 k-steps) and
+//               dp = dy v^T (d_v / 16 k-steps, one chain) are wgmma m64n32k16 from shared
+//               memory; each thread sums dp p over its keys in key order, a row's quad adds
+//               in a fixed order, and each key range writes its partial t.
+//   row_terms   (m, 1 / l, t) of each q row, the key ranges' partial t added in order.
+//   dkdv_wgmma  KV-major: a block owns 64 keys (the M of s^T and dp^T) and a range of 32-row q
+//               chunks. k [64][64] and v [64][d_v] stay in shared memory; each chunk's q, dy,
+//               row terms and keep words come through the ring. Both consumer warpgroups form
+//               s^T = k q^T and dp^T = v dy^T for the block's 64 keys (wgmma m64n32k16), p, pd
+//               and ds in f32 registers; pd^T and ds^T, rounded to bf16 in place, are the A
+//               operands of dv += pd^T dy and dk += ds^T q from registers, as K1's p v takes p.
+//               The register budget is the hard point: dv [64][d_v] in f32 is 256 registers a
+//               thread of one warpgroup at d_v 512, so warpgroup cg owns dv's columns [d_v cg /
+//               2, + d_v / 2) (128 registers) and dk over the q rows [16 cg, + 16) of each
+//               chunk (32); both form s^T and dp^T, the price of no exchange between them. ds
+//               rows [16 cg, + 16) of each chunk go to a bf16 scratch. 168 registers at launch,
+//               240 by setmaxnreg, no spills (ptxas).
+//   dq_wgmma    dq = ds k: a block owns 64 q rows and a range of 64-key chunks (split at small
+//               Lq so that the blocks fill the card), ds's box the A operand (K-major), k's
+//               chunk the B operand (N-major), wgmma m64n64k16.
+//   sum_scaled<1>  dq, dk, dv: the partials summed in order, times the scale, rounded once.
+// Bound by arithmetic at 989 TFLOP/s: 2 Lq Lkv (64 + 512) FLOP forward (0.047 ms at 18,721 x
+// 2,145) and 2 Lq Lkv (2 512 + 3 64) backward (0.099 ms). On the tensor cores the backward
+// runs 2 Lq Lkv (576 + 1,728 + 64): the t pass repeats s and dp, and both dk/dv warpgroups
+// form s^T and dp^T, 1.95x the least work.
+// A TMA box starts on a 16-byte boundary of its innermost dimension: the keep words' box is
+// the 4 words of the block's 128-key group (a box starting at word 2 never completed its
+// barrier, and the producer trapped).
+namespace k2 {
 
-using bf16 = __nv_bfloat16;
-constexpr int HS = DK + 8;      // row stride (elements) of 64-wide tiles: q, k
-constexpr int FKEYS = 64;       // keys a chunk of stats_bf16
-constexpr int PKEYS = 32;       // keys a chunk of pv_bf16, and of a dkdv_bf16 / dq_bf16 block
-constexpr int PS = PKEYS + 8;   // row stride of 32-wide tiles: pd, ds
-constexpr int WARPS4 = 128;     // threads of the 4-warp kernels
+using namespace attn;
 
-__device__ __forceinline__ uint32_t saddr_of(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
+constexpr int STATS_KEYS = 128;   // keys a chunk of the stats kernel (K1's)
+constexpr int AUX_STAGES = 4;     // ring stages of the stats kernel
+constexpr int T_ROWS = 128;       // q rows a block of rowt_wgmma: two consumer warpgroups
+constexpr int T_KEYS = 32;        // keys a chunk of rowt_wgmma
+constexpr int T_STAGES = 2;
+constexpr int KV_KEYS = 64;       // keys a block of dkdv_wgmma: the M of s^T and dp^T
+constexpr int KV_Q = 32;          // q rows a chunk of dkdv_wgmma: the N of s^T and dp^T
+constexpr int KV_STAGES = 4;
+constexpr int DQ_KEYS = 64;       // keys a chunk of dq_wgmma
+constexpr int DQ_STAGES = 4;
+constexpr int ROWS_BYTES = 1024;  // a dkdv stage's row terms (KV_Q float4) and keep words
+constexpr int KEEP_BOX = 4;       // keep words a dkdv stage takes a q row: 128 keys
+
+// keep words a row of the keep bits: ceil(lkv / 32) rounded up to 4
+__host__ __device__ constexpr int keep_words(int lkv) { return ((lkv + 31) / 32 + 3) / 4 * 4; }
+
+template <int NP>   // d_v = 128 NP
+__host__ __device__ constexpr int t_head() {   // q, then dy's slabs
+  return T_ROWS * ROW * (1 + 2 * NP);
 }
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr_of(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
+template <int NP>
+__host__ __device__ constexpr int t_stage() {   // k, then v's slabs
+  return T_KEYS * ROW * (1 + 2 * NP);
 }
+template <int NP>
+__host__ __device__ constexpr int kv_head() {   // k, then v's slabs
+  return KV_KEYS * ROW * (1 + 2 * NP);
+}
+template <int NP>
+__host__ __device__ constexpr int kv_stage() {   // q, dy, then the row terms and keep words
+  return KV_Q * ROW * (1 + 2 * NP) + ROWS_BYTES;
+}
+constexpr int DQ_STAGE = 2 * 64 * ROW;                           // ds's box, k's chunk
 
-// Rows [r0, r0 + R) x columns [c0, c0 + W) of a row-major bf16 [len, ld] matrix into a shared
-// tile of row stride S by 16-byte cp.async copies from `nthreads` threads; rows past len zero.
-template <int R, int W, int S>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int ld, int r0, int c0,
-                                           int len, int nthreads) {
-  constexpr int PER_ROW = W / 8;
-  for (int i = threadIdx.x; i < R * PER_ROW; i += nthreads) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8, gr = r0 + r;
-    const bool valid = gr < len;
-    cp16(dst + r * S + c, src + (valid ? (size_t)gr * ld + c0 + c : 0), valid);
+// The keep bits of a call: bits[b][r][w], bit i = keep(seed, (b lq + r) lkv + 32 w + i) for
+// 32 w + i < lkv, else 0; words = ceil(lkv / 32) rounded up to 4 (16-byte rows for TMA). The
+// forward forms them once for its p v kernel and the backward's passes (which read them
+// instead of hashing each element again: a hash is some 30 integer operations, as many as
+// the element's share of the products on the tensor cores).
+__global__ void __launch_bounds__(256)
+keep_bits(uint32_t* __restrict__ bits, int lkv, int words, size_t total, Drop drop) {
+  for (size_t i = blockIdx.x * (size_t)256 + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * 256) {
+    const size_t row = i / words;
+    const int key0 = 32 * (int)(i % words), count = min(32, lkv - key0);
+    const uint64_t base = row * (uint64_t)lkv + key0;
+    uint32_t word = 0;
+    if (count > 0 && (base >> 32) == ((base + count - 1) >> 32)) {
+      // the index's high half is the word's: hash(seed, idx) = mix(lo(idx) ^ mh) with mh
+      // formed once (dropout_hash.cuh)
+      const uint32_t mh = tdnet_mix32((uint32_t)(base >> 32) ^ tdnet_mix32(drop.seed));
+      for (int j = 0; j < count; ++j)
+        word |= (uint32_t)(tdnet_mix32((uint32_t)(base + j) ^ mh) < drop.threshold) << j;
+    } else {
+      for (int j = 0; j < count; ++j)
+        word |= (uint32_t)tdnet_keep(drop.seed, base + j, drop.threshold) << j;
+    }
+    bits[i] = word;
   }
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(saddr_of(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(saddr_of(p)));
-}
-
-// c += a b, m16n8k16, bf16 operands, f32 accumulator. In a warp, g = lane / 4, t = lane % 4:
-// A regs (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); B regs (k 2t.., n g),
-// (k 2t + 8.., n g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma16(float c[4], const uint32_t a[4], uint32_t b0,
-                                      uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// ldmatrix addresses of a lane (lane = threadIdx.x % 32) for one 16 x 16 operand:
-// A rows [r0, + 16) x k [c0, + 16) of a tile stored [m][k]:
-__device__ __forceinline__ const bf16* a_at(const bf16* t, int s, int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  return t + (r0 + (lane & 15)) * s + c0 + (lane >> 4) * 8;
-}
-// A from a tile stored [k][m] (ldsm4_t): k [k0, + 16) x m [m0, + 16):
-__device__ __forceinline__ const bf16* a_at_t(const bf16* t, int s, int k0, int m0) {
-  const int lane = threadIdx.x & 31;
-  return t + (k0 + (lane & 7) + (lane >> 4) * 8) * s + m0 + ((lane >> 3) & 1) * 8;
-}
-// B for two n-tiles [n0, + 8), [n0 + 8, + 8) and k [k0, + 16) of a tile stored [n][k]
-// (ldsm4: regs 0, 1 the first n-tile, 2, 3 the second):
-__device__ __forceinline__ const bf16* b_at(const bf16* t, int s, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * s + k0 + ((lane >> 3) & 1) * 8;
-}
-// the same from a tile stored [k][n] (ldsm4_t):
-__device__ __forceinline__ const bf16* b_at_t(const bf16* t, int s, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  return t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * s + n0 + (lane >> 4) * 8;
-}
-
-// s[j] = q k^T for this warp's 16 q rows (A fragments qa, 4 k16 steps over d_k) and keys
-// [key0 + 8 j, + 8) of the k tile kt ([key][d_k], stride HS), unscaled: the one product
-// order of every pass.
-template <int NT>
-__device__ __forceinline__ void scores(float s[NT][4], const uint32_t qa[4][4], const bf16* kt,
-                                       int key0) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ldsm4(b, b_at(kt, HS, key0 + 8 * j, 16 * kk));
-      mma16(s[j], qa[kk], b[0], b[1]);
-      mma16(s[j + 1], qa[kk], b[2], b[3]);
-    }
-}
-
-__device__ __forceinline__ void load_q_frags(uint32_t qa[4][4], const bf16* qt, int r0) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm4(qa[kk], a_at(qt, HS, r0, 16 * kk));
-}
-
-// The probability of element (row, key) from its unscaled score: exp(s scale - m) / l, 0
-// past lkv.
-__device__ __forceinline__ float prob(float s, float scale, float m, float l, int key, int lkv) {
-  return key < lkv ? expf(s * scale - m) / l : 0.f;
-}
-
-// Row statistics of rows [64 blockIdx.x, + 64) of batch blockIdx.y: m = max_j s_ij scale and
-// l = sum_j exp(s_ij scale - m). Warp w owns rows 16 w..; 64-key chunks, double-buffered.
-__global__ void __launch_bounds__(WARPS4)
-stats_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, float* __restrict__ row_max,
-           float* __restrict__ row_sum, int lq, int lkv, float scale) {
-  __shared__ __align__(16) bf16 qs[64 * HS];
-  __shared__ __align__(16) bf16 ks[2][FKEYS * HS];
-  const int r0 = blockIdx.x * 64, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int chunks = (lkv + FKEYS - 1) / FKEYS;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  stage_bf16<64, DK, HS>(qs, q, DK, r0, 0, lq, WARPS4);
-  stage_bf16<FKEYS, DK, HS>(ks[0], k, DK, 0, 0, lkv, WARPS4);
-  cp_commit();
-  uint32_t qa[4][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int c = 0; c < chunks; ++c) {
-    cp_wait_all();
-    __syncthreads();
-    if (c == 0) load_q_frags(qa, qs, 16 * warp);
-    if (c + 1 < chunks) {
-      stage_bf16<FKEYS, DK, HS>(ks[(c + 1) & 1], k, DK, (c + 1) * FKEYS, 0, lkv, WARPS4);
-      cp_commit();
-    }
-    float s[FKEYS / 8][4];
-    scores<FKEYS / 8>(s, qa, ks[c & 1], 0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mc = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < FKEYS / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = c * FKEYS + 8 * j + 2 * t + e;
-          const float x = key < lkv ? s[j][2 * h + e] * scale : -INFINITY;
-          s[j][2 * h + e] = x;
-          mc = fmaxf(mc, x);
-        }
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-      float lc = 0.f;
-      if (mc != -INFINITY)
-#pragma unroll
-        for (int j = 0; j < FKEYS / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) lc += expf(s[j][2 * h + e] - mc);
-      lc += __shfl_xor_sync(0xffffffffu, lc, 1);
-      lc += __shfl_xor_sync(0xffffffffu, lc, 2);
-      merge_stats(m[h], l[h], mc, lc);
-    }
-  }
-  if (t == 0)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 16 * warp + g + 8 * h;
-      if (r < lq) {
-        row_max[(size_t)b * lq + r] = m[h];
-        row_sum[(size_t)b * lq + r] = l[h];
-      }
-    }
-}
-
-template <int NT>  // columns a block: 8 NT
-constexpr size_t pv_smem() {
-  return sizeof(bf16) * (64 * HS + 2 * PKEYS * HS + 2 * PKEYS * (8 * NT + 8));
-}
-
-// o[b, r, c0..c0 + 8 NT) = bf16(sum_j bf16(pd_rj) v[b, j, c0..]) for rows [64 blockIdx.x, + 64),
-// c0 = 8 NT blockIdx.y, batch blockIdx.z; pd from the row statistics and, with DROP, the mask
-// of (seed, (b lq + r) lkv + j). Warp w owns rows 16 w.. and all 8 NT columns; 32-key chunks of
-// k and v double-buffered; p goes from the score accumulators straight into p v's A fragments.
-template <int NT, bool DROP>
-__global__ void __launch_bounds__(WARPS4, 2)
-pv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-        const float* __restrict__ row_max, const float* __restrict__ row_sum,
-        bf16* __restrict__ o, int lq, int lkv, int dv, float scale, Drop drop) {
-  constexpr int CW = 8 * NT, VS = CW + 8;
-  extern __shared__ __align__(16) bf16 smem_pv[];
-  bf16* qs = smem_pv;                  // [64][HS]
-  bf16* ks = qs + 64 * HS;             // [2][PKEYS][HS]
-  bf16* vs = ks + 2 * PKEYS * HS;      // [2][PKEYS][VS]
-  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * CW, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int chunks = (lkv + PKEYS - 1) / PKEYS;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * dv;
-  auto stage_kv = [&](int c, int buf) {
-    stage_bf16<PKEYS, DK, HS>(ks + buf * PKEYS * HS, k, DK, c * PKEYS, 0, lkv, WARPS4);
-    stage_bf16<PKEYS, CW, VS>(vs + buf * PKEYS * VS, v, dv, c * PKEYS, c0, lkv, WARPS4);
-  };
-  stage_bf16<64, DK, HS>(qs, q, DK, r0, 0, lq, WARPS4);
-  stage_kv(0, 0);
-  cp_commit();
-  float mr[2], lr[2];
-  size_t rid[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 16 * warp + g + 8 * h;
-    mr[h] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
-    lr[h] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
-    rid[h] = ((size_t)b * lq + r) * (size_t)lkv;
-  }
-  uint32_t qa[4][4];
-  float acc[NT][4] = {};
-  for (int c = 0; c < chunks; ++c) {
-    const int buf = c & 1;
-    cp_wait_all();
-    __syncthreads();
-    if (c == 0) load_q_frags(qa, qs, 16 * warp);
-    if (c + 1 < chunks) {
-      stage_kv(c + 1, buf ^ 1);
-      cp_commit();
-    }
-    float s[PKEYS / 8][4];
-    scores<PKEYS / 8>(s, qa, ks + buf * PKEYS * HS, 0);
-#pragma unroll
-    for (int j = 0; j < PKEYS / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, key = c * PKEYS + 8 * j + 2 * t + (e & 1);
-        float p = prob(s[j][e], scale, mr[h], lr[h], key, lkv);
-        if (DROP)
-          p = tdnet_keep(drop.seed, rid[h] + key, drop.threshold) ? p * drop.inv_keep : 0.f;
-        s[j][e] = p;
-      }
-    const bf16* vt = vs + buf * PKEYS * VS;
-#pragma unroll
-    for (int kk = 0; kk < PKEYS / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bb[4];
-        ldsm4_t(bb, b_at_t(vt, VS, 16 * kk, 8 * j));
-        mma16(acc[j], pa, bb[0], bb[1]);
-        mma16(acc[j + 1], pa, bb[2], bb[3]);
-      }
-    }
-  }
-  o += (size_t)b * lq * dv;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 16 * warp + g + 8 * h;
-    if (r >= lq) continue;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<uint32_t*>(o + (size_t)r * dv + c0 + 8 * j + 2 * t) =
-          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
-  }
-}
-
-template <int NT, bool DROP>
-int launch_pv(const bf16* q, const bf16* k, const bf16* v, const float* row_max,
-              const float* row_sum, bf16* o, int n, int lq, int lkv, int dv, float scale,
-              Drop drop, cudaStream_t st) {
-  constexpr size_t smem = pv_smem<NT>();
-  cudaError_t err = cudaFuncSetAttribute(pv_bf16<NT, DROP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pv_bf16<NT, DROP><<<dim3((lq + 63) / 64, dv / (8 * NT), n), WARPS4, smem, st>>>(
-      q, k, v, row_max, row_sum, o, lq, lkv, dv, scale, drop);
+int launch_keep_bits(uint32_t* bits, int n, int lq, int lkv, const Drop& drop,
+                     cudaStream_t st) {
+  const int words = keep_words(lkv);
+  const size_t total = (size_t)n * lq * words, blocks = (total + 255) / 256;
+  keep_bits<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, st>>>(bits, lkv, words, total,
+                                                                        drop);
   return (int)cudaGetLastError();
 }
 
-template <bool DROP>
-int forward(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* row_max, float* row_sum,
-            int n, int lq, int lkv, int dv, float scale, int cols, Drop drop, cudaStream_t st) {
-  if ((cols != 128 && cols != 256) || dv % cols) return (int)cudaErrorInvalidValue;
-  stats_bf16<<<dim3((lq + 63) / 64, n), WARPS4, 0, st>>>(q, k, row_max, row_sum, lq, lkv,
-                                                         scale);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return cols == 256
-             ? launch_pv<32, DROP>(q, k, v, row_max, row_sum, o, n, lq, lkv, dv, scale, drop, st)
-             : launch_pv<16, DROP>(q, k, v, row_max, row_sum, o, n, lq, lkv, dv, scale, drop, st);
-}
-
-template <int NP>  // d_v = 128 NP
-constexpr size_t rowt_smem() {
-  return sizeof(bf16) *
-         (64 * HS + 64 * (128 * NP + 8) + 2 * PKEYS * HS + 2 * PKEYS * (128 * NP + 8));
-}
-
-// t[b, r] = sum_j dp_rj p_rj with dp = dy_r . v_j (f32 sums of bf16 products), through the
-// mask and 1 / (1 - rate) with DROP: the TPU kernel's softmax-backward term (:109), for rows
-// [64 blockIdx.x, + 64) of batch blockIdx.y. The block's q and dy rows stay in shared memory;
-// 32-key chunks of k and v double-buffered; warp w owns rows 16 w... It costs a forward's
-// products again (s and dy v^T), where rowsum(dy o) would cost one pass over dy and o: with
-// o rounded to bf16 that sum misses t by o's rounding, so sum_j ds_rj, zero in exact arithmetic
-// (the gradient of a bias shared by all keys), took a bias on every row.
+// t_part[range][b][r] = sum_j dp_rj p_rj over the keys of chunks [range k_per, + k_per) for
+// rows [128 x, + 128) of batch z (range = y), with p = 2^(s c - m) (1 / l) from the saved
+// stats [2][n][lq] and dp = dy . v_j through the mask (DROP): dp keep / (1 - rate).
 template <int NP, bool DROP>
-__global__ void __launch_bounds__(WARPS4, 1)
-rowt_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dy, const float* __restrict__ row_max,
-          const float* __restrict__ row_sum, float* __restrict__ t_out, int lq, int lkv,
-          float scale, Drop drop) {
-  constexpr int DV = 128 * NP, VS = DV + 8;
-  extern __shared__ __align__(16) bf16 smem_t[];
-  bf16* qs = smem_t;                 // [64][HS]
-  bf16* ys = qs + 64 * HS;           // [64][VS]
-  bf16* ks = ys + 64 * VS;           // [2][PKEYS][HS]
-  bf16* vs = ks + 2 * PKEYS * HS;    // [2][PKEYS][VS]
-  const int r0 = blockIdx.x * 64, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int chunks = (lkv + PKEYS - 1) / PKEYS;
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * DV;
-  dy += (size_t)b * lq * DV;
-  auto stage_kv = [&](int c, int buf) {
-    stage_bf16<PKEYS, DK, HS>(ks + buf * PKEYS * HS, k, DK, c * PKEYS, 0, lkv, WARPS4);
-    stage_bf16<PKEYS, DV, VS>(vs + buf * PKEYS * VS, v, DV, c * PKEYS, 0, lkv, WARPS4);
-  };
-  stage_bf16<64, DK, HS>(qs, q, DK, r0, 0, lq, WARPS4);
-  stage_bf16<64, DV, VS>(ys, dy, DV, r0, 0, lq, WARPS4);
-  stage_kv(0, 0);
-  cp_commit();
-  float mr[2], lr[2], acc[2] = {0.f, 0.f};
-  size_t rid[2];
+__global__ void __launch_bounds__(384, 1)
+rowt_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_dy,
+           const float* __restrict__ stats, const uint32_t* __restrict__ bits,
+           float* __restrict__ t_part, unsigned int* __restrict__ fault, int lq, int lkv,
+           float c, int k_per, Drop drop) {
+  constexpr int SLABS = 2 * NP, HEAD = t_head<NP>(), STAGE = t_stage<NP>();
+  constexpr int Q_BYTES = T_ROWS * ROW, DY_SLAB = T_ROWS * ROW, V_SLAB = T_KEYS * ROW;
+  extern __shared__ unsigned char smem_t[];
+  const Ring ring(smem_t, T_STAGES, STAGE, HEAD);
+  const int n = gridDim.z, b = blockIdx.z, range = blockIdx.y, c0 = range * k_per;
+  const int r0 = blockIdx.x * T_ROWS;
+  const int chunks = min((lkv + T_KEYS - 1) / T_KEYS - c0, k_per);
+  init_ring<2>(ring, T_STAGES);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
+  if (role == 0) {   // the producer
+    reg_dealloc<PRODUCER_REGS>();
+#ifdef TDNET_K2_STARVE
+    return;   // the fault check's build: no stage ever fills
+#endif
+    if (threadIdx.x != 0) return;
+    bar_expect(ring.head_full, HEAD);
+    tma_load_3d(ring.head, &tm_q, 0, r0, b, ring.head_full);
+    for (int j = 0; j < SLABS; ++j)
+      tma_load_3d(ring.head + Q_BYTES + j * DY_SLAB, &tm_dy, 64 * j, r0, b, ring.head_full);
+    for (int ch = 0; ch < chunks; ++ch) {
+      wait_free(ring, ch, T_STAGES);
+      const int s = ch % T_STAGES;
+      unsigned char* st = ring.base + s * STAGE;
+      bar_expect(ring.full + s, STAGE);
+      const int key = (c0 + ch) * T_KEYS;
+      tma_load_3d(st, &tm_k, 0, key, b, ring.full + s);
+      for (int j = 0; j < SLABS; ++j)
+        tma_load_3d(st + V_SLAB * (1 + j), &tm_v, 64 * j, key, b, ring.full + s);
+    }
+    return;
+  }
+  reg_alloc<CONSUMER_REGS<2>>();
+  const int cg = role - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = r0 + 64 * cg + 16 * warp + g;   // and row + 8
+  const size_t nlq = (size_t)n * lq;
+  float m[2], il[2], tacc[2] = {0.f, 0.f};
+  const uint32_t* keep_row[2];
+  const int words = keep_words(lkv);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 16 * warp + g + 8 * h;
-    mr[h] = r < lq ? row_max[(size_t)b * lq + r] : 0.f;
-    lr[h] = r < lq ? row_sum[(size_t)b * lq + r] : 1.f;
-    rid[h] = ((size_t)b * lq + r) * (size_t)lkv;
+    const int r = row + 8 * h;
+    const bool ok = r < lq;
+    m[h] = ok ? stats[(size_t)b * lq + r] : 0.f;
+    il[h] = ok ? 1.f / stats[nlq + (size_t)b * lq + r] : 1.f;
+    keep_row[h] = DROP && ok ? bits + ((size_t)b * lq + r) * words : nullptr;
   }
-  uint32_t qa[4][4];
-  for (int c = 0; c < chunks; ++c) {
-    const int buf = c & 1;
-    cp_wait_all();
-    __syncthreads();
-    if (c == 0) load_q_frags(qa, qs, 16 * warp);
-    if (c + 1 < chunks) {
-      stage_kv(c + 1, buf ^ 1);
-      cp_commit();
-    }
-    float s[PKEYS / 8][4];
-    scores<PKEYS / 8>(s, qa, ks + buf * PKEYS * HS, 0);
-    const bf16* vt = vs + buf * PKEYS * VS;
-    float dp[PKEYS / 8][4] = {};
-#pragma unroll 4
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t ya[4];
-      ldsm4(ya, a_at(ys, VS, 16 * warp, 16 * kk));
+  const uint64_t qd = sw128_desc(ring.head + cg * 64 * ROW);
+  bar_wait_or_flag(ring.head_full, 0, fault);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int s = ch % T_STAGES;
+    bar_wait_or_flag(ring.full + s, (ch / T_STAGES) & 1, fault);
+    const unsigned char* st = ring.base + s * STAGE;
+    float sc[16], dp[16];
+    const uint64_t kd = sw128_desc(st);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < PKEYS / 8; j += 2) {
-        uint32_t bb[4];
-        ldsm4(bb, b_at(vt, VS, 8 * j, 16 * kk));
-        mma16(dp[j], ya, bb[0], bb[1]);
-        mma16(dp[j + 1], ya, bb[2], bb[3]);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_32<0>(sc, qd + 2 * kk, kd + 2 * kk, kk);
 #pragma unroll
-    for (int j = 0; j < PKEYS / 8; ++j)
+    for (int j = 0; j < SLABS; ++j) {
+      const uint64_t ya = sw128_desc(ring.head + Q_BYTES + j * DY_SLAB + cg * 64 * ROW);
+      const uint64_t vb = sw128_desc(st + V_SLAB * (1 + j));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_32<0>(dp, ya + 2 * kk, vb + 2 * kk, j | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<16>(sc);
+    fence_regs<16>(dp);
+    if (lane == 0) bar_arrive(ring.empty + s);
+    const int k0 = (c0 + ch) * T_KEYS;
+    uint32_t kw[2] = {0u, 0u};   // the keep bits of the chunk's 32 keys, rows g and g + 8
+    if (DROP)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (keep_row[h]) kw[h] = keep_row[h][k0 / 32];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, key = c * PKEYS + 8 * j + 2 * t + (e & 1);
-        const float p = prob(s[j][e], scale, mr[h], lr[h], key, lkv);
-        float d = dp[j][e];
-        if (DROP) d = tdnet_keep(drop.seed, rid[h] + key, drop.threshold) ? d * drop.inv_keep : 0.f;
-        acc[h] = fmaf(d, p, acc[h]);
+        const int h = e >> 1, i = 8 * j + 2 * t + (e & 1);
+        if (k0 + i >= lkv) continue;
+        const float p = ex2(fmaf(sc[4 * j + e], c, -m[h])) * il[h];
+        float d = dp[4 * j + e];
+        if (DROP) d *= (kw[h] >> i) & 1u ? drop.inv_keep : 0.f;
+        tacc[h] = fmaf(d, p, tacc[h]);
       }
   }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    acc[h] += __shfl_xor_sync(0xffffffffu, acc[h], 1);
-    acc[h] += __shfl_xor_sync(0xffffffffu, acc[h], 2);
-    const int r = r0 + 16 * warp + g + 8 * h;
-    if (t == 0 && r < lq) t_out[(size_t)b * lq + r] = acc[h];
+  for (int h = 0; h < 2; ++h) {   // a row's 4 threads are the 4 lanes of a quad
+    tacc[h] += __shfl_xor_sync(0xffffffffu, tacc[h], 1);
+    tacc[h] += __shfl_xor_sync(0xffffffffu, tacc[h], 2);
+    const int r = row + 8 * h;
+    if (t == 0 && r < lq) t_part[range * nlq + (size_t)b * lq + r] = tacc[h];
   }
 }
 
-template <int NP>  // d_v = 128 NP
-constexpr size_t kv_smem() {
-  return sizeof(bf16) * (PKEYS * HS + PKEYS * (128 * NP + 8) + 2 * 64 * HS +
-                         2 * 64 * (128 * NP + 8) + 2 * 64 * PS);
+// rows[i] = (m_i, 1 / l_i, sum_p t_part[p][i] in order p = 0, 1, .., 0) for i < count = n lq.
+__global__ void __launch_bounds__(256)
+row_terms(const float* __restrict__ stats, const float* __restrict__ t_part,
+          float4* __restrict__ rows, int count, int ranges) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= count) return;
+  float t = t_part[i];
+  for (int p = 1; p < ranges; ++p) t += t_part[(size_t)p * count + i];
+  rows[i] = make_float4(stats[i], 1.f / stats[count + i], t, 0.f);
 }
 
-// Keys [32 blockIdx.x, + 32) of batch blockIdx.z over the 64-row q chunks of range blockIdx.y:
-//   dv_part[range, b, key, :] = sum_r bf16(pd_rk) dy_r,  dk_part[range, b, key, :] =
-//   scale sum_r ds_rk q_r (f32), and ds[b, r, key] = bf16(p (dp - t)) for every r of the range
-// (0 for keys past lkv). k and v stay in shared memory; each chunk's q and dy are staged by
-// cp.async, the next chunk's during this one. Per chunk, warp w forms s, dpd (K = d_v), p, pd and
-// ds for rows 16 (w % 4) x keys 16 (w / 4) and stores pd and ds by row; then dv += pd^T dy for
-// keys 16 (w % 2) x columns 32 NP (w / 2) (dv in registers, 16 NP a thread) and dk += ds^T q
-// for keys 16 (w % 2) x columns 16 (w / 2).
+// Keys [64 x, + 64) of batch z over the 32-row q chunks [range q_per, + q_per), range = y:
+//   dv_part[range][b][key][:] = sum_r bf16(pd_rk) dy_r (f32), warpgroup cg columns
+//   [64 NP cg, + 64 NP); dk_part[2 range + cg][b][key][:] = sum over the chunks' q rows
+//   [16 cg, + 16) of ds_rk q_r (f32, unscaled); ds[b][r][key] = bf16(p (dp - t)) for the rows
+//   [16 cg, + 16) of each chunk (0 for keys past lkv). The row terms (m, 1 / l, t) come with
+//   each chunk through tm_rows ([n][lq][4] f32).
 template <int NP, bool DROP>
-__global__ void __launch_bounds__(THREADS, 1)
-dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dy, const float* __restrict__ row_max,
-          const float* __restrict__ row_sum, const float* __restrict__ dsum,
-          bf16* __restrict__ ds, float* __restrict__ dk_part, float* __restrict__ dv_part, int n,
-          int lq, int lkv, int lds, float scale, int q_per, Drop drop) {
-  constexpr int DV = 128 * NP, VS = DV + 8, NTV = 4 * NP;
-  extern __shared__ __align__(16) bf16 smem_kv[];
-  bf16* ks = smem_kv;                  // [32][HS]
-  bf16* vs = ks + PKEYS * HS;          // [32][VS]
-  bf16* qs = vs + PKEYS * VS;          // [2][64][HS]
-  bf16* ys = qs + 2 * 64 * HS;         // [2][64][VS]
-  bf16* pds = ys + 2 * 64 * VS;        // [64][PS]: pd by q row
-  bf16* dss = pds + 64 * PS;           // [64][PS]: ds by q row
-  const int key0 = blockIdx.x * PKEYS, range = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int am = 16 * (warp & 3), an = 16 * (warp >> 2);
-  const int bm = 16 * (warp & 1), bn = 32 * NP * (warp >> 1), cn = 16 * (warp >> 1);
-  const int c_begin = range * q_per, c_end = min((lq + 63) / 64, c_begin + q_per);
-  q += (size_t)b * lq * DK;
-  k += (size_t)b * lkv * DK;
-  v += (size_t)b * lkv * DV;
-  dy += (size_t)b * lq * DV;
-  ds += (size_t)b * lq * lds;
-  auto stage_q = [&](int c, int buf) {
-    stage_bf16<64, DK, HS>(qs + buf * 64 * HS, q, DK, 64 * c, 0, lq, THREADS);
-    stage_bf16<64, DV, VS>(ys + buf * 64 * VS, dy, DV, 64 * c, 0, lq, THREADS);
-  };
-  stage_bf16<PKEYS, DK, HS>(ks, k, DK, key0, 0, lkv, THREADS);
-  stage_bf16<PKEYS, DV, VS>(vs, v, DV, key0, 0, lkv, THREADS);
-  stage_q(c_begin, 0);
-  cp_commit();
-  float dva[NTV][4] = {}, dka[2][4] = {};
-  for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
-    const int buf = it & 1;
-    cp_wait_all();
-    __syncthreads();  // chunk c landed; the last chunk's pd, ds and buffers are free
-    if (c + 1 < c_end) {
-      stage_q(c + 1, buf ^ 1);
-      cp_commit();
+__global__ void __launch_bounds__(384, 1)
+dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_dy,
+           const __grid_constant__ CUtensorMap tm_rows, const __grid_constant__ CUtensorMap tm_keep,
+           bf16* __restrict__ ds,
+           float* __restrict__ dk_part, float* __restrict__ dv_part,
+           unsigned int* __restrict__ fault, int lq, int lkv, int lds, float c, int q_per,
+           Drop drop) {
+  constexpr int SLABS = 2 * NP, DV = 128 * NP, HEAD = kv_head<NP>(), STAGE = kv_stage<NP>();
+  constexpr int K_BYTES = KV_KEYS * ROW, V_SLAB = KV_KEYS * ROW;
+  constexpr int Q_BYTES = KV_Q * ROW, DY_SLAB = KV_Q * ROW, ROWS_AT = Q_BYTES + SLABS * DY_SLAB;
+  extern __shared__ unsigned char smem_kv[];
+  const Ring ring(smem_kv, KV_STAGES, STAGE, HEAD);
+  const int n = gridDim.z, b = blockIdx.z, key0 = blockIdx.x * KV_KEYS, range = blockIdx.y;
+  const int qc0 = range * q_per;
+  const int chunks = min((lq + KV_Q - 1) / KV_Q - qc0, q_per);
+  init_ring<2>(ring, KV_STAGES);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
+  if (role == 0) {   // the producer
+    reg_dealloc<PRODUCER_REGS>();
+#ifdef TDNET_K2_STARVE
+    return;   // the fault check's build: no stage ever fills
+#endif
+    if (threadIdx.x != 0) return;
+    bar_expect(ring.head_full, HEAD);
+    tma_load_3d(ring.head, &tm_k, 0, key0, b, ring.head_full);
+    for (int j = 0; j < SLABS; ++j)
+      tma_load_3d(ring.head + K_BYTES + j * V_SLAB, &tm_v, 64 * j, key0, b, ring.head_full);
+    for (int ch = 0; ch < chunks; ++ch) {
+      wait_free(ring, ch, KV_STAGES);
+      const int s = ch % KV_STAGES;
+      unsigned char* st = ring.base + s * STAGE;
+      bar_expect(ring.full + s, ROWS_AT + KV_Q * 16 + (DROP ? KV_Q * KEEP_BOX * 4 : 0));
+      const int q0 = (qc0 + ch) * KV_Q;
+      tma_load_3d(st, &tm_q, 0, q0, b, ring.full + s);
+      for (int j = 0; j < SLABS; ++j)
+        tma_load_3d(st + Q_BYTES + j * DY_SLAB, &tm_dy, 64 * j, q0, b, ring.full + s);
+      tma_load_3d(st + ROWS_AT, &tm_rows, 0, q0, b, ring.full + s);
+      // the 4 words of the block's 64 keys' 128-key group: a box starts on 16 bytes
+      if (DROP) tma_load_3d(st + ROWS_AT + KV_Q * 16, &tm_keep, key0 / 128 * 4, q0, b,
+                            ring.full + s);
     }
-    const bf16* qt = qs + buf * 64 * HS;
-    const bf16* yt = ys + buf * 64 * VS;
-    uint32_t qa[4][4];
-    load_q_frags(qa, qt, am);
-    float s[2][4];
-    scores<2>(s, qa, ks, an);
-    float dp[2][4] = {};
-#pragma unroll 4
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t ya[4], bb[4];
-      ldsm4(ya, a_at(yt, VS, am, 16 * kk));
-      ldsm4(bb, b_at(vs, VS, an, 16 * kk));
-      mma16(dp[0], ya, bb[0], bb[1]);
-      mma16(dp[1], ya, bb[2], bb[3]);
+    return;
+  }
+  reg_alloc<CONSUMER_REGS<2>>();
+  const int cg = role - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t kd = sw128_desc(ring.head);
+  float dva[NP][32], dka[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dka[i] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < NP; ++hh) dva[hh][i] = 0.f;
+  }
+  unsigned short* dsb = reinterpret_cast<unsigned short*>(ds) + (size_t)b * lq * lds;
+  bar_wait_or_flag(ring.head_full, 0, fault);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int s = ch % KV_STAGES;
+    bar_wait_or_flag(ring.full + s, (ch / KV_STAGES) & 1, fault);
+    const unsigned char* st = ring.base + s * STAGE;
+    const int q0 = (qc0 + ch) * KV_Q;
+    float sc[16], dp[16];
+    const uint64_t qb = sw128_desc(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_32<0>(sc, kd + 2 * kk, qb + 2 * kk, kk);
+#pragma unroll
+    for (int j = 0; j < SLABS; ++j) {
+      const uint64_t va = sw128_desc(ring.head + K_BYTES + j * V_SLAB);
+      const uint64_t yb = sw128_desc(st + Q_BYTES + j * DY_SLAB);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_32<0>(dp, va + 2 * kk, yb + 2 * kk, j | kk);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<16>(sc);
+    fence_regs<16>(dp);
+    // s^T[4 j + e]: key key0 + 16 warp + g + 8 (e / 2), q row q0 + 8 j + 2 t + e % 2
+    const float4* terms = reinterpret_cast<const float4*>(st + ROWS_AT);
+    // the keep words of the chunk's rows: [KV_Q][KEEP_BOX] from key key0 / 128 * 128; key
+    // key0 + kl in word (key0 % 128 + kl) / 32
+    const uint32_t* keep = reinterpret_cast<const uint32_t*>(st + ROWS_AT + KV_Q * 16);
+    uint32_t pa[2][4], da[4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = am + g + 8 * h, r = 64 * c + rl;
-      const bool row_ok = r < lq;
-      const float m = row_ok ? row_max[(size_t)b * lq + r] : 0.f;
-      const float l = row_ok ? row_sum[(size_t)b * lq + r] : 1.f;
-      const float dd = row_ok ? dsum[(size_t)b * lq + r] : 0.f;
-      const size_t rid = ((size_t)b * lq + r) * (size_t)lkv;
+    for (int j = 0; j < 4; ++j) {
+      float pdv[4], dsv[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float pdv[2], dsv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = key0 + an + 8 * j + 2 * t + e;
-          const float p = row_ok ? prob(s[j][2 * h + e], scale, m, l, key, lkv) : 0.f;
-          float pd = p, dpv = dp[j][2 * h + e];
-          if (DROP) {
-            const bool keep = tdnet_keep(drop.seed, rid + key, drop.threshold);
-            pd = keep ? p * drop.inv_keep : 0.f;
-            dpv = keep ? dpv * drop.inv_keep : 0.f;
-          }
-          pdv[e] = pd;
-          dsv[e] = p * (dpv - dd);
+      for (int e = 0; e < 4; ++e) {
+        const int ql = 8 * j + 2 * t + (e & 1), r = q0 + ql;
+        const int key = key0 + 16 * warp + g + 8 * (e >> 1);
+        const float4 rt = terms[ql];   // (m, 1 / l, t)
+        const bool ok = r < lq && key < lkv;
+        const float p = ok ? ex2(fmaf(sc[4 * j + e], c, -rt.x)) * rt.y : 0.f;
+        float pd = p, d = dp[4 * j + e];
+        if (DROP) {
+          const int kl = key0 % 128 + 16 * warp + g + 8 * (e >> 1);
+          const float ks = (keep[ql * KEEP_BOX + (kl >> 5)] >> (kl & 31)) & 1u ? drop.inv_keep
+                                                                            : 0.f;
+          pd = p * ks;
+          d *= ks;
         }
-        const int col = an + 8 * j + 2 * t;
-        const uint32_t dsw = pack_bf16(dsv[0], dsv[1]);
-        *reinterpret_cast<uint32_t*>(pds + rl * PS + col) = pack_bf16(pdv[0], pdv[1]);
-        *reinterpret_cast<uint32_t*>(dss + rl * PS + col) = dsw;
-        if (row_ok) *reinterpret_cast<uint32_t*>(ds + (size_t)r * lds + key0 + col) = dsw;
+        pdv[e] = pd;
+        dsv[e] = p * (d - rt.z);
+      }
+      pa[j / 2][2 * (j % 2)] = pack_bf16(pdv[0], pdv[1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pdv[2], pdv[3]);
+      if ((j >> 1) == cg) {
+        const uint32_t lo = pack_bf16(dsv[0], dsv[1]), hi = pack_bf16(dsv[2], dsv[3]);
+        da[2 * (j % 2)] = lo;
+        da[2 * (j % 2) + 1] = hi;
+        // lo: keys g of q rows r, r + 1; hi: keys g + 8
+        const int r = q0 + 8 * j + 2 * t, key = key0 + 16 * warp + g;
+        if (r < lq) {
+          dsb[(size_t)r * lds + key] = (unsigned short)(lo & 0xFFFFu);
+          dsb[(size_t)r * lds + key + 8] = (unsigned short)(hi & 0xFFFFu);
+        }
+        if (r + 1 < lq) {
+          dsb[(size_t)(r + 1) * lds + key] = (unsigned short)(lo >> 16);
+          dsb[(size_t)(r + 1) * lds + key + 8] = (unsigned short)(hi >> 16);
+        }
       }
     }
-    __syncthreads();  // pd and ds stored
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4], da[4], bq[4];
-      ldsm4_t(pa, a_at_t(pds, PS, 16 * kk, bm));
+    for (int kk = 0; kk < 2; ++kk)   // the chunk's q rows [16 kk, + 16)
 #pragma unroll
-      for (int j = 0; j < NTV; j += 2) {
-        uint32_t bb[4];
-        ldsm4_t(bb, b_at_t(yt, VS, 16 * kk, bn + 8 * j));
-        mma16(dva[j], pa, bb[0], bb[1]);
-        mma16(dva[j + 1], pa, bb[2], bb[3]);
-      }
-      ldsm4_t(da, a_at_t(dss, PS, 16 * kk, bm));
-      ldsm4_t(bq, b_at_t(qt, HS, 16 * kk, cn));
-      mma16(dka[0], da, bq[0], bq[1]);
-      mma16(dka[1], da, bq[2], bq[3]);
-    }
+      for (int hh = 0; hh < NP; ++hh)
+        wgmma_rs_64<1>(dva[hh], pa[kk],
+                       sw128_n_desc(st + Q_BYTES + (NP * cg + hh) * DY_SLAB + kk * 16 * ROW,
+                                    DY_SLAB), 1);
+    wgmma_rs_64<1>(dka, da, sw128_n_desc(st + cg * 16 * ROW, Q_BYTES), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hh = 0; hh < NP; ++hh) fence_regs<32>(dva[hh]);
+    fence_regs<32>(dka);
+    if (lane == 0) bar_arrive(ring.empty + s);
   }
   float* dvo = dv_part + ((size_t)range * n + b) * lkv * DV;
-  float* dko = dk_part + ((size_t)range * n + b) * lkv * DK;
+  float* dko = dk_part + ((size_t)(2 * range + cg) * n + b) * lkv * D_K;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = key0 + bm + g + 8 * h;
+    const int key = key0 + 16 * warp + g + 8 * h;
     if (key >= lkv) continue;
 #pragma unroll
-    for (int j = 0; j < NTV; ++j)
-      *reinterpret_cast<float2*>(dvo + (size_t)key * DV + bn + 8 * j + 2 * t) =
-          make_float2(dva[j][2 * h], dva[j][2 * h + 1]);
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<float2*>(dko + (size_t)key * DK + cn + 8 * j + 2 * t) =
-          make_float2(dka[j][2 * h] * scale, dka[j][2 * h + 1] * scale);
+      for (int hh = 0; hh < NP; ++hh)
+        *reinterpret_cast<float2*>(dvo + (size_t)key * DV + 64 * (NP * cg + hh) + 8 * j +
+                                   2 * t) = make_float2(dva[hh][4 * j + 2 * h],
+                                                        dva[hh][4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(dko + (size_t)key * D_K + 8 * j + 2 * t) =
+          make_float2(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
+    }
   }
 }
 
-// dq[b, r, :] = bf16(scale sum_j ds[b, r, j] k[b, j, :]) for rows [64 blockIdx.x, + 64) of
-// batch blockIdx.y over every 32-key step, double-buffered; warp w owns rows 16 w.., all 64
-// columns.
-__global__ void __launch_bounds__(WARPS4)
-dq_bf16(const bf16* __restrict__ ds, const bf16* __restrict__ k, bf16* __restrict__ dq, int lq,
-        int lkv, int lds, float scale) {
-  __shared__ __align__(16) bf16 as[2][64 * PS];
-  __shared__ __align__(16) bf16 bs[2][PKEYS * HS];
-  const int r0 = blockIdx.x * 64, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int steps = lds / PKEYS;
-  ds += (size_t)b * lq * lds;
-  k += (size_t)b * lkv * DK;
-  auto stage = [&](int st, int buf) {
-    stage_bf16<64, PKEYS, PS>(as[buf], ds, lds, r0, st * PKEYS, lq, WARPS4);
-    stage_bf16<PKEYS, DK, HS>(bs[buf], k, DK, st * PKEYS, 0, lkv, WARPS4);
-  };
-  stage(0, 0);
-  cp_commit();
-  float acc[8][4] = {};
-  for (int st = 0; st < steps; ++st) {
-    const int buf = st & 1;
-    cp_wait_all();
-    __syncthreads();
-    if (st + 1 < steps) {
-      stage(st + 1, buf ^ 1);
-      cp_commit();
+// dq_part[split][b][r][:] = sum over the 64-key chunks [split k_per, + k_per) of ds[b, r,
+// keys] k[b, keys, :] (f32, unscaled) for rows [64 x, + 64) of batch z, split = y; ds through
+// tm_ds ([n][lq][lds], boxes of 64 keys x 64 rows), k through tm_k (boxes of 64 x 64).
+__global__ void __launch_bounds__(256, 2)
+dq_wgmma(const __grid_constant__ CUtensorMap tm_ds, const __grid_constant__ CUtensorMap tm_k,
+         float* __restrict__ dq_part, unsigned int* __restrict__ fault, int lq, int lds,
+         int k_per) {
+  extern __shared__ unsigned char smem_dq[];
+  const Ring ring(smem_dq, DQ_STAGES, DQ_STAGE, 0);
+  const int n = gridDim.z, b = blockIdx.z, split = blockIdx.y, c0 = split * k_per;
+  const int r0 = blockIdx.x * 64;
+  const int chunks = min(lds / DQ_KEYS - c0, k_per);
+  init_ring<1>(ring, DQ_STAGES);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);   // warp-uniform
+  if (role == 0) {   // the producer
+    reg_dealloc<PRODUCER_REGS>();
+#ifdef TDNET_K2_STARVE
+    return;   // the fault check's build: no stage ever fills
+#endif
+    if (threadIdx.x != 0) return;
+    for (int ch = 0; ch < chunks; ++ch) {
+      wait_free(ring, ch, DQ_STAGES);
+      const int s = ch % DQ_STAGES;
+      unsigned char* st = ring.base + s * DQ_STAGE;
+      bar_expect(ring.full + s, DQ_STAGE);
+      const int key = (c0 + ch) * DQ_KEYS;
+      tma_load_3d(st, &tm_ds, key, r0, b, ring.full + s);
+      tma_load_3d(st + 64 * ROW, &tm_k, 0, key, b, ring.full + s);
     }
-#pragma unroll
-    for (int kk = 0; kk < PKEYS / 16; ++kk) {
-      uint32_t a[4];
-      ldsm4(a, a_at(as[buf], PS, 16 * warp, 16 * kk));
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t bb[4];
-        ldsm4_t(bb, b_at_t(bs[buf], HS, 16 * kk, 8 * j));
-        mma16(acc[j], a, bb[0], bb[1]);
-        mma16(acc[j + 1], a, bb[2], bb[3]);
-      }
-    }
+    return;
   }
-  dq += (size_t)b * lq * DK;
+  reg_alloc<CONSUMER_REGS<1>>();
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int s = ch % DQ_STAGES;
+    bar_wait_or_flag(ring.full + s, (ch / DQ_STAGES) & 1, fault);
+    const unsigned char* st = ring.base + s * DQ_STAGE;
+    const uint64_t a = sw128_desc(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_64<1>(acc, a + 2 * kk, sw128_n_desc(st + 64 * ROW + kk * 16 * ROW, 64 * ROW), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(acc);
+    if (lane == 0) bar_arrive(ring.empty + s);
+  }
+  float* out = dq_part + ((size_t)split * n + b) * lq * D_K;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 16 * warp + g + 8 * h;
     if (r >= lq) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(dq + (size_t)r * DK + 8 * j + 2 * t) =
-          pack_bf16(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(out + (size_t)r * D_K + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
-// out[i] = bf16(sum_p parts[p * count + i]), summed in order p = 0, 1, ...; 4 a thread.
-__global__ void __launch_bounds__(THREADS)
-sum_parts_bf16(const float4* __restrict__ parts, uint2* __restrict__ out, int nparts,
-               size_t count4) {
-  for (size_t i = blockIdx.x * (size_t)THREADS + threadIdx.x; i < count4;
-       i += (size_t)gridDim.x * THREADS) {
-    float4 s = parts[i];
-    for (int p = 1; p < nparts; ++p) {
-      const float4 x = parts[(size_t)p * count4 + i];
+// out = bf16(scale sum_p parts[p]), summed in order p = 0, 1, ..; blockIdx.y picks the job.
+// PASS names the caller in a profile: 0 the forward's partial outputs, 1 the backward's
+// gradients.
+struct SumJob {
+  const float4* parts;
+  uint2* out;
+  int nparts;
+  size_t count4;
+  float scale;
+};
+struct SumJobs {
+  SumJob job[3];
+};
+
+template <int PASS>
+__global__ void __launch_bounds__(256)
+sum_scaled(SumJobs jobs) {
+  const SumJob job = blockIdx.y == 0 ? jobs.job[0] : blockIdx.y == 1 ? jobs.job[1] : jobs.job[2];
+  for (size_t i = blockIdx.x * (size_t)256 + threadIdx.x; i < job.count4;
+       i += (size_t)gridDim.x * 256) {
+    float4 s = job.parts[i];
+    for (int p = 1; p < job.nparts; ++p) {
+      const float4 x = job.parts[(size_t)p * job.count4 + i];
       s.x += x.x;
       s.y += x.y;
       s.z += x.z;
       s.w += x.w;
     }
-    out[i] = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+    job.out[i] = make_uint2(pack_bf16(s.x * job.scale, s.y * job.scale),
+                            pack_bf16(s.z * job.scale, s.w * job.scale));
   }
 }
 
-int sum_into_bf16(const float* parts, bf16* out, int nparts, size_t count, cudaStream_t st) {
-  if (count % 4) return (int)cudaErrorInvalidValue;
-  const size_t count4 = count / 4, blocks = (count4 + THREADS - 1) / THREADS;
-  sum_parts_bf16<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(
-      reinterpret_cast<const float4*>(parts), reinterpret_cast<uint2*>(out), nparts, count4);
+// Launch sum_scaled over the first `count` jobs.
+template <int PASS>
+int launch_sums(const SumJobs& jobs, int count, cudaStream_t st) {
+  size_t most = 0;
+  for (int i = 0; i < count; ++i) most = jobs.job[i].count4 > most ? jobs.job[i].count4 : most;
+  const size_t blocks = (most + 255) / 256;
+  sum_scaled<PASS><<<dim3((unsigned)(blocks < 2048 ? blocks : 2048), count), 256, 0, st>>>(jobs);
   return (int)cudaGetLastError();
 }
 
+// The forward's tiling: q rows a block (64: one consumer warpgroup), 128 or 256 columns, 64
+// keys a chunk and `stages` of the p v kernel, kernels/grid.py:train_forward_plan.
+template <bool DROP>
+int forward(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* o_part, float* stats,
+            float* stats_part, uint32_t* bits, unsigned int* fault, int n, int lq, int lkv,
+            int dv, float scale,
+            int cols, int keys, int stages, int stat_kper, int pv_kper, const Drop& drop,
+            cudaStream_t st) {
+  if ((cols != 128 && cols != 256) || keys != 64 || dv % cols || stat_kper < 1 || pv_kper < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t nlq = (size_t)n * lq;
+  const int stat_ranges = ((lkv + STATS_KEYS - 1) / STATS_KEYS + stat_kper - 1) / stat_kper;
+  const int pv_ranges = ((lkv + keys - 1) / keys + pv_kper - 1) / pv_kper;
+  if ((stat_ranges > 1 && !stats_part) || (pv_ranges > 1 && !o_part) || (DROP && !bits))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ts, tk, tv;
+  int err = bf16_tensor_map(&ts, k, D_K, lkv, n, STATS_KEYS);
+  if (err != 0 || (err = bf16_tensor_map(&tk, k, D_K, lkv, n, keys)) != 0 ||
+      (err = bf16_tensor_map(&tv, v, dv, lkv, n, keys)) != 0)
+    return err;
+  const float c = scale * LOG2E;
+  float* row_max = stat_ranges > 1 ? stats_part : stats;
+  float* row_sum = row_max + (size_t)stat_ranges * nlq;
+  const AttnOut so{row_max, row_sum, nullptr, nullptr, nullptr, fault};
+  const Drop none{0u, 0u, 1.f};
+  err = launch_attn<1, 128, STATS_KEYS, true, false>(q, ts, ts, so, n, lq, lkv, dv, c, AUX_STAGES,
+                                                     stat_kper, 1, none, st);
+  if (err != 0) return err;
+  if (DROP && (err = launch_keep_bits(bits, n, lq, lkv, drop, st)) != 0) return err;
+  const AttnOut po{row_max, row_sum, o,     pv_ranges > 1 ? o_part : nullptr,
+                   stat_ranges > 1 ? stats : nullptr, fault, bits, keep_words(lkv)};
+  err = cols == 128 ? launch_attn<1, 128, 64, false, DROP>(q, tk, tv, po, n, lq, lkv, dv, c,
+                                                         stages, pv_kper, stat_ranges, drop, st)
+                    : launch_attn<1, 256, 64, false, DROP>(q, tk, tv, po, n, lq, lkv, dv, c,
+                                                         stages, pv_kper, stat_ranges, drop, st);
+  if (err != 0 || pv_ranges == 1) return err;
+  SumJobs jobs{};
+  jobs.job[0] = SumJob{reinterpret_cast<const float4*>(o_part), reinterpret_cast<uint2*>(o),
+                       pv_ranges, nlq * dv / 4, 1.f};
+  return launch_sums<0>(jobs, 1, st);
+}
+
+// A failed step of the backward, named on stderr; returns its CUDA error.
+inline int report(const char* step, int index, int err) {
+  fprintf(stderr, "K2 bf16 backward: %s %d failed: CUDA error %d (%s)\n", step, index, err,
+          cudaGetErrorString((cudaError_t)err));
+  return err;
+}
+
+// The backward's scratch, carved by the caller (kernels/propagation_attention_train.py:
+// backward_plan): rows [n][lq][4] f32, t_part [t_ranges][n][lq] f32, ds [n][lq][lds] bf16,
+// dq_part [ksplit][n][lq][64], dk_part [2 qsplit][n][lkv][64] and dv_part [qsplit][n][lkv][dv]
+// f32.
+struct Scratch {
+  float* rows;
+  float* t_part;
+  bf16* ds;
+  float* dq_part;
+  float* dk_part;
+  float* dv_part;
+};
+
 template <int NP, bool DROP>
-int backward(const bf16* q, const bf16* k, const bf16* v, const bf16* dy,
-             const float* row_max, const float* row_sum, float* dsum, bf16* ds, bf16* dq,
-             bf16* dk, bf16* dv_out, float* dk_part, float* dv_part, int n, int lq, int lkv,
-             float scale, int q_per, Drop drop, cudaStream_t st) {
+int backward(const bf16* q, const bf16* k, const bf16* v, const bf16* dy, const float* stats,
+             const uint32_t* bits, const Scratch& sc, bf16* dq, bf16* dk, bf16* dv_out,
+             unsigned int* fault, int n,
+             int lq, int lkv, float scale, int t_kper, int q_per, int dq_kper, const Drop& drop,
+             cudaStream_t st) {
   constexpr int DV = 128 * NP;
-  constexpr size_t t_smem = rowt_smem<NP>();
-  cudaError_t err = cudaFuncSetAttribute(rowt_bf16<NP, DROP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t_smem);
-  if (err != cudaSuccess) return (int)err;
-  rowt_bf16<NP, DROP><<<dim3((lq + 63) / 64, n), WARPS4, t_smem, st>>>(
-      q, k, v, dy, row_max, row_sum, dsum, lq, lkv, scale, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int key_blocks = (lkv + PKEYS - 1) / PKEYS, lds = key_blocks * PKEYS;
-  const int qsplit = ((lq + 63) / 64 + q_per - 1) / q_per;
-  constexpr size_t smem = kv_smem<NP>();
-  err = cudaFuncSetAttribute(dkdv_bf16<NP, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dkdv_bf16<NP, DROP><<<dim3(key_blocks, qsplit, n), THREADS, smem, st>>>(
-      q, k, v, dy, row_max, row_sum, dsum, ds, dk_part, dv_part, n, lq, lkv, lds, scale, q_per,
-      drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dq_bf16<<<dim3((lq + 63) / 64, n), WARPS4, 0, st>>>(ds, k, dq, lq, lkv, lds, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = (cudaError_t)sum_into_bf16(dk_part, dk, qsplit, (size_t)n * lkv * DK, st)) !=
-      cudaSuccess)
-    return (int)err;
-  return sum_into_bf16(dv_part, dv_out, qsplit, (size_t)n * lkv * DV, st);
+  const int lds = (lkv + KV_KEYS - 1) / KV_KEYS * KV_KEYS;
+  const int t_ranges = ((lkv + T_KEYS - 1) / T_KEYS + t_kper - 1) / t_kper;
+  const int qsplit = ((lq + KV_Q - 1) / KV_Q + q_per - 1) / q_per;
+  const int ksplit = (lds / DQ_KEYS + dq_kper - 1) / dq_kper;
+  const float c = scale * LOG2E;
+  if (DROP && !bits) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq128, tq32, tk32, tk64, tv32, tv64, tdy128, tdy32, trows, tds, tkeep;
+  int err = 0;
+  const int maps[11] = {bf16_tensor_map(&tq128, q, D_K, lq, n, T_ROWS),
+                        bf16_tensor_map(&tq32, q, D_K, lq, n, KV_Q),
+                        bf16_tensor_map(&tk32, k, D_K, lkv, n, T_KEYS),
+                        bf16_tensor_map(&tk64, k, D_K, lkv, n, KV_KEYS),
+                        bf16_tensor_map(&tv32, v, DV, lkv, n, T_KEYS),
+                        bf16_tensor_map(&tv64, v, DV, lkv, n, KV_KEYS),
+                        bf16_tensor_map(&tdy128, dy, DV, lq, n, T_ROWS),
+                        bf16_tensor_map(&tdy32, dy, DV, lq, n, KV_Q),
+                        f32_tensor_map(&trows, sc.rows, 4, lq, n, 4, KV_Q),
+                        bf16_tensor_map(&tds, sc.ds, lds, lq, n, 64),
+                        DROP ? f32_tensor_map(&tkeep, bits, keep_words(lkv), lq, n, KEEP_BOX,
+                                              KV_Q)
+                             : f32_tensor_map(&tkeep, sc.rows, 4, lq, n, 4, KV_Q)};
+  for (int i = 0; i < 11; ++i)
+    if (maps[i] != 0) return report("tensor map", i, maps[i]);
+  constexpr auto t_kernel = rowt_wgmma<NP, DROP>;
+  constexpr auto kv_kernel = dkdv_wgmma<NP, DROP>;
+  const size_t t_smem = ring_smem(T_STAGES, t_stage<NP>(), t_head<NP>());
+  const size_t kv_smem = ring_smem(KV_STAGES, kv_stage<NP>(), kv_head<NP>());
+  const size_t dq_smem = ring_smem(DQ_STAGES, DQ_STAGE, 0);
+  if ((err = allow_smem<t_kernel>(t_smem)) != 0) return report("t pass smem", 0, err);
+  if ((err = allow_smem<kv_kernel>(kv_smem)) != 0) return report("dk/dv pass smem", 0, err);
+  if ((err = allow_smem<dq_wgmma>(dq_smem)) != 0) return report("dq pass smem", 0, err);
+  t_kernel<<<dim3((lq + T_ROWS - 1) / T_ROWS, t_ranges, n), 384, t_smem, st>>>(
+      tq128, tk32, tv32, tdy128, stats, bits, sc.t_part, fault, lq, lkv, c, t_kper, drop);
+  if ((err = (int)cudaGetLastError()) != 0) return report("t pass", 0, err);
+  const int count = n * lq;
+  row_terms<<<(count + 255) / 256, 256, 0, st>>>(stats, sc.t_part,
+                                                 reinterpret_cast<float4*>(sc.rows), count,
+                                                 t_ranges);
+  if ((err = (int)cudaGetLastError()) != 0) return report("row terms", 0, err);
+  kv_kernel<<<dim3(lds / KV_KEYS, qsplit, n), 384, kv_smem, st>>>(
+      tq32, tk64, tv64, tdy32, trows, tkeep, sc.ds, sc.dk_part, sc.dv_part, fault, lq, lkv, lds, c,
+      q_per, drop);
+  if ((err = (int)cudaGetLastError()) != 0) return report("dk/dv pass", 0, err);
+  dq_wgmma<<<dim3((lq + 63) / 64, ksplit, n), 256, dq_smem, st>>>(tds, tk64, sc.dq_part, fault,
+                                                                 lq, lds, dq_kper);
+  if ((err = (int)cudaGetLastError()) != 0) return report("dq pass", 0, err);
+  SumJobs jobs{};
+  jobs.job[0] = SumJob{reinterpret_cast<const float4*>(sc.dq_part), reinterpret_cast<uint2*>(dq),
+                       ksplit, (size_t)count * D_K / 4, scale};
+  jobs.job[1] = SumJob{reinterpret_cast<const float4*>(sc.dk_part), reinterpret_cast<uint2*>(dk),
+                       2 * qsplit, (size_t)n * lkv * D_K / 4, scale};
+  jobs.job[2] = SumJob{reinterpret_cast<const float4*>(sc.dv_part),
+                       reinterpret_cast<uint2*>(dv_out), qsplit, (size_t)n * lkv * DV / 4, 1.f};
+  if ((err = launch_sums<1>(jobs, 3, st)) != 0) return report("sums", 0, err);
+  return 0;
 }
 
 template <bool DROP>
-int backward_dv(int dv, const bf16* q, const bf16* k, const bf16* v,
-                const bf16* dy, const float* row_max, const float* row_sum, float* dsum,
-                bf16* ds, bf16* dq, bf16* dk, bf16* dv_out, float* dk_part, float* dv_part,
-                int n, int lq, int lkv, float scale, int q_per, Drop drop, cudaStream_t st) {
+int backward_dv(int dv, const bf16* q, const bf16* k, const bf16* v, const bf16* dy,
+                const float* stats, const uint32_t* bits, const Scratch& sc, bf16* dq, bf16* dk,
+                bf16* dv_out,
+                unsigned int* fault, int n, int lq, int lkv, float scale, int t_kper, int q_per,
+                int dq_kper, const Drop& drop, cudaStream_t st) {
+  if (t_kper < 1 || q_per < 1 || dq_kper < 1) return (int)cudaErrorInvalidValue;
 #define TDNET_BWD16(NP)                                                                       \
-  backward<NP, DROP>(q, k, v, dy, row_max, row_sum, dsum, ds, dq, dk, dv_out, dk_part,        \
-                     dv_part, n, lq, lkv, scale, q_per, drop, st)
+  backward<NP, DROP>(q, k, v, dy, stats, bits, sc, dq, dk, dv_out, fault, n, lq, lkv, scale,     \
+                     t_kper, q_per, dq_kper, drop, st)
   switch (dv) {
     case 128: return TDNET_BWD16(1);
     case 256: return TDNET_BWD16(2);
@@ -1268,7 +1265,7 @@ int backward_dv(int dv, const bf16* q, const bf16* k, const bf16* v,
 #undef TDNET_BWD16
 }
 
-}  // namespace k2bf16
+}  // namespace k2
 
 }  // namespace
 
@@ -1315,38 +1312,75 @@ int tdnet_attention_train_bwd(const void* q, const void* k, const void* v, const
              lkv, scale, q_per, k_per, drop, st);
 }
 
-// bf16: q, k, v, o bf16, stats f32 as above; the p v pass takes column blocks of `cols` (128
-// or 256, dividing dv).
+// bf16: q [n, lq, 64], k [n, lkv, 64], v [n, lkv, dv], out o [n, lq, dv], bf16; stats [2, n,
+// lq] f32 (the merged row max and sum in log2 units, K1's; kept for the backward); with
+// dropout, bits [n, lq, keep_words(lkv)] uint32 out (the keep bits, kept for the backward); the
+// error word `fault`. The p v kernel takes `cols` columns (128 or 256, dividing dv) and `keys` keys
+// a chunk (64 or 128) in `stages` ring stages; the keys split into ranges of stat_kper
+// 128-key chunks (stats) and pv_kper `keys`-key chunks (p v), with more than one range into
+// stats_part [2, stat ranges, n, lq] and o_part [pv ranges, n, lq, dv] f32 scratch
+// (kernels/grid.py:train_forward_plan).
 int tdnet_attention_train_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                   void* stats, int n, int lq, int lkv, int dv, float scale,
-                                   int cols, unsigned int seed, unsigned int drop_threshold,
+                                   void* o_part, void* stats, void* stats_part, void* bits,
+                                   void* fault,
+                                   int n, int lq, int lkv, int dv, float scale, int cols,
+                                   int keys, int stages, int stat_kper, int pv_kper,
+                                   unsigned int seed, unsigned int drop_threshold,
                                    float inv_keep, void* stream) {
-  using k2bf16::bf16;
-  float* row_max = (float*)stats;
   const Drop drop{seed, drop_threshold, inv_keep};
-  auto run = drop_threshold ? k2bf16::forward<true> : k2bf16::forward<false>;
-  return run((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, row_max,
-             row_max + (size_t)n * lq, n, lq, lkv, dv, scale, cols, drop, (cudaStream_t)stream);
+  auto run = drop_threshold ? k2::forward<true> : k2::forward<false>;
+  return run((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)o_part,
+             (float*)stats, (float*)stats_part, (uint32_t*)bits, (unsigned int*)fault, n, lq, lkv,
+             dv, scale,
+             cols, keys, stages, stat_kper, pv_kper, drop, (cudaStream_t)stream);
 }
 
-// The backward of the bf16 call above (its o is not needed): q, k, v, dy and the outputs dq,
-// dk, dv bf16; scratch
-// dsum [n, lq] f32 (t), ds [n, lq, lds] bf16, dk_part [qsplit, n, lkv, 64] and dv_part [qsplit, n,
-// lkv, dv] f32, with lds and qsplit as for the f32 backward.
-int tdnet_attention_train_bwd_bf16(const void* q, const void* k, const void* v,
-                                   const void* dy, const void* stats, void* dsum, void* ds,
-                                   void* dq, void* dk, void* dv_out, void* dk_part,
-                                   void* dv_part, int n, int lq, int lkv, int dv, float scale,
-                                   int q_per, unsigned int seed, unsigned int drop_threshold,
+// The backward of the bf16 call above, given its stats and bits and the upstream dy [n, lq, dv]
+// (bf16),
+// dv in {128, 256, 384, 512}: dq, dk, dv bf16 out. Scratch (k2::Scratch; sizes from
+// kernels/propagation_attention_train.py:backward_plan): rows, t_part, ds, dq_part, dk_part,
+// dv_part; the t pass takes key ranges of t_kper 32-key chunks, the dk/dv pass q ranges of
+// q_per 32-row chunks, the dq pass key ranges of dq_kper 64-key chunks.
+int tdnet_attention_train_bwd_bf16(const void* q, const void* k, const void* v, const void* dy,
+                                   const void* stats, const void* bits, void* rows, void* t_part,
+                                   void* ds,
+                                   void* dq_part, void* dk_part, void* dv_part, void* dq,
+                                   void* dk, void* dv_out, void* fault, int n, int lq, int lkv,
+                                   int dv, float scale, int t_kper, int q_per, int dq_kper,
+                                   unsigned int seed, unsigned int drop_threshold,
                                    float inv_keep, void* stream) {
-  using k2bf16::bf16;
-  const float* row_max = (const float*)stats;
   const Drop drop{seed, drop_threshold, inv_keep};
-  auto run = drop_threshold ? k2bf16::backward_dv<true> : k2bf16::backward_dv<false>;
-  return run(dv, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dy, row_max,
-             row_max + (size_t)n * lq, (float*)dsum, (bf16*)ds, (bf16*)dq, (bf16*)dk,
-             (bf16*)dv_out, (float*)dk_part, (float*)dv_part, n, lq, lkv, scale, q_per, drop,
-             (cudaStream_t)stream);
+  const k2::Scratch sc{(float*)rows, (float*)t_part, (bf16*)ds, (float*)dq_part,
+                       (float*)dk_part, (float*)dv_part};
+  auto run = drop_threshold ? k2::backward_dv<true> : k2::backward_dv<false>;
+  return run(dv, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dy,
+             (const float*)stats, (const uint32_t*)bits, sc, (bf16*)dq, (bf16*)dk, (bf16*)dv_out,
+             (unsigned int*)fault,
+             n, lq, lkv, scale, t_kper, q_per, dq_kper, drop, (cudaStream_t)stream);
+}
+
+// Registers a thread at launch and local memory a thread (bytes: spills) of the bf16 kernels
+// at d_v 512, with (drop 1) or without the mask: out[2 i], out[2 i + 1] for the stats kernel,
+// the p v kernel of 128 and of 256 columns, and the t, dk/dv and dq passes (i = 0 .. 5).
+int tdnet_attention_train_bf16_attributes(int drop, int* out) {
+  using namespace k2;
+  const void* with[6] = {(const void*)attn_bf16<1, 128, STATS_KEYS, true, false>,
+                         (const void*)attn_bf16<1, 128, 64, false, true>,
+                         (const void*)attn_bf16<1, 256, 64, false, true>,
+                         (const void*)rowt_wgmma<4, true>, (const void*)dkdv_wgmma<4, true>,
+                         (const void*)dq_wgmma};
+  const void* without[6] = {with[0], (const void*)attn_bf16<1, 128, 64, false, false>,
+                            (const void*)attn_bf16<1, 256, 64, false, false>,
+                            (const void*)rowt_wgmma<4, false>, (const void*)dkdv_wgmma<4, false>,
+                            with[5]};
+  for (int i = 0; i < 6; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, drop ? with[i] : without[i]);
+    if (err != cudaSuccess) return (int)err;
+    out[2 * i] = a.numRegs;
+    out[2 * i + 1] = (int)a.localSizeBytes;
+  }
+  return 0;
 }
 
 const char* tdnet_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,6 +1,7 @@
 """The error word of the bf16 kernels whose consumer warpgroups may give up.
 
-K1's bf16 kernels (``propagation_attention.py``) and K5's bf16 kernel
+K1's bf16 kernels (``propagation_attention.py``), K2's bf16 kernels, forward and
+backward (``propagation_attention_train.py``), and K5's bf16 kernel
 (``dilated_conv.py``) run consumer warpgroups that take registers by
 ``setmaxnreg``; such a warpgroup must not trap, so one that gives up waiting
 on a barrier sets this word (one int32 a CUDA device) and exits, and its
@@ -32,7 +33,7 @@ def fault_word(device) -> torch.Tensor:
 
 
 def check_fault(device) -> None:
-    """Raise if a bf16 launch of K1 or K5 on ``device`` since the last check had
+    """Raise if a bf16 launch of K1, K2 or K5 on ``device`` since the last check had
     a consumer warpgroup give up on a barrier (and clear the word). Reads one
     int32 from the device, so it waits for the device's queued work."""
     if torch.device(device).type != "cuda":
@@ -40,6 +41,7 @@ def check_fault(device) -> None:
     word = _words.get(_index(device))
     if word is not None and word.item():
         word.zero_()
-        raise RuntimeError("a bf16 kernel (K1, the propagation attention, or K5, the dilated "
-                           "conv): a consumer warpgroup gave up waiting on a barrier, so a "
-                           "launch left part of its output unwritten")
+        raise RuntimeError("a bf16 kernel (K1, the propagation attention; K2, the training "
+                           "attention; or K5, the dilated conv): a consumer warpgroup gave up "
+                           "waiting on a barrier, so a launch left part of its output "
+                           "unwritten")
