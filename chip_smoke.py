@@ -78,13 +78,20 @@ Phases (any failure exits non-zero):
    bitwise equal, then forward and backward timed in turns (step, randn,
    step, randn) with each kernel's device ms and the SM clock and power;
 8. K3 against its plain version at [18,721, 512] and [2,145, 512]: output and
-   backward (from a seeded dy) bit-identical, the same mask; keep rate within
-   0.9 +- 1e-3;
-   kernel, plain and ``F.dropout`` times, and the device time of K3's and
-   ``F.dropout``'s kernels from one ``torch.profiler`` trace of both;
-8b. the same in bf16: output and backward bit-identical (x times 1 / 0.9
-   rounded to bf16, one rounding), the keep rate, kernel, plain and
-   ``F.dropout`` (bf16) times, device times, and the bound (bytes);
+   backward (from a seeded dy) bit-identical, the same mask, the call on an x
+   that needs no gradient identical too; keep rate within 0.9 +- 1e-3; the
+   sha256 of its output and autograd dx at both row counts (``k3_digests``:
+   run with a parent's package, two trees are compared bit for bit); at both
+   row counts, K3's and ``F.dropout``'s calls in turns (kernel, F.dropout,
+   F.dropout, kernel), the forward alone and forward plus backward through
+   autograd (the train step's form, the kernels entry's ``ms``), the device
+   time of each one's kernels from one ``torch.profiler`` trace of each form
+   against the bound (bytes), and K3's forward plus backward with its inputs
+   cold in L2 (``k3_turns``); one call's host time split into its parts, the
+   parent wrapper's and the new one's, beside ``F.dropout``'s, and each whole
+   call's CPU time from one trace (``k3_host_split``); the plain version's
+   forward plus backward;
+8b. the same in bf16 (x times 1 / 0.9 rounded to bf16, one rounding);
 9. the TD4-PSP18 full training recipe at 769x1537, batch 1, f32: seeded
    student and ResNet-101 teacher, OHEM, KD, AdaOptimizer; a warm-up step and
    8 steps with pos_id 0-3, every loss finite, 3 launches a step of each of K2
@@ -243,6 +250,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -252,6 +260,9 @@ import torch.nn.functional as F
 SHAPES = [(1225, 1225), (18721, 1225), (33153, 2145), (700, 130)]   # (Lq, Lkv)
 TRAIN_SHAPES = [(2145, 2145), (18721, 2145)]   # the TD4 training hops (Lq, Lkv)
 DROP_ROWS = [18721, 2145]                       # K3's [rows, 512] on the training path
+# phases 8 and 8b: CUDA-event calls a turn; a backward's host time through autograd's engine
+# spreads by tens of us from call to call
+K3_REPS = 50
 TRAIN_STEPS = 8
 K5_STEPS = 4
 STEM_SHAPES = [(513, 1025), (385, 769), (21, 35)]   # K4's input (H, W): TD2, PSP-101, ragged
@@ -955,55 +966,266 @@ def phase_train_attention(card: str) -> dict:
                     library_ms=times["sdpa"][1], **bwd_b)}
 
 
-def phase_dropout(card: str) -> dict:
-    """K3 against its plain version; returns the kernels entry's numbers."""
+def _fwd_bwd_call(fn, x: torch.Tensor, dy: torch.Tensor):
+    """One forward and backward through autograd, as a train step runs it: x's
+    gradient set to None first, so that no call adds into the last one's."""
+    def run():
+        x.grad = None
+        fn(x).backward(dy)
+    return run
+
+
+def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator) -> dict:
+    """K3's and ``F.dropout``'s calls at each of ``DROP_ROWS``, in turns (kernel,
+    F.dropout, F.dropout, kernel; each the median of ``K3_REPS`` CUDA-event
+    calls): the forward alone on an x that needs no gradient, and forward plus
+    backward through autograd (``_fwd_bwd_call``), the train step's form; then
+    the device time of each one's kernels from one ``torch.profiler`` trace of
+    each form, and K3's forward plus backward with x and dy cold, rotating over
+    as many (x, dy) as hold 200 MB (the traces of the two calls in turns leave
+    x in L2 wherever it fits). Returns rows -> the kernels entry's numbers:
+    forward plus backward (``ms``, ``library_ms``, ``device_ms`` warm and
+    ``device_cold_ms``, the bound of its two launches) and the forward alone
+    (``forward_*``), each side's two turns averaged."""
     from tdnet_tpu_torch.cli.profile import kernel_family
-    from tdnet_tpu_torch.kernels.dropout import dropout, dropout_plain
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED + 1)
-    log(f"[8] dropout kernel vs plain ({card}): bit-identical output and backward, keep rate "
-        f"0.9 +- 1e-3")
+    from tdnet_tpu_torch.kernels.dropout import dropout
+
+    def split(traced):
+        if traced is None:
+            return None, None, "not measured"
+        mine = [t for t in traced if kernel_family(t[0], train=True) == "K3 dropout"]
+        theirs = [t for t in traced if t not in mine]
+        return (sum(t for _, t in mine), sum(t for _, t in theirs),
+                f"K3 {format_rows(mine)}; F.dropout {format_rows(theirs)}")
+
+    out = {}
     for rows in DROP_ROWS:
-        x = torch.randn(rows, D_V, generator=gen).to(dev).requires_grad_(True)
+        x = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+        xg = x.clone().requires_grad_(True)
+        dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+        calls = {"forward": (lambda: dropout(x, 0.1, SEED),
+                             lambda: F.dropout(x, 0.1, training=True)),
+                 "forward+backward": (
+                     _fwd_bwd_call(lambda t: dropout(t, 0.1, SEED), xg, dy),
+                     _fwd_bwd_call(lambda t: F.dropout(t, 0.1, training=True), xg, dy))}
+        r = {}
+        for what, (kernel, lib) in calls.items():
+            turns = [median_ms(f, reps=K3_REPS) for f in (kernel, lib, lib, kernel)]
+            r[what] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+            log(f"[{tag}] [{rows}, {D_V}] {what} ms in turns (kernel, F.dropout, F.dropout, "
+                f"kernel): {', '.join(f'{t:.4f}' for t in turns)}; kernel / F.dropout "
+                f"{r[what][0] / r[what][1]:.3f}")
+        one = bound(0, 2 * dtype.itemsize * rows * D_V, PEAK_BF16)
+        both = bound(0, 4 * dtype.itemsize * rows * D_V, PEAK_BF16)   # x, y, dy, dx
+        n_sets = -(-200_000_000 // (4 * dtype.itemsize * rows * D_V))
+        dev, lib_dev, rows_fwd = split(device_rows(*calls["forward"]))
+        dev2, lib_dev2, rows_both = split(device_rows(*calls["forward+backward"]))
+        sets = [(torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True),
+                 torch.randn(rows, D_V, generator=gen).to("cuda", dtype))
+                for _ in range(n_sets)]
+        cold = device_rows(lambda: [_fwd_bwd_call(lambda t: dropout(t, 0.1, SEED), *s)()
+                                    for s in sets])
+        cold_ms = None if cold is None else split(cold)[0] / len(sets)
+        del sets
+        log(f"[{tag}] [{rows}, {D_V}] forward device ms, one trace: {rows_fwd}; bound "
+            f"{one['bound_ms']:.4f} ms by {one['bound_by']}"
+            + ("" if dev is None else f", K3 at {one['bound_ms'] / dev:.3f} of it"))
+        log(f"[{tag}] [{rows}, {D_V}] forward+backward device ms, one trace: {rows_both}; "
+            f"K3 cold (over {n_sets} x and dy) "
+            + ("not measured" if cold_ms is None else f"{cold_ms:.4f}")
+            + f"; bound {both['bound_ms']:.4f} ms by {both['bound_by']}"
+            + ("" if dev2 is None or cold_ms is None else
+               f", K3 at {both['bound_ms'] / dev2:.3f} of it warm, "
+               f"{both['bound_ms'] / cold_ms:.3f} cold"))
+        out[rows] = dict(ms=r["forward+backward"][0], library_ms=r["forward+backward"][1],
+                         device_ms=dev2, device_cold_ms=cold_ms, library_device_ms=lib_dev2,
+                         forward_ms=r["forward"][0], library_forward_ms=r["forward"][1],
+                         forward_device_ms=dev, library_forward_device_ms=lib_dev,
+                         **both)
+    return out
+
+
+class _NoWork(torch.autograd.Function):
+    """An autograd function that does no work: what its bookkeeping costs."""
+    @staticmethod
+    def forward(ctx, x, rate, seed):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+def host_us(fn, calls: int = 1000, rounds: int = 3) -> float:
+    """Host µs of one call of ``fn``: ``time.perf_counter_ns`` over ``calls``
+    back-to-back calls with no synchronize, the median of ``rounds``; the card
+    synchronized before each round."""
+    for _ in range(50):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter_ns() - t0) / calls / 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def k3_host_split(dtype: torch.dtype, tag: str) -> None:
+    """The host time of one K3 call split into its parts (``host_us``): the
+    parent wrapper's (a ``torch.cuda.Stream`` object for the handle) beside
+    the ones the wrapper takes now (the raw stream handle), with whole calls of
+    ``dropout`` and ``F.dropout`` beside them, then each call's CPU time from
+    one ``torch.profiler`` trace. At [2,145, 512],
+    whose kernel takes less device time than a call's host time, so the launch
+    queue never fills. The wrapper's internals are read through names that the
+    parent's package has too (``build``, ``_rate_args``, the two C entry
+    points), so the same function times a parent's tree."""
+    from tdnet_tpu_torch.kernels import dropout as kd
+    rows, rate, dev = DROP_ROWS[1], 0.1, torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn(rows, D_V, generator=gen).to(dev, dtype)
+    xg = x.clone().requires_grad_(True)
+    dy = torch.randn(rows, D_V, generator=gen).to(dev, dtype)
+    y = torch.empty_like(x)
+    lib = kd.build()
+    entry = lib.tdnet_dropout if dtype == torch.float32 else lib.tdnet_dropout_bf16
+    threshold, inv_keep = kd._rate_args(rate, dtype)
+    xp, yp, n, index = x.data_ptr(), y.data_ptr(), x.numel(), x.device.index
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    base_apply = torch._C._FunctionBase.__dict__["apply"].__get__(None, _NoWork)
+    ctx = types.SimpleNamespace(rate=rate, seed=SEED)
+    mask = torch.ops.aten.native_dropout(x, rate, True)[1]
+    tally = types.SimpleNamespace(launches=0)   # priced like the wrapper's counter
+
+    def count():
+        tally.launches += 1
+
+    def checks():
+        return (x.device.type == "cpu" or x.device.type != "cuda"
+                or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous())
+
+    parts = [
+        ("loop and lambda alone", lambda: None),
+        ("dropout(), x needs no gradient", lambda: kd.dropout(x, rate, SEED)),
+        ("dropout(), x requires grad (forward)", lambda: kd.dropout(xg, rate, SEED)),
+        ("dropout() forward + backward",
+         _fwd_bwd_call(lambda t: kd.dropout(t, rate, SEED), xg, dy)),
+        ("F.dropout, x needs no gradient", lambda: F.dropout(x, rate, training=True)),
+        ("F.dropout, x requires grad (forward)", lambda: F.dropout(xg, rate, training=True)),
+        ("F.dropout forward + backward",
+         _fwd_bwd_call(lambda t: F.dropout(t, rate, training=True), xg, dy)),
+        ("K3's backward as autograd's node calls it",
+         lambda: kd._DropoutKernel.backward(ctx, dy)),
+        ("F.dropout's backward op, aten.native_dropout_backward",
+         lambda: torch.ops.aten.native_dropout_backward(dy, mask, 1 / (1 - rate))),
+        ("checks: device, dtype, contiguity", checks),
+        ("grad test: is_grad_enabled() and requires_grad",
+         lambda: torch.is_grad_enabled() and xg.requires_grad),
+        ("build() and _rate_args() lookups", lambda: (kd.build(), kd._rate_args(rate, dtype))),
+        ("autograd.Function.apply, a function that does no work",
+         lambda: _NoWork.apply(xg, rate, SEED)),
+        ("_FunctionBase.apply (its C entry), the same function",
+         lambda: base_apply(xg, rate, SEED)),
+        ("torch.empty_like", lambda: torch.empty_like(x)),
+        ("stream: torch.cuda.current_stream(device).cuda_stream",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("stream: torch._C._cuda_getCurrentRawStream(index)", lambda: raw_stream(index)),
+        ("x.device.index", lambda: x.device.index),
+        ("x.get_device()", lambda: x.get_device()),
+        ("two data_ptr()", lambda: (x.data_ptr(), y.data_ptr())),
+        ("x.numel()", lambda: x.numel()),
+        ("ctypes call (marshalling and launch)",
+         lambda: entry(xp, yp, n, SEED, threshold, inv_keep, stream)),
+        ("counter update (a stand-in's)", count)]
+    us = {name: host_us(fn) for name, fn in parts}
+    log(f"[{tag}] host us a call at [{rows}, {D_V}] {str(dtype)[6:]} (1,000 back-to-back calls, "
+        f"median of 3 rounds): " + "; ".join(f"{name} {t:.2f}" for name, t in us.items()))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    calls = 20
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            with torch.profiler.record_function("K3 call"):
+                kd.dropout(x, rate, SEED)
+            with torch.profiler.record_function("F.dropout call"):
+                F.dropout(x, rate, training=True)
+        torch.cuda.synchronize()
+    cpu = [r for r in prof.key_averages()
+           if r.device_type == torch.autograd.DeviceType.CPU and r.count >= calls]
+    log(f"[{tag}] one torch.profiler trace of {calls} calls each, x needs no gradient, CPU us a "
+        f"call (total / self): " + "; ".join(
+            f"{r.key} {r.cpu_time_total / calls:.2f} / {r.self_cpu_time_total / calls:.2f}"
+            for r in sorted(cpu, key=lambda r: -r.cpu_time_total)))
+
+
+def k3_digests(dtype: torch.dtype, tag: str) -> None:
+    """K3's output and autograd dx at each of ``DROP_ROWS`` as sha256 digests,
+    the package's public API alone, so that the same function run with another
+    checkout's package compares the two kernels bit for bit."""
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for rows in DROP_ROWS:
+        x = torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True)
+        dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+        y = dropout(x, 0.1, SEED + 5)
+        dx, = torch.autograd.grad(y, x, dy)
+        log(f"[{tag}] [{rows}, {D_V}] {str(dtype)[6:]} sha256 of the kernel's output "
+            f"{digest(y)}, of its dx {digest(dx)}")
+
+
+def phase_dropout(card: str, dtype: torch.dtype = torch.float32) -> dict:
+    """Phases 8 (f32) and 8b (bf16): K3 against its plain version, its calls
+    timed beside ``F.dropout``'s (``k3_turns``), the host split of one call
+    (``k3_host_split``) and the sha256 of its outputs (``k3_digests``); returns
+    the kernels entry's numbers at 18,721 rows, forward plus backward through
+    autograd as the train step runs it."""
+    from tdnet_tpu_torch.kernels.dropout import _rate_args, dropout, dropout_plain
+    f32 = dtype == torch.float32
+    tag = "8" if f32 else "8b"
+    gen = torch.Generator().manual_seed(SEED + (1 if f32 else 4))
+    log(f"[{tag}] dropout kernel vs plain in {str(dtype)[6:]} ({card}): bit-identical output "
+        f"and backward, keep rate 0.9 +- 1e-3; the scale launched {_rate_args(0.1, dtype)[1]!r}")
+    for rows in DROP_ROWS:
+        x = torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True)
         xp = x.detach().clone().requires_grad_(True)
-        dy = torch.randn(rows, D_V, generator=gen).to(dev)
+        dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
         got, want = dropout(x, 0.1, SEED + 5), dropout_plain(xp, 0.1, SEED + 5)
         got.backward(dy)
         want.backward(dy)
+        no_grad = dropout(x.detach(), 0.1, SEED + 5)   # x that needs no gradient
         torch.cuda.synchronize()
         keep = (got != 0).double().mean().item()
-        same = torch.equal(got.detach(), want.detach())
-        same_bwd = torch.equal(x.grad, xp.grad)
-        log(f"[8] [{rows}, {D_V}]: output identical {same}, backward identical {same_bwd}, "
-            f"keep rate {keep:.6f}")
+        same, same_bwd = torch.equal(got.detach(), want.detach()), torch.equal(x.grad, xp.grad)
+        same_no_grad = torch.equal(no_grad, got.detach())
+        log(f"[{tag}] [{rows}, {D_V}]: output identical {same}, backward identical {same_bwd}, "
+            f"the call without a gradient identical {same_no_grad}, keep rate {keep:.6f}, "
+            f"dtypes {got.dtype} / {x.grad.dtype}")
         if not same_bwd:
             bad = x.grad != xp.grad
-            log(f"[8]   {int(bad.sum())} backward elements differ, max abs "
+            log(f"[{tag}]   {int(bad.sum())} backward elements differ, max abs "
                 f"{(x.grad - xp.grad).abs().max().item():.3e}; at kept positions "
                 f"{int((bad & (want != 0)).sum())}; kernel backward == kernel forward of dy: "
                 f"{torch.equal(x.grad, dropout(dy, 0.1, SEED + 5))}")
-        if not (same and same_bwd and abs(keep - 0.9) <= 1e-3):
-            raise AssertionError(f"K3 disagrees with its plain version at [{rows}, {D_V}]")
+        if not (same and same_bwd and same_no_grad and abs(keep - 0.9) <= 1e-3
+                and got.dtype == dtype and x.grad.dtype == dtype):
+            raise AssertionError(f"[{tag}] K3 disagrees with its plain version at "
+                                 f"[{rows}, {D_V}]")
+    k3_digests(dtype, tag)
     rows = DROP_ROWS[0]
-    x = torch.randn(rows, D_V, generator=gen).to(dev)
-    ms = median_ms(lambda: dropout(x, 0.1, SEED))
-    plain_ms = median_ms(lambda: dropout_plain(x, 0.1, SEED))
-    lib_ms = median_ms(lambda: F.dropout(x, 0.1, training=True))
-    b = bound(0, 2 * 4 * rows * D_V, PEAK_F32)
-    log(f"[8] [{rows}, {D_V}] ms: kernel {ms:.4f}, plain {plain_ms:.4f}, F.dropout {lib_ms:.4f}; "
-        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    # one trace of both, split by kernel name
-    traced = device_rows(lambda: dropout(x, 0.1, SEED), lambda: F.dropout(x, 0.1, training=True))
-    device_ms = None
-    if traced is not None:
-        dev = {"kernel": [r for r in traced if kernel_family(r[0], train=True) == "K3 dropout"]}
-        dev["F.dropout"] = [r for r in traced if r not in dev["kernel"]]
-        device_ms = sum(t for _, t in dev["kernel"])
-        log(f"[8] [{rows}, {D_V}] device ms, one trace: " + "; ".join(
-            f"{name} {sum(t for _, t in r):.4f} ({', '.join(f'{k[:60]} {t:.4f}' for k, t in r)})"
-            for name, r in dev.items()))
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                device_ms=device_ms, **b)
+    xg = torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True)
+    dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+    plain_ms = median_ms(_fwd_bwd_call(lambda t: dropout_plain(t, 0.1, SEED), xg, dy))
+    del xg, dy
+    times = k3_turns(dtype, tag, gen)
+    k3_host_split(dtype, tag)
+    t = times[rows]
+    log(f"[{tag}] [{rows}, {D_V}] forward+backward ms: kernel {t['ms']:.4f}, plain "
+        f"{plain_ms:.4f}, F.dropout {t['library_ms']:.4f}; bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']} ({4 * dtype.itemsize * rows * D_V / 1e6:.1f} MB)")
+    return dict(max_abs_err=0.0, plain_ms=plain_ms, **t)
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1273,52 +1495,6 @@ def phase_step_inputs_bf16(card: str) -> None:
                 f"{smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
             del out, leaves
     log("[7c] K2's error word clear after every call above")
-
-
-def phase_dropout_bf16(card: str) -> dict:
-    """Phase 8b: K3 in bf16 against its plain version; returns the kernels
-    entry's numbers."""
-    from tdnet_tpu_torch.cli.profile import kernel_family
-    from tdnet_tpu_torch.kernels.dropout import _rate_args, dropout, dropout_plain
-    bf = torch.bfloat16
-    gen = torch.Generator().manual_seed(SEED + 4)
-    log(f"[8b] dropout kernel vs plain in bf16 ({card}): bit-identical output and backward, "
-        f"keep rate 0.9 +- 1e-3; the scale launched {_rate_args(0.1, bf)[1]!r} (1 / 0.9 rounded "
-        f"to bf16)")
-    for rows in DROP_ROWS:
-        x = torch.randn(rows, D_V, generator=gen).to("cuda", bf).requires_grad_(True)
-        xp = x.detach().clone().requires_grad_(True)
-        dy = torch.randn(rows, D_V, generator=gen).to("cuda", bf)
-        got, want = dropout(x, 0.1, SEED + 5), dropout_plain(xp, 0.1, SEED + 5)
-        got.backward(dy)
-        want.backward(dy)
-        torch.cuda.synchronize()
-        keep = (got != 0).double().mean().item()
-        same, same_bwd = torch.equal(got, want), torch.equal(x.grad, xp.grad)
-        log(f"[8b] [{rows}, {D_V}] bf16: output identical {same}, backward identical {same_bwd}, "
-            f"keep rate {keep:.6f}, dtypes {got.dtype} / {x.grad.dtype}")
-        if not (same and same_bwd and abs(keep - 0.9) <= 1e-3 and got.dtype == bf
-                and x.grad.dtype == bf):
-            raise AssertionError(f"[8b] K3 bf16 disagrees with its plain version at "
-                                 f"[{rows}, {D_V}]")
-    rows = DROP_ROWS[0]
-    x = torch.randn(rows, D_V, generator=gen).to("cuda", bf)
-    ms = median_ms(lambda: dropout(x, 0.1, SEED))
-    plain_ms = median_ms(lambda: dropout_plain(x, 0.1, SEED))
-    lib_ms = median_ms(lambda: F.dropout(x, 0.1, training=True))
-    b = bound(0, 2 * 2 * rows * D_V, PEAK_BF16)
-    traced = device_rows(lambda: dropout(x, 0.1, SEED), lambda: F.dropout(x, 0.1, training=True))
-    device_ms = None
-    if traced is not None:
-        mine = [r for r in traced if kernel_family(r[0], train=True) == "K3 dropout"]
-        device_ms = sum(t for _, t in mine)
-        log(f"[8b] [{rows}, {D_V}] device ms, one trace: K3 {format_rows(mine)}; F.dropout "
-            f"{format_rows([r for r in traced if r not in mine])}")
-    log(f"[8b] [{rows}, {D_V}] bf16 ms: kernel {ms:.4f}, plain {plain_ms:.4f}, F.dropout "
-        f"{lib_ms:.4f}; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-        f"({2 * 2 * rows * D_V / 1e6:.1f} MB)")
-    return dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b)
 
 
 def plain_train_kernels():
@@ -2016,9 +2192,13 @@ def run_steps(tag: str, step, state, frames, labels, teacher, n: int, counters):
 
 def idle_share(tag: str, step, state, frames, labels, teacher, times, steps: int = 2) -> None:
     """Device ms a step from a ``torch.profiler`` trace of ``steps`` steps (the
-    kernels' self device time), and the idle share against the traced wall
-    time and against the median of the untraced ``times``."""
-    from tdnet_tpu_torch.cli.profile import device_breakdown
+    kernels' self device time), its five largest families and PERF.md §5's
+    "pool + LN + K3" column (K3 alone beside it, and each K3 launch's device
+    us in the order they ran: set beside ``k3_turns``' warm and cold times,
+    they say whether the step's K3 inputs sit in L2), and the idle share
+    against the traced wall time and against the median of the untraced
+    ``times``."""
+    from tdnet_tpu_torch.cli.profile import device_breakdown, kernel_family
     from tdnet_tpu_torch.kernels.fault import check_fault
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2030,7 +2210,14 @@ def idle_share(tag: str, step, state, frames, labels, teacher, times, steps: int
     check_fault("cuda")
     device_ms, families, _ = device_breakdown(prof, steps, train=True)
     top = "; ".join(f"{k} {v:.2f}" for k, v in list(families.items())[:5])
-    log(f"[{tag}] device {device_ms:.2f} ms/step over {steps} traced steps ({top}); idle "
+    k3 = families.get("K3 dropout", 0.0)
+    small = k3 + families.get("adaptive pool", 0.0) + families.get("layer norm", 0.0)
+    k3_us = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel_family(e.name, train=True) == "K3 dropout"]
+    log(f"[{tag}] device {device_ms:.2f} ms/step over {steps} traced steps ({top}; pool + LN + "
+        f"K3 {small:.3f}, K3 {k3:.4f}; K3 launches, device us in order: "
+        f"{', '.join(f'{t:.2f}' for t in k3_us)}); idle "
         f"{1 - device_ms / traced:.3f} traced ({traced:.1f} ms/step), "
         f"{1 - device_ms / float(np.median(times)):.3f} unprofiled")
 
@@ -2255,7 +2442,7 @@ def main() -> int:
     k2_bf16 = phase_train_attention_bf16(card)
     phase_step_inputs_bf16(card)
     k3 = phase_dropout(card)
-    k3_bf16 = phase_dropout_bf16(card)
+    k3_bf16 = phase_dropout(card, torch.bfloat16)
     recipe, train_launches = phase_train(card)
 
     k4 = phase_stem_kernel(card)

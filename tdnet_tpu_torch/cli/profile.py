@@ -65,7 +65,7 @@ FAMILIES = (
     ("K2 training attention backward", ("dkdv_tc", "dq_tc", "rowdot_f32", "rowt_wgmma",
                                         "row_terms", "dkdv_wgmma", "dq_wgmma",
                                         "sum_scaled<1>")),
-    ("K3 dropout", ("dropout_vec4", "dropout_scalar", "dropout_bf16")),
+    ("K3 dropout", ("dropout_vec", "dropout_scalar", "dropout_bf16")),
     # in a train step this family is K2's forward: f32 stats_f32, shared with K1, and pv_fma;
     # bf16 the keep bits, K1's attn_bf16 (stats, and p v with the mask) and, where its keys
     # split, the sum of the partial outputs

@@ -32,6 +32,19 @@ __host__ __device__ __forceinline__ bool tdnet_keep(uint32_t seed, uint64_t idx,
   return tdnet_dropout_hash(seed, idx) < threshold;
 }
 
+// The hash in two halves, for a kernel whose elements share the index's high word:
+// tdnet_dropout_hash(seed, idx) == tdnet_hash_low((uint32_t)idx,
+//                                                 tdnet_hash_high(tdnet_mix32(seed), idx >> 32)).
+// The high half is formed once for all of them (K3: once a 16-byte vector), leaving about one
+// mixer an element.
+__host__ __device__ __forceinline__ uint32_t tdnet_hash_high(uint32_t seed_mix, uint32_t hi) {
+  return tdnet_mix32(hi ^ seed_mix);
+}
+
+__host__ __device__ __forceinline__ uint32_t tdnet_hash_low(uint32_t lo, uint32_t high) {
+  return tdnet_mix32(lo ^ high);
+}
+
 // A launch's dropout: the seed, the keep threshold (0: no dropout) and 1 / (1 - rate) in f32.
 struct Drop {
   uint32_t seed, threshold;

@@ -8,9 +8,12 @@ element (row, c) of the contiguous [rows, C] view is
 the same mask to the cotangent: the kernel runs again on dy with the saved
 seed, as the TPU kernel's VJP does (tdnet_tpu/kernels/dropout.py:51-66).
 
-``dropout`` takes the plain version for CPU tensors and the kernel for CUDA
-tensors; ``dropout.launches`` and ``dropout.backward_launches`` count the
-f32 kernel's forward and backward launches, ``.bf16_launches`` and
+``dropout`` takes the plain version for CPU tensors and, through an autograd
+function, the kernel for CUDA tensors. A launch is one ``ctypes`` call of the C
+entry point (bound once an entry, ``_function``) with the arguments
+``launch_args`` gives, on the raw handle of the current stream.
+``dropout.launches`` and ``dropout.backward_launches`` count the f32 kernel's
+forward and backward launches, ``.bf16_launches`` and
 ``.bf16_backward_launches`` the bfloat16 kernel's.
 
 It takes float32 and bfloat16 and returns x's dtype. In bfloat16 the scale is
@@ -31,7 +34,8 @@ from tdnet_tpu_torch.kernels.build import load_library
 from tdnet_tpu_torch.ops.dropout_mask import keep_mask, keep_threshold
 
 SOURCES = ("dropout.cu",)
-DTYPES = (torch.float32, torch.bfloat16)
+# the C entry point of each dtype the kernel takes
+ENTRIES = {torch.float32: "tdnet_dropout", torch.bfloat16: "tdnet_dropout_bf16"}
 
 
 def dropout_plain(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -42,18 +46,22 @@ def dropout_plain(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     return torch.where(keep, x * inv_keep, torch.zeros((), dtype=x.dtype))
 
 
-@functools.cache
-def build() -> ctypes.CDLL:
-    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
-    lib = load_library("dropout", SOURCES)
-    lib.tdnet_dropout.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
-                                  ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
-    lib.tdnet_dropout.restype = ctypes.c_int
-    lib.tdnet_dropout_bf16.argtypes = lib.tdnet_dropout.argtypes
-    lib.tdnet_dropout_bf16.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C interface's argument and result types on a loaded library."""
+    for name in ENTRIES.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint,
+                       ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.tdnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def build() -> ctypes.CDLL:
+    """Compile (or reuse) the kernel library and declare its C interface; needs nvcc."""
+    return declare(load_library("dropout", SOURCES))
 
 
 @functools.cache
@@ -63,19 +71,32 @@ def _rate_args(rate: float, dtype: torch.dtype = torch.float32) -> tuple[int, fl
     return keep_threshold(rate), torch.tensor(1.0 / (1.0 - rate), dtype=dtype).item()
 
 
+def launch_args(n: int, dtype: torch.dtype, rate: float, seed: int) -> tuple:
+    """What a launch over ``n`` elements of ``dtype`` passes: (C entry point,
+    element count, the seed's low 32 bits, keep threshold, scale)."""
+    if dtype not in ENTRIES:
+        raise ValueError(f"the dropout kernel takes float32 or bfloat16, got {dtype}")
+    return (ENTRIES[dtype], n, seed & 0xFFFFFFFF) + _rate_args(rate, dtype)
+
+
+@functools.cache
+def _function(entry: str):
+    """The bound C function of an entry point."""
+    return getattr(build(), entry)
+
+
 def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    if x.dtype not in DTYPES or not x.is_contiguous():
-        raise ValueError(f"the dropout kernel takes contiguous float32 or bfloat16, got "
-                         f"{x.dtype}")
-    lib = build()
+    """One kernel launch on x's current stream; raises on what it does not take.
+    The raw stream getter exists in CUDA builds of torch only."""
+    if not x.is_contiguous():
+        raise ValueError("the dropout kernel takes contiguous tensors")
+    entry, n, seed32, threshold, inv_keep = launch_args(x.numel(), x.dtype, rate, seed)
     y = torch.empty_like(x)
-    threshold, inv_keep = _rate_args(rate, x.dtype)
-    launch = lib.tdnet_dropout if x.dtype == torch.float32 else lib.tdnet_dropout_bf16
-    err = launch(x.data_ptr(), y.data_ptr(), x.numel(), seed & 0xFFFFFFFF, threshold, inv_keep,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = _function(entry)(x.data_ptr(), y.data_ptr(), n, seed32, threshold, inv_keep,
+                           torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err != 0:
         raise RuntimeError(f"dropout kernel failed: CUDA error {err}: "
-                           f"{lib.tdnet_cuda_error_string(err).decode()}")
+                           f"{build().tdnet_cuda_error_string(err).decode()}")
     return y
 
 
@@ -103,11 +124,11 @@ class _DropoutKernel(torch.autograd.Function):
 def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """Bernoulli(1 - rate) dropout with a 1 / (1 - rate) scale, the mask a
     function of (seed, flat element index); differentiable."""
+    if x.is_cuda:
+        return _DropoutKernel.apply(x, rate, seed)
     if x.device.type == "cpu":
         return dropout_plain(x, rate, seed)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return _DropoutKernel.apply(x, rate, seed)
+    raise ValueError(f"no kernel for device {x.device}")
 
 
 dropout.launches = 0
