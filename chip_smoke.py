@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-0. toolchain and card: torch, CUDA, nvcc, ``nvidia-smi`` name and power limit;
+0. toolchain and card: torch, CUDA, nvcc, ``nvidia-smi`` name and power limit,
+   and whether PIL, imageio and cv2 import in a child process (information
+   only);
 1. build every kernel library from ``tdnet_tpu_torch/csrc``, and the
    fault-check builds of K1 (``FAULT_DEFINES``), K5 (``K5_FAULT_DEFINES``) and
    K2 (``K2_FAULT_DEFINES``), one nvcc each, all at once;
@@ -229,6 +231,25 @@ Phases (any failure exits non-zero):
     probe (K2's forward off on one 64-row q block of the hop) at each eps of
     ``PROBE_LADDER_TD2``, each probe's share of the limit printed; the check
     must flag ``PROBE_GATE_TD2``.
+18. the fused grouped-PSP + QKV trunk (``Streamer``'s default) against
+    ``fused_trunk=False`` on the same seeded weights and frames, in turns
+    (fused, unfused, fused, unfused; frames/s of 48 frames pipelined and the
+    latency of frames 7-12 each);
+    in each fused run the encoding of every frame against the pyramid
+    feature's (``TRUNK_FRAC``); TD4-PSP18 at 769x1537 f32 (logits to
+    ``FUSED_F32_FRAC`` x max|logits|), TD4-PSP18 bf16 (to its f32 fused twin
+    by phase 4's rule) and TD2-PSP50 at 1025x2049 bf16 (its distance from an
+    f32 fused run reported beside the unfused stream's); K1's launches the
+    same in every run; argmax agreement printed;
+19. the training CLI at full width: a seeded Cityscapes-layout tree of
+    1024x2048 PNGs written by ``data/png.py`` (3 train, 2 val frames, 6
+    predecessors each), ``cli.train.train`` on configs/td4_psp18_cityscapes.yml
+    with the data path, 4 iterations, batch 2, validation and checkpoints every
+    2 and a print every step; 2 more steps resumed from ``state_latest.pkl``
+    (loaded bitwise equal, ``it`` 4 -> 6); ``cli.validate`` on the best
+    checkpoint, its confusion matrix equal to the run's validation of those
+    weights; losses finite, the error word read; ms a step split into the
+    wait for ``ClipBatcher`` and the step, peak memory, K1, K2, K3 launches.
 The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward and backward in f32
 and in bf16, K3 in f32 and in bf16, K4 per dtype (at the TD2 stem shape) and
@@ -325,6 +346,17 @@ SEED = 0
 HEADLINE = (1, 33153, 2145)   # the TD2 hop: the case each kernels entry reports
 
 
+IMPORT_PROBE = """
+import importlib
+for name in ("PIL", "imageio", "cv2"):
+    try:
+        importlib.import_module(name)
+        print(name, "yes", end="; ")
+    except Exception as e:
+        print(name, "no", f"({type(e).__name__})", end="; ")
+"""
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -356,6 +388,9 @@ def phase_toolchain() -> str:
     log(f"[0] torch {torch.__version__} cuda {torch.version.cuda} | nvcc: {nvcc} | "
         f"python {sys.version.split()[0]}")
     log(f"[0] card: {smi} | devices: {torch.cuda.device_count()}")
+    probe = subprocess.run([sys.executable, "-c", IMPORT_PROBE], capture_output=True, text=True)
+    log(f"[0] image libraries importable here (information only; the port reads PNGs with "
+        f"data/png.py): {probe.stdout.strip() or probe.stderr.strip()}")
     return smi
 
 
@@ -729,12 +764,14 @@ def drive(make_runner, frames, card, tag, what):
 def report_bf16_stream(tag, fused, plain, ref, what):
     """How far the fused bf16 stream lies from the plain-stem bf16 stream and
     from ``ref`` (the f32 stream), beside the plain bf16 stream's own
-    distance from it: a report; the stem check inside the run is the gate."""
+    distance from it: a report (the stem check inside the run is the gate);
+    returns the ratio of the two distances."""
     dist = lambda xs, ys: max((a.float() - r.float()).abs().max().item() for a, r in zip(xs, ys))
     d_fused, d_plain = dist(fused, ref), dist(plain, ref)
     log(f"[{tag}] {what} logits (report): fused vs plain {dist(fused, plain):.4e}; distance "
         f"from f32: fused {d_fused:.4e}, plain {d_plain:.4e} ({d_fused / d_plain:.3f} of it); "
         f"max|f32 logits| {max(r.float().abs().max().item() for r in ref):.4e}")
+    return d_fused / d_plain
 
 
 def check_stem(tag, runner, frames) -> None:
@@ -2407,6 +2444,337 @@ def compare_with_f64(make_loss_of, loss_fn, model, start, teacher, frames, label
         raise AssertionError(f"[{tag}] K5 path vs float64 ({setting}): {held.problem}")
 
 
+FUSED_F32_FRAC = 1e-4      # phase 18: f32 fused vs unfused logits, x max|logits|
+TRUNK_FRAC = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -5}   # phase 18: the fused encoding's
+# outputs vs the pyramid feature's, x max|plain| (CPU, random init: up to 9.4e-7 f32, 1.15e-2 bf16)
+TD2_BF16_RATIO = 1.5       # phase 18: TD2 bf16 fused stream's distance from f32 fused, x the
+# unfused bf16 stream's (H100 runs: 1.207 on every reading)
+AGREEMENT_MIN = 0.9999     # phase 19: pixel agreement if the confusion matrices differ
+MEAN_IOU = "Mean IoU : \t"  # the score's key, as the reference prints it
+TREE_SIZE = (1024, 2048)   # phase 19: the Cityscapes frames
+TREE_SPLITS = (("train", 3), ("val", 2))
+TREE_PREDECESSORS = 6
+TREE_FILTERS = (0, 1, 2, 3, 4)  # phase 19: row filters in turn, as adaptive encoders mix them
+
+
+def argmax_agreement(xs, ys) -> float:
+    """The share of pixels whose class (argmax over the last axis) agrees."""
+    same = sum((a.float().argmax(-1) == b.float().argmax(-1)).sum().item() for a, b in zip(xs, ys))
+    return same / sum(a[..., 0].numel() for a in xs)
+
+
+def check_trunk(tag, runner, frames) -> None:
+    """The fused encoding inside a fused run: for every frame, on the c4 of
+    the sub-network that took it (the run's weights, BNs folded), the five
+    outputs of ``fused_psp_encoding`` against the pyramid feature's (z built,
+    the projections over it), each within ``TRUNK_FRAC[dtype]`` x max|plain|."""
+    from tdnet_tpu_torch.nn import apply_encoding_cached, apply_encoding_full, apply_pyramid_pooling
+    from tdnet_tpu_torch.nn.fused_trunk import fused_psp_encoding
+    cfg, frac = runner.cfg, TRUNK_FRAC[runner.dtype]
+    worst = (0.0, "")
+    with torch.inference_mode():
+        for i, f in enumerate(frames):
+            p = i % cfg.path_num
+            sub, pid = runner.model.paths[p], cfg.psp_pid(p)
+            _, c4 = sub.backbone(f.to(runner.dtype).permute(0, 3, 1, 2).contiguous(), runner.ctx)
+            got = fused_psp_encoding(sub.psp, sub.enc, c4, pid=pid, groups=cfg.psp_groups,
+                                     kv_stride=cfg.kv_stride)
+            z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=pid)
+            want = (*apply_encoding_full(sub.enc, z),
+                    *apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride))
+            for name, g, w in zip(("q", "v", "q_c", "k_c", "v_c"), got, want):
+                err = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+                worst = max(worst, (err / frac, f"{name} of frame {i}"))
+                if not (g.shape == w.shape and err <= frac):
+                    raise AssertionError(f"[{tag}] frame {i}: fused {name} vs the pyramid "
+                                         f"feature's, {err:.3e} x max|plain| > {frac:g}")
+    log(f"[{tag}] the fused encoding of all {len(frames)} frames in the run against the pyramid "
+        f"feature's (q, v, q_c, k_c, v_c): worst {worst[0]:.3f} of {frac:g} x max|plain| "
+        f"({worst[1]})")
+
+
+def trunk_turns(arch, in_size, dtype, card, tag):
+    """One seeded TDNet streamed through ``Streamer(fused_trunk=True)`` and
+    ``(fused_trunk=False)`` in turns (fused, unfused, fused, unfused) on the
+    same frames: each turn steps the 12 frames (K1 launches counted, latency
+    of frames 7-12) and then runs them 4 times over pipelined; the first fused
+    run's trunk is checked (``check_trunk``). Returns the logits of the first
+    turn of each form, by form, left on the card (the comparisons run there)."""
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.models import init_tdnet, tdnet_config
+    from tdnet_tpu_torch.stream.runtime import Streamer
+    cfg = tdnet_config(arch, in_size=in_size)
+    model = init_tdnet(cfg, torch.Generator().manual_seed(SEED)).to("cuda")
+    frames = stream_frames(in_size, dtype)
+    expected = cfg.window * (N_FRAMES - cfg.window)
+    outs, rows = {}, {True: [], False: []}
+    for turn in range(2):
+        for fused in (True, False):
+            runner = Streamer(model, dtype=dtype, fused_trunk=fused)
+            fused_propagation_attention.launches = 0
+            o = [runner.step(f)[0] for f in frames]
+            launches = fused_propagation_attention.launches
+            if launches != expected or not all(torch.isfinite(x).all() for x in o):
+                raise AssertionError(f"[{tag}] fused_trunk={fused}: K1 launches {launches} "
+                                     f"(expected {expected}) or logits not finite")
+            latency = runner.meter.avg * 1e3
+            runner.reset()
+            _, spf = runner.run_pipelined(frames * 4)
+            rows[fused].append(f"{1.0 / spf:.2f} frames/s, {latency:.2f} ms")
+            if fused not in outs:
+                outs[fused] = o
+                if fused:
+                    check_trunk(tag, runner, frames)
+    log(f"[{tag}] {arch} {in_size[0]}x{in_size[1]} {str(dtype)[6:]} ({card}), in turns: fused "
+        f"{'; '.join(rows[True])} | unfused {'; '.join(rows[False])} (pipelined frames/s, "
+        f"latency of frames 7-{N_FRAMES}); K1 launches {expected} in every run "
+        f"({cfg.window} a warm frame)")
+    del model, runner
+    torch.cuda.empty_cache()
+    return outs
+
+
+def phase_fused_trunk(card: str, td4, td2) -> None:
+    """Phase 18: the fused grouped-PSP + QKV trunk at full width against the
+    unfused stream (``trunk_turns``; in every fused run the trunk itself is
+    held to the pyramid feature's, ``check_trunk``): TD4-PSP18 f32 logits by
+    ``FUSED_F32_FRAC``; TD4-PSP18 bf16 against its f32 fused twin by phase 4's
+    rule; TD2-PSP50 bf16's distance from an f32 fused run at most
+    ``TD2_BF16_RATIO`` x the unfused bf16 stream's (phase 11: random-init bf16
+    TD2 streams lie too far from f32 for phase 4's rule). Argmax agreement
+    printed for each."""
+    from tdnet_tpu_torch.models import init_tdnet, tdnet_config
+    from tdnet_tpu_torch.stream.runtime import Streamer
+    t0 = time.perf_counter()
+    td4_32 = trunk_turns("td4-psp18", td4, torch.float32, card, "18")
+    check_close("18", td4_32[True], td4_32[False], FUSED_F32_FRAC, "TD4 f32 fused vs unfused")
+    td4_16 = trunk_turns("td4-psp18", td4, torch.bfloat16, card, "18")
+    check_close("18", td4_16[True], td4_32[True], 5e-2, "TD4 bf16 fused vs its f32 fused twin")
+    report_bf16_stream("18", td4_16[True], td4_16[False], td4_32[True],
+                       "TD4 bf16 fused vs unfused")
+    log(f"[18] TD4 argmax agreement, fused vs unfused: f32 "
+        f"{argmax_agreement(td4_32[True], td4_32[False]):.6f}, bf16 "
+        f"{argmax_agreement(td4_16[True], td4_16[False]):.6f}; bf16 fused vs f32 fused "
+        f"{argmax_agreement(td4_16[True], td4_32[True]):.6f}")
+    del td4_32, td4_16
+    td2_16 = trunk_turns("td2-psp50", td2, torch.bfloat16, card, "18")
+    model = init_tdnet(tdnet_config("td2-psp50", in_size=td2),
+                       torch.Generator().manual_seed(SEED)).to("cuda")
+    runner = Streamer(model, dtype=torch.float32)
+    ref = [runner.step(f, timed=False)[0] for f in stream_frames(td2, torch.float32)]
+    ratio = report_bf16_stream("18", td2_16[True], td2_16[False], ref,
+                               "TD2 bf16 fused vs unfused")
+    if not ratio <= TD2_BF16_RATIO:
+        raise AssertionError(f"[18] TD2 bf16: the fused stream lies {ratio:.3f}x as far from "
+                             f"f32 as the unfused one (> {TD2_BF16_RATIO})")
+    log(f"[18] TD2 argmax agreement: bf16 fused vs unfused "
+        f"{argmax_agreement(td2_16[True], td2_16[False]):.6f}; against the f32 fused stream: "
+        f"fused {argmax_agreement(td2_16[True], ref):.6f}, unfused "
+        f"{argmax_agreement(td2_16[False], ref):.6f}")
+    del td2_16, ref, model, runner
+    torch.cuda.empty_cache()
+    log(f"[18] {time.perf_counter() - t0:.1f} s in all")
+
+
+def write_tree(root: str) -> None:
+    """A seeded Cityscapes-layout tree of ``TREE_SIZE`` PNGs written by
+    ``data/png.py``, rows filtered by ``TREE_FILTERS`` in turn: per annotated
+    frame its image, its labelIds and
+    ``TREE_PREDECESSORS`` predecessors. Train sequences pan a scene 4 pixels a
+    frame; val sequences repeat the annotated frame, so that the predecessor
+    gaps validation draws (unseeded, as the reference's) leave its input
+    unchanged."""
+    import shutil
+    from tdnet_tpu_torch.data.png import write_png
+    rng = np.random.RandomState(SEED)
+    h, w = TREE_SIZE
+    ids = np.array([0, 4, 7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33])
+    pan = 4 * TREE_PREDECESSORS
+    for split, n in TREE_SPLITS:
+        for i in range(n):
+            city, seq, cur = f"city{i % 2}", f"{i:06d}", 30 + 10 * i
+            blocks = rng.randint(0, 248, (h // 32, (w + pan) // 32 + 1, 3)).astype(np.uint8)
+            scene = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[:h, :w + pan]
+            scene = scene + rng.randint(0, 8, scene.shape, dtype=np.uint8)
+            seq_dir = os.path.join(root, "leftImg8bit_sequence", split, city)
+            os.makedirs(seq_dir, exist_ok=True)
+            name = lambda k: f"{city}_{seq}_{cur - k:06d}_leftImg8bit.png"
+            for k in range(TREE_PREDECESSORS + 1):
+                off = pan if split == "val" else pan - 4 * k
+                write_png(os.path.join(seq_dir, name(k)), scene[:, off:off + w], level=1,
+                          filters=TREE_FILTERS)
+            for base in ("leftImg8bit", "gtFine"):
+                os.makedirs(os.path.join(root, base, split, city), exist_ok=True)
+            shutil.copyfile(os.path.join(seq_dir, name(0)),
+                            os.path.join(root, "leftImg8bit", split, city, name(0)))
+            labels = np.repeat(np.repeat(rng.choice(ids, (h // 64, w // 64)), 64, 0), 64, 1)
+            write_png(os.path.join(root, "gtFine", split, city,
+                                   f"{city}_{seq}_{cur:06d}_gtFine_labelIds.png"),
+                      labels.astype(np.uint8), level=1, filters=TREE_FILTERS)
+
+
+def decode_times(root: str) -> None:
+    """``read_png`` on one annotated frame of the tree (rows filtered by
+    ``TREE_FILTERS`` in turn, so Average and Paeth rows undone a diagonal at a
+    time) and on the same frame rewritten with filter 0 on every row, 3 reads
+    each, the median; the two decodes equal."""
+    import glob
+    from tdnet_tpu_torch.data.png import read_png, write_png
+    path = sorted(glob.glob(os.path.join(root, "leftImg8bit", "train", "*", "*.png")))[0]
+    plain = os.path.join(os.path.dirname(root), "filter0.png")
+    write_png(plain, read_png(path), level=1)
+    ms = {}
+    for name, p in ((f"filters {TREE_FILTERS} in turn (the tree's)", path),
+                    ("filter 0", plain)):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            img = read_png(p)
+            times.append(1e3 * (time.perf_counter() - t))
+        ms[name] = (float(np.median(times)), img)
+    a, b = (v[1] for v in ms.values())
+    if not np.array_equal(a, b):
+        raise AssertionError("[19] read_png: the filtered frame decodes differently")
+    log(f"[19] read_png of a {TREE_SIZE[0]}x{TREE_SIZE[1]} RGB frame (host, median of 3): "
+        f"{'; '.join(f'{k} {v[0]:.1f} ms' for k, v in ms.items())}; a Cityscapes clip reads 4 "
+        f"frames and a label")
+
+
+def phase_train_cli(card: str) -> None:
+    """Phase 19: ``cli.train.train`` on configs/td4_psp18_cityscapes.yml at its
+    full width on a seeded tree (``write_tree``), overriding only the data
+    path, 4 iterations, batch 2, validation and checkpoints every 2 and a print
+    every step; then 2 more steps resumed from ``state_latest.pkl`` (the loaded
+    state equal to the saved one bit for bit, ``it`` going on from 4); then
+    ``cli.validate`` on the best checkpoint, whose confusion matrix must equal
+    the one the run's validation gave those weights (or, if it does not, the
+    predictions agree in ``AGREEMENT_MIN`` of the pixels). Every loss finite,
+    the error word read after every step and validation; ms a step split into
+    the wait for ``ClipBatcher`` and the step, the peak memory, and K2's, K3's
+    and K1's launches; first, one frame's decode time (``decode_times``)."""
+    import logging
+    import shutil
+    from tdnet_tpu_torch.cli import train as cli_train
+    from tdnet_tpu_torch.cli import validate as cli_validate
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.models import init_tdnet
+    from tdnet_tpu_torch.train import trainer
+    from tdnet_tpu_torch.utils import checkpoint as ckpt
+    from tdnet_tpu_torch.utils.config import (load_config, model_config_from_yaml,
+                                              opt_kwargs_from_yaml)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase19")
+    shutil.rmtree(work, ignore_errors=True)
+    root, logdir, resumed_dir = (os.path.join(work, d) for d in ("cityscapes", "run", "resumed"))
+    t0 = time.perf_counter()
+    write_tree(root)
+    log(f"[19] wrote a {TREE_SIZE[0]}x{TREE_SIZE[1]} Cityscapes-layout tree ("
+        f"{', '.join(f'{n} {s}' for s, n in TREE_SPLITS)} frames, {TREE_PREDECESSORS} "
+        f"predecessors each) in {time.perf_counter() - t0:.1f} s")
+    decode_times(root)
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "td4_psp18_cityscapes.yml"))
+    cfg["data"]["path"] = root
+    cfg["training"].update(train_iters=4, batch_size=2, val_interval=2, print_interval=1,
+                           ckpt_interval=2)
+    logger = logging.getLogger("tdnet_tpu_torch.chip_smoke")
+    preds = []
+    real_eval = trainer.make_eval_step
+
+    def recording_eval():
+        step = real_eval()
+
+        def call(model, frames, pos_id):
+            out = step(model, frames, pos_id)
+            preds.append(out.cpu())
+            return out
+        return call
+    counters = ((propagation_attention_train, "launches"),
+                (propagation_attention_train, "backward_launches"),
+                (dropout, "launches"), (dropout, "backward_launches"),
+                (fused_propagation_attention, "launches"))
+
+    def run(tag, run_cfg, run_dir, **kw):
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t = time.perf_counter()
+        os.makedirs(run_dir)
+        with swapped(trainer, "make_eval_step", recording_eval):
+            state, best = cli_train.train(run_cfg, logger, run_dir, device="cuda", stats=stats,
+                                          **kw)
+        check_fault("cuda")
+        wall = time.perf_counter() - t
+        n = len(stats["step_s"])
+        launches = [getattr(fn, attr) for fn, attr in counters]
+        if not (np.all(np.isfinite(stats["losses"])) and launches[:4] == [3 * n] * 4):
+            raise AssertionError(f"[19] {tag}: losses {stats['losses']}, launches {launches}")
+        log(f"[19] {tag} ({card}): {n} steps of batch {cfg['training']['batch_size']} at "
+            f"{state.model.cfg.in_size[0]}x{state.model.cfg.in_size[1]}, it {state.it}; losses "
+            f"{', '.join(f'{x:.4f}' for x in stats['losses'])}; ms a step: waiting on "
+            f"ClipBatcher {ms_list(stats['data_s'])}, the step {ms_list(stats['step_s'])} (medians "
+            f"{1e3 * float(np.median(stats['data_s'])):.1f} / "
+            f"{1e3 * float(np.median(stats['step_s'])):.1f}; data "
+            f"{sum(stats['data_s']) / (sum(stats['data_s']) + sum(stats['step_s'])):.3f} of the "
+            f"steps' time); {stats['val_passes']} validation passes, best mean IoU {best:.5f}; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; launches K2 "
+            f"fwd/bwd {launches[0]}/{launches[1]}, K3 fwd/bwd {launches[2]}/{launches[3]}, K1 "
+            f"{launches[4]}; {wall:.1f} s in all")
+        return state, stats
+
+    state, stats = run("train", copy.deepcopy(cfg), logdir)
+    first_preds = list(preds)
+    latest = os.path.join(logdir, "state_latest.pkl")
+    mcfg = model_config_from_yaml(cfg, streaming=False)
+    loaded = trainer.make_train_state(init_tdnet(mcfg, torch.Generator().manual_seed(1)).cuda(),
+                                      opt_kwargs=opt_kwargs_from_yaml(cfg))
+    ckpt.load_train_state(latest, loaded)
+    same = all(torch.equal(v, loaded.model.state_dict()[k])
+               for k, v in state.model.state_dict().items())
+    saved_opt, loaded_opt = state.optimizer.state_dict(), loaded.optimizer.state_dict()
+    same_opt = all(torch.equal(a["momentum_buffer"], b["momentum_buffer"]) for a, b in zip(
+        saved_opt["state"].values(), loaded_opt["state"].values()))
+    log(f"[19] state_latest.pkl loaded: model {'bitwise equal' if same else 'DIFFERS'}, "
+        f"optimizer {'bitwise equal' if same_opt else 'DIFFERS'}, it {loaded.it}")
+    if not (same and same_opt and loaded.it == 4 and len(saved_opt["state"]) > 0):
+        raise AssertionError("[19] the resumed state is not the saved one")
+    del loaded
+    resume_cfg = copy.deepcopy(cfg)
+    resume_cfg["training"]["train_iters"] = 6
+    resumed, _ = run("resumed", resume_cfg, resumed_dir, resume_state=latest, max_steps=2)
+    if resumed.it != 6:
+        raise AssertionError(f"[19] resumed run ended at it {resumed.it}, expected 6")
+    del state, resumed
+    torch.cuda.empty_cache()
+
+    best_path = os.path.join(logdir, "td4_psp_cityscapes_best_model.pkl")
+    cfg["validating"]["resume"] = best_path
+    vstats = {}
+    args = types.SimpleNamespace(measure_time=True, max_batches=None, device="cuda")
+    preds.clear()
+    with swapped(trainer, "make_eval_step", recording_eval):
+        score, _ = cli_validate.validate(cfg, args, stats=vstats)
+    check_fault("cuda")
+    equal = np.array_equal(vstats["confusion"], stats["best_confusion"])
+    agree = float(np.mean(np.concatenate([a.numpy().ravel() for a in preds]) == np.concatenate(
+        [first_preds[stats["best_pass"]].numpy().ravel()])))
+    log(f"[19] cli.validate on {os.path.basename(best_path)}: mean IoU "
+        f"{score[MEAN_IOU]:.6f}; confusion matrix "
+        f"{'equal to' if equal else 'DIFFERENT from'} the run's validation pass "
+        f"{stats['best_pass']} of those weights; pixels agreeing {agree:.6f}; "
+        f"{ms_list(vstats['batch_s'])} ms a batch")
+    if not (equal or agree >= AGREEMENT_MIN):
+        raise AssertionError(f"[19] validate vs the run's validation: agreement {agree}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def ms_list(xs) -> str:
+    return ", ".join(f"{1e3 * x:.1f}" for x in xs)
+
+
 def main() -> int:
     card = phase_toolchain()
     phase_build()
@@ -2467,6 +2835,8 @@ def main() -> int:
     k5_bf16_launches = phase_train_bf16_k5(card, *recipe)
     del recipe
     td2_launches = phase_td2_train(card)
+    phase_fused_trunk(card, td4, td2)
+    phase_train_cli(card)
 
     src = "tdnet_tpu_torch/csrc/"
     entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",

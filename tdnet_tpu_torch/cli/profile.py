@@ -11,8 +11,9 @@ how far it spreads.
 For each model (``psp101``: the single-frame PSPNet-101 baseline through
 ``stream.runtime.FrameRunner``), on seeded random weights and seeded
 synthetic frames (``stream.runtime.synthetic_frames``) at the model's
-streaming size (``models.STREAM_SIZE``), with the stem ``--stem_impl``, after
-one pipelined pass over the 48 frames as a warm-up:
+streaming size (``models.STREAM_SIZE``), with the stem ``--stem_impl`` and,
+for the TDNets, each grouped-PSP + QKV form of ``--trunk`` in turn, after one
+pipelined pass over the 48 frames as a warm-up:
 
 1. 7 pipelined runs over the frames (queued back to back, one synchronize at
    the end): frames/s of each run;
@@ -128,7 +129,8 @@ def write_tables(prof, out: str | None, name: str, shapes: bool, rows: int) -> N
                 sort_by="device_time_total", row_limit=rows))
 
 
-def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: bool) -> dict:
+def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: bool,
+                  trunk: str = "fused") -> dict:
     from tdnet_tpu_torch.models import (STREAM_SIZE, PSPNetConfig, init_pspnet, init_tdnet,
                                         tdnet_config)
     from tdnet_tpu_torch.stream.runtime import (FrameRunner, LatencyMeter, Streamer,
@@ -140,7 +142,8 @@ def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: boo
                                stem_impl=stem_impl)
     else:
         cfg = tdnet_config(arch, in_size=STREAM_SIZE[arch])
-        streamer = Streamer(init_tdnet(cfg, gen).to("cuda"), dtype=dtype, stem_impl=stem_impl)
+        streamer = Streamer(init_tdnet(cfg, gen).to("cuda"), dtype=dtype, stem_impl=stem_impl,
+                            fused_trunk=trunk == "fused")
     frames = synthetic_frames(FRAMES, cfg.in_size, seed=0, device="cuda", dtype=dtype)
     streamer.run_pipelined(frames)
     fps = [1.0 / streamer.run_pipelined(frames)[1] for _ in range(REPEATS)]
@@ -153,8 +156,8 @@ def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: boo
         traced_ms = streamer.run_pipelined(frames)[1] * 1e3
     after = smi("clocks.sm,power.draw,temperature.gpu")
     device_ms, families, top = device_breakdown(prof, FRAMES)
-    write_tables(prof, out, f"profile_{arch}_{str(dtype)[6:]}_{stem_impl}", shapes, 60)
-    return {"model": arch, "dtype": str(dtype)[6:], "stem_impl": stem_impl,
+    write_tables(prof, out, f"profile_{arch}_{str(dtype)[6:]}_{stem_impl}_{trunk}", shapes, 60)
+    return {"model": arch, "dtype": str(dtype)[6:], "stem_impl": stem_impl, "trunk": trunk,
             "in_size": list(cfg.in_size),
             "frames": FRAMES, "frames_per_s": fps,
             "latency_ms": {"mean": float(lat.mean()), "min": float(lat.min()),
@@ -219,6 +222,10 @@ def main(argv=None):
                              "float32 for the train steps")
     parser.add_argument("--stem_impl", default="plain", choices=["plain", "fused"],
                         help="the streams' stem: 'fused' runs deep-base stems through K4")
+    parser.add_argument("--trunk", nargs="+", default=["fused"], choices=["fused", "unfused"],
+                        help="the TDNet streams' grouped PSP + QKV: 'fused' (the Streamer's "
+                             "default) or 'unfused' (the pyramid feature built); each stream "
+                             "runs once a value, in the order given (repeat them for turns)")
     parser.add_argument("--conv_wgrad", nargs="+", default=["cudnn"], choices=["cudnn", "kernel"],
                         help="the train steps' dilated convs, each train model with each: "
                              "'kernel' runs them through K5")
@@ -240,8 +247,10 @@ def main(argv=None):
                     res = profile_train(arch, conv_wgrad, dtypes[dtype], args.out, args.shapes)
                     print(json.dumps(res), flush=True)
             else:
-                res = profile_model(arch, dtypes[dtype], args.stem_impl, args.out, args.shapes)
-                print(json.dumps(res), flush=True)
+                for trunk in args.trunk if arch != "psp101" else ["fused"]:
+                    res = profile_model(arch, dtypes[dtype], args.stem_impl, args.out,
+                                        args.shapes, trunk)
+                    print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ on one device.
 Mirrors ``python Testing/test.py`` (reference Testing/test.py:85-110):
 round-robin streaming over a frame directory (``--model psp101``: one
 PSPNet-101 forward per frame), colorized quarter-resolution PNG outputs, and
-per-frame latency with the 6-frame warm-up excluded. ``--stem_impl fused``
+per-frame latency with the 6-frame warm-up excluded. Frames are read and
+outputs written by ``data/png.py`` (no image library). ``--stem_impl fused``
 runs the deep-base stems (TD2-PSP50, PSP-101) through the fused stem kernel.
 
     python -m tdnet_tpu_torch.cli.test --img_path frames/ --output_path out/ \\
@@ -56,6 +57,7 @@ def main(argv=None):
         what = f"--parallel {args.parallel}" if args.parallel else args.model
         raise NotImplementedError(f"{what} is not ported to tdnet_tpu_torch yet")
 
+    from tdnet_tpu_torch.data.png import write_png
     from tdnet_tpu_torch.data.streaming import DATASET_META, FrameSource, decode_segmap
     from tdnet_tpu_torch.models import PSPNetConfig, init_pspnet, init_tdnet, tdnet_config
     from tdnet_tpu_torch.stream.runtime import FrameRunner, Streamer
@@ -90,12 +92,10 @@ def main(argv=None):
     for i, (x, img_name, folder, _) in enumerate(FrameSource(args.img_path, in_size)):
         out, dt = runner.step(torch.from_numpy(x))
         if not args.no_save:
-            import imageio.v2 as imageio
             pred = out[0].argmax(-1).to(torch.uint8).cpu().numpy()
             save_dir = os.path.join(args.output_path, folder)
             os.makedirs(save_dir, exist_ok=True)
-            imageio.imwrite(os.path.join(save_dir, img_name),
-                            decode_segmap(pred[rows][:, cols], palette))
+            write_png(os.path.join(save_dir, img_name), decode_segmap(pred[rows][:, cols], palette))
         print(" Frame {0:2d}   RunningTime/Latency={1:3.5f} s".format(i + 1, dt))
 
     meter = runner.meter

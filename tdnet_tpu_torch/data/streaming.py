@@ -4,7 +4,8 @@ The port's own copy of what the streaming CLI needs from the JAX package's
 ``tdnet_tpu/data/streaming.py`` (the port imports nothing of that package).
 Mirrors Testing/dataloader.py: a recursive, name-sorted png glob, a resize to
 the network input and the ImageNet normalization; and the 19-class trainId
-colour palette for the outputs (dataloader.py:19-41,75-88).
+colour palette for the outputs (dataloader.py:19-41,75-88). No image
+library: frames are read by ``data/png.py`` and resized by torch.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ import colorsys
 import os
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tdnet_tpu_torch.data.png import read_png
 
 CITYSCAPES_COLORS = np.array([
     [128, 64, 128], [244, 35, 232], [70, 70, 70], [102, 102, 156],
@@ -65,11 +70,23 @@ def normalize_frame(img: np.ndarray) -> np.ndarray:
     return (img.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
 
 
+def resize_linear(img: np.ndarray, in_size: tuple[int, int]) -> np.ndarray:
+    """uint8 HWC -> uint8 [H, W, C] at ``in_size`` (H, W): bilinear with
+    half-pixel centres and no antialias (cv2's ``INTER_LINEAR``, which the
+    reference's loader calls), in f32, rounded."""
+    if img.shape[:2] == tuple(in_size):
+        return img
+    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
+    out = F.interpolate(t, size=tuple(in_size), mode="bilinear", align_corners=False)
+    return out[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
 class FrameSource:
     """Eager frame-directory loader (reference: Testing/dataloader.py).
 
     Yields (normalized NHWC float32 [1, H, W, 3], frame name, parent folder,
-    original (H, W)). Needs cv2 and imageio.
+    original (H, W)). Reads through ``data/png.py`` and resizes with
+    ``resize_linear``: no image library.
     """
 
     def __init__(self, img_path: str, in_size: tuple[int, int]):
@@ -82,14 +99,11 @@ class FrameSource:
         return len(self.files)
 
     def __iter__(self):
-        import cv2
-        import imageio.v2 as imageio
-        h, w = self.in_size
         for path in self.files:
-            img = imageio.imread(path)
+            img = read_png(path)
             if img.ndim == 2:
                 img = np.stack([img] * 3, axis=-1)
             ori = img.shape[:2]
-            img = cv2.resize(img, (w, h))
+            img = resize_linear(img, self.in_size)
             yield (normalize_frame(img)[None], os.path.basename(path),
                    os.path.basename(os.path.dirname(path)), ori)

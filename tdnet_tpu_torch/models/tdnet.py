@@ -28,6 +28,7 @@ from tdnet_tpu_torch.nn import (BACKBONES, Attention, Ctx, Encoding, FCNHead, Py
                                 apply_encoding_full, apply_fcn_head, apply_pyramid_pooling,
                                 init_attention, init_encoding, init_fcn_head,
                                 init_pyramid_pooling, init_resnet)
+from tdnet_tpu_torch.nn.fused_trunk import fused_psp_encoding
 from tdnet_tpu_torch.ops import LayerNorm2d, resize_bilinear
 
 
@@ -177,12 +178,21 @@ def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
     """One frame through one sub-network; updates ``cache`` in place.
 
     ``img`` is NHWC [n, H, W, 3]; returns logits NHWC [n, H, W, nclass].
-    ``ctx`` (eval) carries the backbone's ``stem_impl``.
+    ``ctx`` (eval) carries the backbone's ``stem_impl`` and ``fused_trunk``:
+    the z-free grouped-PSP + QKV encoding (``nn/fused_trunk.py``), taken in
+    eval with the projections after the subsample and an int ``pid``, as
+    ``tdnet_tpu/models/tdnet.py:209-221`` takes it.
     """
     x = img.permute(0, 3, 1, 2).contiguous()
     _, c4 = sub.backbone(x, ctx)
-    z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=pid)
-    q_cur, feat = apply_encoding_full(sub.enc, z)
+    use_fused = (ctx.fused_trunk and not ctx.train and cfg.pool_before_proj
+                 and isinstance(pid, int))
+    if use_fused:
+        q_cur, feat, q_c, k_c, v_c = fused_psp_encoding(
+            sub.psp, sub.enc, c4, pid=pid, groups=cfg.psp_groups, kv_stride=cfg.kv_stride)
+    else:
+        z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=pid)
+        q_cur, feat = apply_encoding_full(sub.enc, z)
     if cache.count >= cfg.window:
         # while the cache is cold the reference adds zeros: skip the hops
         feat = feat + _hop_chain(atn_p, cache.ordered(cache.k), cache.ordered(cache.v),
@@ -190,8 +200,9 @@ def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
     out = apply_fcn_head(sub.head, sub.ln(feat))
     out = resize_bilinear(out, cfg.in_size)
 
-    q_c, k_c, v_c = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride,
-                                          pool_before_proj=cfg.pool_before_proj)
+    if not use_fused:
+        q_c, k_c, v_c = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride,
+                                              pool_before_proj=cfg.pool_before_proj)
     slot = cache.head
     cache.q[slot].copy_(q_c)
     cache.k[slot].copy_(k_c)

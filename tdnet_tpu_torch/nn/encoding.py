@@ -21,6 +21,7 @@ Tokens are [n, H*W, d] in row-major (h, w) order, as in the JAX package.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -44,12 +45,44 @@ class Proj2(nn.Module):
         return self.conv1(self.bn0(self.conv0(x), "leaky_relu"))
 
 
+class TrunkWeights(NamedTuple):
+    """The three first-layer 1x1 weights (w_qs's conv0, w_vs, w_ks's conv0)
+    stacked along their output channels [q | v | k], for the fused trunk
+    (``nn/fused_trunk.py``): the identity slice's part [D, g, 1, 1], the bias
+    [D], the four pyramid pieces' parts [4, D, g/4], and d_q, d_v."""
+    w_id: torch.Tensor
+    bias: torch.Tensor
+    w_pieces: torch.Tensor
+    dq: int
+    dv: int
+
+
+def trunk_weights(enc: "Encoding") -> TrunkWeights:
+    convs = (enc.w_qs.conv0, enc.w_vs, enc.w_ks.conv0)
+    weight = torch.cat([cv.weight for cv in convs])             # [D, 2g, 1, 1]
+    g = weight.shape[1] // 2
+    w_pieces = weight[:, g:, 0, 0].reshape(weight.shape[0], 4, g // 4).transpose(0, 1)
+    return TrunkWeights(weight[:, :g].contiguous(), torch.cat([cv.bias for cv in convs]),
+                        w_pieces.contiguous(), convs[0].weight.shape[0],
+                        convs[1].weight.shape[0])
+
+
 class Encoding(nn.Module):
     def __init__(self, d_model: int, d_k: int, d_v: int, device=None):
         super().__init__()
         self.w_qs = Proj2(d_model, d_k, device)
         self.w_ks = Proj2(d_model, d_k, device)
         self.w_vs = Conv2d(d_model, d_v, 1, bias=True, device=device)
+        self.trunk: TrunkWeights | None = None
+
+    def train(self, mode: bool = True) -> "Encoding":
+        self.trunk = None    # as BatchNorm drops its fold
+        return super().train(mode)
+
+    def fold_trunk(self) -> None:
+        """Lay out the fused trunk's stacked weights once (eval, after the
+        model's cast); a mode switch drops them."""
+        self.trunk = trunk_weights(self)
 
 
 def init_encoding(enc: Encoding, generator: torch.Generator) -> None:

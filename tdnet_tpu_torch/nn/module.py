@@ -16,6 +16,10 @@ Two options pick a kernel on the backbone's path (``tdnet_tpu/nn/module.py:31,36
   convs with stride 1 and dilation >= 4 go through K5
   (``kernels/dilated_conv.py``: the kernel for the forward and the dgrad,
   per-tap matmuls for the weight gradient).
+
+``fused_trunk`` (``tdnet_tpu/nn/module.py:37``) takes the streaming step
+through the z-free grouped-PSP + QKV encoding (``nn/fused_trunk.py``), in eval
+only; the ``Streamer`` turns it on by default, as the JAX ``Streamer`` does.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ class Ctx:
     generator: torch.Generator | None = None
     stem_impl: str = "plain"
     conv_wgrad: str = "cudnn"
+    fused_trunk: bool = False
 
     def __post_init__(self):
         if self.stem_impl not in STEM_IMPLS:

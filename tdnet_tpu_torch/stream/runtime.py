@@ -6,6 +6,8 @@ Replaces the reference's per-frame loop over a stateful nn.Module
   eval affine folded once at construction, for the TDNet stream
   (``Streamer``) and the single-frame PSPNet baseline (``FrameRunner``);
 - ``stem_impl``: the backbones' stem, plain or through the fused kernel K4;
+- ``fused_trunk``: the grouped PSP and QKV projections without the pyramid
+  feature (``nn/fused_trunk.py``), the ``Streamer``'s default;
 - a preallocated K/V/Q ring cache updated in place;
 - a seeded synthetic frame stream for driving it without a dataset;
 - synchronized per-frame latency with the reference's 6-frame warm-up
@@ -26,7 +28,7 @@ from tdnet_tpu_torch.data.streaming import IMAGENET_MEAN, IMAGENET_STD
 from tdnet_tpu_torch.kernels.propagation_attention import check_fault
 from tdnet_tpu_torch.models.pspnet import apply_pspnet
 from tdnet_tpu_torch.models.tdnet import init_cache, stream_step
-from tdnet_tpu_torch.nn import Ctx, ResNet
+from tdnet_tpu_torch.nn import Ctx, Encoding, ResNet
 from tdnet_tpu_torch.ops import BatchNorm
 from tdnet_tpu_torch.ops.dtype import no_tf32
 
@@ -120,7 +122,18 @@ class _Runner:
 
 class Streamer(_Runner):
     """Drives a ``TDNet`` over a frame stream, one sub-network per frame, with
-    the K/V/Q ring cache."""
+    the K/V/Q ring cache. ``fused_trunk=True`` (the default, as the JAX
+    ``Streamer``'s) takes the grouped PSP and the QKV projections through
+    ``nn/fused_trunk.py``; ``False`` builds the pyramid feature."""
+
+    def __init__(self, model: nn.Module, *, dtype=torch.float32, stem_impl: str = "plain",
+                 fused_trunk: bool = True):
+        super().__init__(model, dtype=dtype, stem_impl=stem_impl)
+        self.ctx.fused_trunk = fused_trunk
+        if fused_trunk:
+            for m in self.model.modules():
+                if isinstance(m, Encoding):
+                    m.fold_trunk()
 
     def reset(self):
         self.cache = init_cache(self.cfg, 1, self.dtype, self.device)

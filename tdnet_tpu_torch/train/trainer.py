@@ -30,6 +30,9 @@ losses run in f32. K2 and K3 then run their bf16 kernels, and with
 ``conv_wgrad="kernel"`` so does K5 (the JAX package's bf16 Pallas conv). The
 default, None, is the f32 recipe.
 
+``make_eval_step`` is the validation forward: the clip in eval mode, the
+argmax of its logits.
+
 ``full_recipe(yaml)`` builds a YAML's full recipe on seeded random weights and
 data at its crop, batch 1; ``td4_full_recipe`` (TD4-PSP18) and
 ``td2_full_recipe`` (TD2-PSP50) are its two configs.
@@ -171,6 +174,26 @@ def make_train_step(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str =
         return {"loss": loss.detach(), "kd": kd.detach(), "lr": lr}
 
     return step
+
+
+def make_eval_step():
+    """``eval_step(model, frames, pos_id) -> pred [n, H, W]`` (int64): the
+    validation forward (``tdnet_tpu/train/trainer.py:218-235``), the clip
+    forward in eval mode (the attention hops through K1, the BatchNorms on
+    their running statistics, which it leaves unmoved) and the argmax of
+    ``out`` over classes. It restores the model's mode after."""
+
+    def eval_step(model: TDNet, frames: torch.Tensor, pos_id: int) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad(), no_tf32():
+                res = clip_forward(model, frames, pos_id, Ctx(train=False))
+                return res["out"].argmax(dim=1)
+        finally:
+            model.train(was_training)
+
+    return eval_step
 
 
 def full_recipe(yaml_path: str, *, seed: int = 0, conv_wgrad: str = "cudnn",

@@ -34,7 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module", params=[4, 2], ids=["P4", "P2"])
 def streams(request):
     """Per-frame logits of the JAX Streamer (reference dataflow and fused
-    trunk) and of the port's Streamer over 2P+1 frames (cold and warm)."""
+    trunk) and of the port's Streamer in both forms over 2P+1 frames (cold
+    and warm)."""
     p = request.param
     jcfg = JaxConfig(nclass=19, backbone="resnet10", path_num=p, in_size=IN_SIZE,
                      kv_stride=4, aux=False)
@@ -46,24 +47,27 @@ def streams(request):
               for _ in range(2 * p + 1)]
     ref = JaxStreamer(params, jcfg, fused_trunk=False)
     fused = JaxStreamer(params, jcfg)
+    port_ref = Streamer(tdnet_from_jax(params, cfg), fused_trunk=False)
     port = Streamer(tdnet_from_jax(params, cfg))
-    out = {"ref": [], "fused": [], "port": []}
+    out = {"ref": [], "fused": [], "port_ref": [], "port": []}
     for f in frames:
         out["ref"].append(np.asarray(ref.step(jnp.asarray(f), timed=False)[0]))
         out["fused"].append(np.asarray(fused.step(jnp.asarray(f), timed=False)[0]))
+        out["port_ref"].append(port_ref.step(torch.from_numpy(f), timed=False)[0].numpy())
         out["port"].append(port.step(torch.from_numpy(f), timed=False)[0].numpy())
     return out
 
 
 def test_stream_matches_reference_dataflow(streams):
-    for i, (got, want) in enumerate(zip(streams["port"], streams["ref"])):
+    for i, (got, want) in enumerate(zip(streams["port_ref"], streams["ref"])):
         assert got.shape == want.shape == (1, *IN_SIZE, 19)
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5, err_msg=f"frame {i}")
 
 
 def test_stream_matches_fused_trunk(streams):
+    """The port's default stream is the fused trunk, as JAX's is."""
     for i, (got, want) in enumerate(zip(streams["port"], streams["fused"])):
-        np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-4, err_msg=f"frame {i}")
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5, err_msg=f"frame {i}")
 
 
 def test_latency_meter_warmup_exclusion():
