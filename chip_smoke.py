@@ -250,11 +250,40 @@ Phases (any failure exits non-zero):
     checkpoint, its confusion matrix equal to the run's validation of those
     weights; losses finite, the error word read; ms a step split into the
     wait for ``ClipBatcher`` and the step, peak memory, K1, K2, K3 launches.
+    Phase 19 keeps its tree for phase 20. From phase 0 on the backbone store
+    (``utils/model_store.py``) looks in an empty local cache and downloads from
+    ``file://`` URLs of a directory that does not exist (``offline_store``):
+    no phase reaches the network;
+20. the reference's checkpoints at full width (``reference_state`` writes a
+    seeded port model, BNs, LayerNorms and biases drawn too, under the
+    reference's key names with ``num_batches_tracked``; ``write_reference``
+    saves it in the legacy format as ``{"epoch", "model_state", "best_iou"}``):
+    TD4-PSP18 at 769x1537 (DataParallel's ``module.`` keys), TD2-PSP50 at
+    1025x2049 and PSP-101 at 769x1537 through ``cli.convert`` (PSP-101 as the
+    teacher source, ``--arch pspnet_4p``), every converted state bitwise equal
+    to the seeded model's (PSP-101's parts and gathered head columns); then
+    ``cli.test.main`` over 12 seeded 1024x2048 PNGs with each reference file
+    as its checkpoint (TD4-PSP18 f32 and bf16, TD2-PSP50 and PSP-101 bf16 with
+    ``--stem_impl fused``): "Loading pretrained model" printed, the saved class
+    maps bitwise equal to a ``Streamer`` / ``FrameRunner`` on the seeded model
+    over the same frames, K1 3 a warm TD4 frame and 1 a warm TD2 frame, K4 1 a
+    frame, the latency lines printed; then ``cli.train.train`` on phase 19's
+    tree (the YAML at full width, batch 2): 2 iterations with
+    ``training.resume`` a seeded PSPNet-18 source and ``teacher_model`` the
+    PSP-101 file, every path's backbone and PSP, head bn and out the source's,
+    path p's head conv its gathered columns (``grouped_head_conv(w, 2, p %
+    2)``), the teacher's group convs PSP-101's gathered columns, all bitwise
+    before the first step; then 1 iteration without ``resume``, a seeded
+    torchvision ResNet-18 in the store's cache as ``resnet18-<its sha256
+    prefix>.pth``, every path's backbone bitwise the file's; losses finite, K2
+    and K3 3 + 3 a step, ms a step and peak memory; the error word read after
+    every run.
 The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward and backward in f32
 and in bf16, K3 in f32 and in bf16, K4 per dtype (at the TD2 stem shape) and
 K5 forward and dgrad in f32 and in bf16 (at 512->512 d4; launches of phases
-14 and 17, and 16 and 17), each with launches, error, times, library time and
+14 and 17, and 16 and 17; phase 20's launches added to K1's, K2's, K3's and
+K4's), each with launches, error, times, library time and
 bound (K1's library time is SDPA followed by ``torch.addmm``, with SDPA alone
 beside it; all add their device time); the last line
 is ``{"ok": true, "device": {...}}``. TF32 stays off throughout, as the
@@ -268,10 +297,12 @@ import copy
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 import types
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -2640,7 +2671,7 @@ def decode_times(root: str) -> None:
         f"frames and a label")
 
 
-def phase_train_cli(card: str) -> None:
+def phase_train_cli(card: str) -> str:
     """Phase 19: ``cli.train.train`` on configs/td4_psp18_cityscapes.yml at its
     full width on a seeded tree (``write_tree``), overriding only the data
     path, 4 iterations, batch 2, validation and checkpoints every 2 and a print
@@ -2651,7 +2682,8 @@ def phase_train_cli(card: str) -> None:
     predictions agree in ``AGREEMENT_MIN`` of the pixels). Every loss finite,
     the error word read after every step and validation; ms a step split into
     the wait for ``ClipBatcher`` and the step, the peak memory, and K2's, K3's
-    and K1's launches; first, one frame's decode time (``decode_times``)."""
+    and K1's launches; first, one frame's decode time (``decode_times``).
+    Returns the tree's root, which phase 20 trains on again."""
     import logging
     import shutil
     from tdnet_tpu_torch.cli import train as cli_train
@@ -2768,7 +2800,440 @@ def phase_train_cli(card: str) -> None:
         f"{ms_list(vstats['batch_s'])} ms a batch")
     if not (equal or agree >= AGREEMENT_MIN):
         raise AssertionError(f"[19] validate vs the run's validation: agreement {agree}")
+    for d in (logdir, resumed_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    return root
+
+
+# phase 20: the reference's checkpoints
+REF_SEED = SEED + 20
+REF_BEST_IOU = np.float64(0.7391)   # a numpy scalar, as the reference's best_iou may be
+# the reference's names of the port's modules, by part: FCN heads (conv5 = conv, bn, relu,
+# dropout, conv), the PSPNet head (conv5 = pyramid, conv, bn, relu, dropout, conv), the TDNet
+# pyramid and the encoding's projections
+FCN_NAMES = {"conv": "conv5.0", "bn": "conv5.1", "out": "conv5.4"}
+PSP_HEAD_NAMES = {"conv.conv": "conv5.1", "conv.bn": "conv5.2", "out": "conv5.5",
+                  **{f"psp.conv{i}.{m}": f"conv5.0.conv{i}.{j}"
+                     for i in range(1, 5) for m, j in (("conv", 0), ("bn", 1))}}
+PYRAMID_NAMES = {f"conv{i}.{m}": f"conv{i}.{j}" for i in range(1, 5)
+                 for m, j in (("conv", 0), ("bn", 1))}
+ENCODING_NAMES = {"w_vs": "w_vs.0.conv", **{f"{w}.{m}": f"{w}.{r}" for w in ("w_qs", "w_ks")
+                                             for m, r in (("conv0", "0.conv"), ("bn0", "0.bn"),
+                                                          ("conv1", "1.conv"))}}
+STEM_NAMES = {"stem.conv0": "conv1.0", "stem.bn0": "conv1.1", "stem.conv1": "conv1.3",
+              "stem.bn1": "conv1.4", "stem.conv2": "conv1.6"}
+NAMINGS = ("testing", "training", "psp_source", "psp101", "torchvision")
+
+
+def _renamed(key: str, names: dict) -> str:
+    module, _, leaf = key.rpartition(".")
+    return f"{names[module]}.{leaf}"
+
+
+def _resnet_name(key: str, deep_base: bool) -> str:
+    module, _, leaf = key.rpartition(".")
+    if module.startswith("stem."):
+        module = STEM_NAMES[module] if deep_base else "conv1"
+    module = module.replace("downsample.conv", "downsample.0").replace("downsample.bn",
+                                                                        "downsample.1")
+    return f"{module}.{leaf}"
+
+
+def reference_state(model, cfg, naming: str) -> dict:
+    """A port model's state under the reference's key names, with
+    ``num_batches_tracked`` beside each BatchNorm: the inverse of the port's
+    importer (``utils/torch_import.py``), in the namings the reference's
+    checkpoints have:
+    - ``testing``: a TDNet as the Testing twins (td4-psp18.pkl, td2-psp50.pkl)
+      hold it, ``pretrained{i}``, ``psp{i}``, ``enc{i}``, ``layer_norm{i}``,
+      ``head{i}``, the hops' fcs as 1x1 convs [out, in, 1, 1] stored
+      pre-rotated (``atn{p+1}_{s+1}``, s = (p + h + 1) % P; TD2 ``atn{p+1}``);
+    - ``training``: the same and the aux heads ``auxlayer{i}`` (a best model);
+    - ``psp_source``: a single-path PSPNet, ``pretrained``, ``head.conv5.*``,
+      ``auxlayer`` (the bootstrap and teacher sources);
+    - ``psp101``: the same without the aux head (Testing's psp101.pkl);
+    - ``torchvision``: a ResNet as torchvision names it, with a seeded ``fc``.
+    ``cfg`` is the model's config (TDNetConfig, PSPNetConfig or ResNetConfig)."""
+    from tdnet_tpu_torch.nn import BACKBONES
+    if naming not in NAMINGS:
+        raise ValueError(f"naming {naming!r} not in {NAMINGS}")
+    out = OrderedDict()
+    if naming in ("testing", "training"):
+        deep = BACKBONES[cfg.backbone]().deep_base
+        for key, v in model.state_dict().items():
+            m = re.fullmatch(r"atn\.(\d+)\.(\d+)\.(w|b)", key)
+            if m:
+                p, h = int(m[1]), int(m[2])
+                hop = (f"atn{p + 1}" if cfg.path_num == 2
+                       else f"atn{p + 1}_{(p + h + 1) % cfg.path_num + 1}")
+                out[f"{hop}.fc.0.conv.weight" if m[3] == "w" else f"{hop}.fc.0.conv.bias"] = (
+                    v.t()[:, :, None, None] if m[3] == "w" else v)
+                continue
+            p, part, rest = re.fullmatch(r"paths\.(\d+)\.(\w+)\.(.+)", key).groups()
+            i = int(p) + 1
+            if part == "aux" and naming == "testing":
+                continue
+            out[{"backbone": lambda: f"pretrained{i}." + _resnet_name(rest, deep),
+                 "psp": lambda: f"psp{i}." + _renamed(rest, PYRAMID_NAMES),
+                 "enc": lambda: f"enc{i}." + _renamed(rest, ENCODING_NAMES),
+                 "ln": lambda: f"layer_norm{i}.ln.{rest}",
+                 "head": lambda: f"head{i}." + _renamed(rest, FCN_NAMES),
+                 "aux": lambda: f"auxlayer{i}." + _renamed(rest, FCN_NAMES)}[part]()] = v
+    elif naming in ("psp_source", "psp101"):
+        for key, v in model.state_dict().items():
+            part, _, rest = key.partition(".")
+            if part == "aux" and naming == "psp101":
+                continue
+            deep = cfg.backbone_cfg.deep_base
+            out[{"backbone": lambda: "pretrained." + _resnet_name(rest, deep),
+                 "head": lambda: "head." + _renamed(rest, PSP_HEAD_NAMES),
+                 "aux": lambda: "auxlayer." + _renamed(rest, FCN_NAMES)}[part]()] = v
+    else:
+        for key, v in model.state_dict().items():
+            out[_resnet_name(key, cfg.deep_base)] = v
+        gen = torch.Generator().manual_seed(REF_SEED)
+        out["fc.weight"] = torch.randn(1000, cfg.out_channels, generator=gen) * 0.01
+        out["fc.bias"] = torch.zeros(1000)
+    with_count = OrderedDict()
+    for key, v in out.items():
+        with_count[key] = v.detach().cpu().clone()
+        if key.endswith(".running_var"):
+            with_count[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(40000)
+    return with_count
+
+
+def seeded(model, seed: int):
+    """``model`` with its BatchNorms, LayerNorms and biases drawn from ``seed``
+    (the reference's init leaves them constant, so a name map that swapped two
+    of them would not show)."""
+    from tdnet_tpu_torch.nn import Attention
+    from tdnet_tpu_torch.ops import BatchNorm, Conv2d, LayerNorm2d
+    gen = torch.Generator().manual_seed(seed)
+    def draw(t, base=0.0):
+        t.copy_(base + 0.1 * torch.randn(t.shape, generator=gen))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BatchNorm, LayerNorm2d)):
+                draw(m.weight, 1.0)
+                draw(m.bias)
+            if isinstance(m, BatchNorm):
+                draw(m.running_mean)
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
+            elif isinstance(m, Conv2d) and m.bias is not None:
+                draw(m.bias)
+            elif isinstance(m, Attention):
+                draw(m.b)
+    return model
+
+
+def seeded_model(kind: str, in_size, seed: int = REF_SEED):
+    """A seeded port model: a TDNet twin (``td4-psp18``, ``td2-psp50``: the
+    streaming twin), a PSPNet (``psp18``: ResNet-18 with the aux head, the
+    bootstrap source; ``psp101``) or a ResNet-18 (``resnet18``); and its config."""
+    from tdnet_tpu_torch.models import PSPNetConfig, init_pspnet, init_tdnet, tdnet_config
+    from tdnet_tpu_torch.nn import BACKBONES, ResNet, init_resnet
+    gen = torch.Generator().manual_seed(seed)
+    if kind in ("td4-psp18", "td2-psp50"):
+        cfg = tdnet_config(kind, in_size=in_size)
+        return seeded(init_tdnet(cfg, gen), seed), cfg
+    if kind in ("psp18", "psp101"):
+        cfg = PSPNetConfig(backbone="resnet" + kind[3:], in_size=in_size, aux=kind == "psp18")
+        return seeded(init_pspnet(cfg, gen), seed), cfg
+    cfg = BACKBONES[kind]()
+    net = ResNet(cfg)
+    init_resnet(net, gen)
+    return seeded(net, seed), cfg
+
+
+def write_reference(path: str, state: dict, prefix: str = "") -> None:
+    """A reference checkpoint, as its PyTorch 1.1 wrote it: the legacy
+    (non-zip) format, ``{"epoch", "model_state", "best_iou"}``."""
+    model_state = OrderedDict((prefix + k, v) for k, v in state.items())
+    payload = {"epoch": 40000, "model_state": model_state, "best_iou": REF_BEST_IOU}
+    torch.save(payload, path, _use_new_zipfile_serialization=False)
+
+
+def offline_store(work: str) -> None:
+    """The backbone store on local directories only: ``TORCH_HOME`` an empty
+    directory here, the download URLs ``file://`` ones of a directory that does
+    not exist. No phase reaches the network, and phase 19's store misses."""
+    import shutil
+    from tdnet_tpu_torch.utils import model_store
     shutil.rmtree(work, ignore_errors=True)
+    nowhere = os.path.join(work, "no_mirror")
+    os.environ["TORCH_HOME"] = os.path.join(work, "torch_home")
+    os.environ["ENCODING_REPO"] = f"file://{nowhere}/"
+    model_store.TORCHVISION_URL = f"file://{nowhere}/{{name}}-{{sha}}.pth"
+    zoo = os.path.expanduser("~/.encoding/models")
+    cached = sorted(os.listdir(zoo)) if os.path.isdir(zoo) else []
+    log(f"[0] backbone store: TORCH_HOME {os.environ['TORCH_HOME']} (empty), downloads from "
+        f"{model_store.TORCHVISION_URL}; {zoo}: {cached[:4] if cached else 'nothing'}")
+
+
+def phase_reference_convert(work: str, sizes: dict) -> dict:
+    """Phase 20 step 1: seeded TD4-PSP18 (DataParallel's ``module.`` keys),
+    TD2-PSP50 and PSP-101 written as reference files (``reference_state``,
+    ``write_reference``), then ``cli.convert`` on each: the TDNets' converted
+    states bitwise equal to the seeded models', PSP-101's (the teacher surgery,
+    ``--arch pspnet_4p``, the convert that takes a PSPNet) to the seeded model's
+    parts and its gathered head columns. Returns the reference files by kind."""
+    from tdnet_tpu_torch.cli import convert
+    from tdnet_tpu_torch.utils.surgery import grouped_head_conv
+    files = {}
+    for kind, naming, prefix in (("td4-psp18", "testing", "module."),
+                                 ("td2-psp50", "testing", ""), ("psp101", "psp101", "")):
+        t = time.perf_counter()
+        model, cfg = seeded_model(kind, sizes[kind])
+        want = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        files[kind] = src = os.path.join(work, f"{kind}.pkl")
+        write_reference(src, reference_state(model, cfg, naming), prefix)
+        dst = os.path.join(work, f"{kind}_converted.pt")
+        size = ["--in_size", str(cfg.in_size[0]), str(cfg.in_size[1])]
+        argv = ["--arch", kind, "--streaming"] if kind != "psp101" else ["--arch", "pspnet_4p"]
+        with contextlib.redirect_stdout(sys.stderr):
+            convert.main(argv + ["--src", src, "--dst", dst] + size)
+        got = torch.load(dst, weights_only=True)["model_state"]
+        if kind == "psp101":
+            w = want["head.conv.conv.weight"]
+            want = {**{k: v for k, v in want.items() if k.startswith("backbone.")},
+                    **{k[5:]: v for k, v in want.items() if k.startswith("head.psp.")},
+                    **{f"groups.{g}.weight": grouped_head_conv(w, 4, g) for g in range(4)},
+                    **{"head." + k[10:]: v for k, v in want.items()
+                       if k.startswith("head.conv.bn.")},
+                    **{k: v for k, v in want.items() if k.startswith("head.out.")}}
+        same = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+        log(f"[20] {kind} {cfg.in_size[0]}x{cfg.in_size[1]}: reference file "
+            f"{os.path.getsize(src) / 2**20:.0f} MiB (legacy format, {prefix or 'no'} prefix), "
+            f"converted ({' '.join(argv)}): {len(got)} tensors "
+            f"{'bitwise equal to' if same else 'DIFFERENT from'} the seeded model's; "
+            f"{time.perf_counter() - t:.1f} s")
+        if not same:
+            bad = sorted(set(got) ^ set(want)) or [k for k in want if not torch.equal(got[k],
+                                                                                    want[k])]
+            raise AssertionError(f"[20] {kind}: converted state differs at {bad[:4]}")
+        del model, got, want
+    return files
+
+
+def phase_reference_serve(card: str, work: str, files: dict, sizes: dict) -> dict:
+    """Phase 20 step 2: ``cli.test.main`` over 12 seeded 1024x2048 PNG frames
+    with each reference file as its checkpoint path (TD4-PSP18 f32 and bf16,
+    TD2-PSP50 and PSP-101 bf16 with ``--stem_impl fused``): "Loading pretrained
+    model" printed, the saved class maps bitwise equal to those of a
+    ``Streamer`` / ``FrameRunner`` on the seeded model over the same frames,
+    K1 3 a warm TD4 frame and 1 a warm TD2 frame, K4 1 a frame, the error word
+    clear. Returns the runs' launches by kernel and dtype."""
+    import io
+    from tdnet_tpu_torch.cli import test as cli_test
+    from tdnet_tpu_torch.data.png import read_png, write_png
+    from tdnet_tpu_torch.data.streaming import CITYSCAPES_COLORS, FrameSource, decode_segmap
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.fused_stem import fused_stem_tail
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.stream.runtime import FrameRunner, Streamer
+    frames_dir = os.path.join(work, "frames", "clip")
+    os.makedirs(frames_dir)
+    rng = np.random.RandomState(REF_SEED)
+    h, w = TREE_SIZE
+    scene = np.repeat(np.repeat(rng.randint(0, 256, (h // 16, w // 16 + 2, 3)), 16, 0), 16, 1)
+    for t in range(N_FRAMES):
+        write_png(os.path.join(frames_dir, f"frame_{t:03d}.png"),
+                  scene[:, 2 * t:2 * t + w].astype(np.uint8), level=1)
+    launches = {"K1 f32": 0, "K1 bf16": 0, "K4 bf16": 0}
+    for kind, dtype, stem in (("td4-psp18", "float32", "plain"), ("td4-psp18", "bfloat16", "plain"),
+                              ("td2-psp50", "bfloat16", "fused"), ("psp101", "bfloat16", "fused")):
+        tag = f"{kind} {dtype} stem {stem}"
+        out_dir = os.path.join(work, "out", kind + "-" + dtype)
+        size = sizes[kind]
+        argv = ["--img_path", os.path.dirname(frames_dir), "--output_path", out_dir,
+                "--model", kind, f"--_{kind.replace('-', '_')}_path", files[kind],
+                "--device", "cuda", "--dtype", dtype, "--stem_impl", stem,
+                "--in_size", str(size[0]), str(size[1])]
+        fused_propagation_attention.launches = fused_stem_tail.launches = 0
+        printed = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli_test.main(argv)
+        wall = time.perf_counter() - t
+        check_fault("cuda")
+        n = (fused_propagation_attention.launches, fused_stem_tail.launches)
+        lines = printed.getvalue().splitlines()
+        window = {"td4-psp18": 3, "td2-psp50": 1, "psp101": 0}[kind]
+        want = (window * (N_FRAMES - window), N_FRAMES if stem == "fused" else 0)
+        if not (any(ln.startswith("Loading pretrained model from") for ln in lines)
+                and n == want):
+            raise AssertionError(f"[20] cli.test {tag}: launches K1/K4 {n} (expected {want}); "
+                                 f"printed {lines[:2]}")
+        launches["K1 f32" if dtype == "float32" else "K1 bf16"] += n[0]
+        launches["K4 bf16"] += n[1]
+        model, cfg = seeded_model(kind, size)
+        runner = (FrameRunner if kind == "psp101" else Streamer)(
+            model.to("cuda"), dtype=getattr(torch, dtype), stem_impl=stem)
+        rows = np.arange(size[0] // 4) * size[0] // (size[0] // 4)
+        cols = np.arange(size[1] // 4) * size[1] // (size[1] // 4)
+        same = 0
+        for x, name, folder, _ in FrameSource(os.path.dirname(frames_dir), size):
+            pred = runner.step(torch.from_numpy(x), timed=False)[0][0].argmax(-1)
+            want_map = decode_segmap(pred.to(torch.uint8).cpu().numpy()[rows][:, cols],
+                                     CITYSCAPES_COLORS)
+            same += np.array_equal(read_png(os.path.join(out_dir, folder, name)), want_map)
+        check_fault("cuda")
+        log(f"[20] cli.test {tag} ({card}), {size[0]}x{size[1]}: {lines[0]}; "
+            f"{lines[-2].strip()}; launches K1 {n[0]} K4 {n[1]}; class maps of {same} of "
+            f"{N_FRAMES} frames bitwise equal to the seeded model's own run; {wall:.1f} s")
+        if same != N_FRAMES:
+            raise AssertionError(f"[20] cli.test {tag}: {N_FRAMES - same} class maps differ")
+        del model, runner
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_reference_train(card: str, work: str, root: str, files: dict, sizes: dict) -> dict:
+    """Phase 20 steps 3 and 4: ``cli.train.train`` on phase 19's tree with the
+    YAML at full width, batch 2: 2 iterations with ``training.resume`` a seeded
+    PSPNet-18 source and ``teacher.teacher_model`` the PSP-101 reference file,
+    every path's backbone and PSP bitwise the source's, path p's head conv
+    ``grouped_head_conv(w, 2, p % 2)`` (its bn and out the source's), the
+    teacher's group convs the gathered columns of PSP-101's; then 1 iteration
+    without ``resume``, a seeded torchvision ResNet-18 in the store's local
+    cache (``resnet18-<its sha256 prefix>.pth``), every path's backbone bitwise
+    the file's. Both checked before the first step; losses finite, K2 and K3
+    3 + 3 a step, the error word clear. Returns the launches by kernel."""
+    import logging
+    from tdnet_tpu_torch import models
+    from tdnet_tpu_torch.cli import train as cli_train
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.train import trainer
+    from tdnet_tpu_torch.utils.config import load_config
+    from tdnet_tpu_torch.utils.surgery import grouped_head_conv
+    src, src_cfg = seeded_model("psp18", sizes["td4-psp18"])
+    source = {k: v.detach().clone() for k, v in src.state_dict().items()}
+    files["psp18"] = os.path.join(work, "psp18.pkl")
+    write_reference(files["psp18"], reference_state(src, src_cfg, "psp_source"))
+    psp101 = {k: v.detach().clone() for k, v in seeded_model("psp101", sizes["psp101"])[0]
+              .state_dict().items()}
+    backbone, backbone_cfg = seeded_model("resnet18", None)
+    imagenet = {k: v.detach().clone() for k, v in backbone.state_dict().items()}
+    store = os.path.join(work, "torch_home", "hub", "checkpoints")
+    os.makedirs(store)
+    tmp = os.path.join(store, "resnet18.tmp")
+    torch.save(reference_state(backbone, backbone_cfg, "torchvision"), tmp)
+    with open(tmp, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    os.replace(tmp, os.path.join(store, f"resnet18-{sha[:8]}.pth"))
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "td4_psp18_cityscapes.yml"))
+    cfg["data"]["path"] = root
+    cfg["teacher"]["teacher_model"] = files["psp101"]
+    cfg["training"].update(batch_size=2, val_interval=1000, print_interval=1, ckpt_interval=0)
+    counters = ((propagation_attention_train, "launches"),
+                (propagation_attention_train, "backward_launches"),
+                (dropout, "launches"), (dropout, "backward_launches"),
+                (fused_propagation_attention, "launches"))
+    total = [0] * len(counters)
+    real_state, real_freeze = trainer.make_train_state, models.freeze
+    logger = logging.getLogger("tdnet_tpu_torch.chip_smoke")
+
+    def run(tag, iters, resume, torch_home):
+        """The students as ``make_train_state`` gets them and the teacher as
+        ``freeze`` gets it from the file, both before the first (timed) step."""
+        seen = {}
+
+        def record_state(model, **kw):
+            seen["model"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            return real_state(model, **kw)
+
+        def record_freeze(teacher):
+            seen["teacher"] = {k: v.detach().cpu().clone() for k, v in teacher.state_dict().items()}
+            return real_freeze(teacher)
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["training"].update(train_iters=iters, resume=resume)
+        run_dir = os.path.join(work, "run-" + tag)
+        os.makedirs(run_dir)
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        saved_home = os.environ["TORCH_HOME"]
+        os.environ["TORCH_HOME"] = torch_home
+        t = time.perf_counter()
+        try:
+            with swapped(trainer, "make_train_state", record_state), \
+                    swapped(models, "freeze", record_freeze):
+                cli_train.train(run_cfg, logger, run_dir, device="cuda", stats=stats)
+        finally:
+            os.environ["TORCH_HOME"] = saved_home
+        check_fault("cuda")
+        n = len(stats["step_s"])
+        launches = [getattr(fn, attr) for fn, attr in counters]
+        for i, x in enumerate(launches):
+            total[i] += x
+        if not (n == iters and np.all(np.isfinite(stats["losses"]))
+                and launches[:4] == [3 * n] * 4):
+            raise AssertionError(f"[20] train {tag}: losses {stats['losses']}, launches "
+                                 f"{launches}")
+        log(f"[20] cli.train {tag} ({card}): {n} steps of batch 2 at "
+            f"{sizes['td4-psp18'][0]}x{sizes['td4-psp18'][1]}; losses "
+            f"{', '.join(f'{x:.4f}' for x in stats['losses'])}; ms a step "
+            f"{ms_list(stats['step_s'])} (waiting on ClipBatcher {ms_list(stats['data_s'])}); "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; launches K2 "
+            f"fwd/bwd {launches[0]}/{launches[1]}, K3 fwd/bwd {launches[2]}/{launches[3]}, K1 "
+            f"{launches[4]}; {time.perf_counter() - t:.1f} s in all")
+        return seen
+
+    def held(tag, pairs):
+        bad = [name for name, got, want in pairs if not torch.equal(got, want)]
+        log(f"[20] {tag}: {len(pairs) - len(bad)} of {len(pairs)} tensors bitwise equal")
+        if bad:
+            raise AssertionError(f"[20] {tag}: {bad[:4]} differ")
+
+    seen = run("bootstrap", 2, files["psp18"], os.environ["TORCH_HOME"])
+    student, teacher = seen["model"], seen["teacher"]
+    pairs = []
+    for p in range(4):
+        pairs += [(f"paths.{p}.{k}", student[f"paths.{p}.{k}"], v) for k, v in source.items()
+                  if k.startswith("backbone.")]
+        pairs += [(f"paths.{p}.{k[5:]}", student[f"paths.{p}.{k[5:]}"], v)
+                  for k, v in source.items() if k.startswith("head.psp.")]
+        pairs += [(f"paths.{p}.{k}", student[f"paths.{p}.{k}"], v) for k, v in source.items()
+                  if k.startswith(("aux.", "head.out."))]
+        pairs += [(f"paths.{p}.head.bn.{k[13:]}", student[f"paths.{p}.head.bn.{k[13:]}"], v)
+                  for k, v in source.items() if k.startswith("head.conv.bn.")]
+        pairs.append((f"paths.{p}.head.conv.weight", student[f"paths.{p}.head.conv.weight"],
+                      grouped_head_conv(source["head.conv.conv.weight"], 2, p % 2)))
+    held("the bootstrapped students before step 1 against the PSPNet-18 source", pairs)
+    held("the teacher against the PSP-101 file", [
+        (f"groups.{g}.weight", teacher[f"groups.{g}.weight"],
+         grouped_head_conv(psp101["head.conv.conv.weight"], 4, g)) for g in range(4)] + [
+        (k, teacher[k], v) for k, v in psp101.items() if k.startswith("backbone.")])
+    seen = run("imagenet", 1, os.path.join(work, "no_source.pkl"),
+               os.path.join(work, "torch_home"))
+    held("every path's backbone before step 1 against the store's resnet18 file", [
+        (f"paths.{p}.backbone.{k}", seen["model"][f"paths.{p}.backbone.{k}"], v)
+        for p in range(4) for k, v in imagenet.items()])
+    return {"fwd": total[0], "bwd": total[1], "drop": total[2] + total[3], "K1 f32": total[4]}
+
+
+def phase_reference(card: str, root: str) -> dict:
+    """Phase 20: the reference's checkpoints at full width (steps 1-4 above);
+    returns its launches by kernel."""
+    import shutil
+    from tdnet_tpu_torch.models import STREAM_SIZE
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase20")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    files = phase_reference_convert(work, STREAM_SIZE)
+    launches = phase_reference_serve(card, work, files, STREAM_SIZE)
+    trained = phase_reference_train(card, work, root, files, STREAM_SIZE)
+    launches["K1 f32"] += trained.pop("K1 f32")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(root), ignore_errors=True)
+    log(f"[20] {time.perf_counter() - t0:.1f} s in all")
+    return {**launches, **trained}
 
 
 def ms_list(xs) -> str:
@@ -2777,6 +3242,7 @@ def ms_list(xs) -> str:
 
 def main() -> int:
     card = phase_toolchain()
+    offline_store(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "store"))
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2836,7 +3302,12 @@ def main() -> int:
     del recipe
     td2_launches = phase_td2_train(card)
     phase_fused_trunk(card, td4, td2)
-    phase_train_cli(card)
+    root = phase_train_cli(card)
+    reference = phase_reference(card, root)
+    launches["f32"] += reference["K1 f32"]
+    launches["bf16"] += reference["K1 bf16"]
+    stem_launches["bf16"] += reference["K4 bf16"]
+    train_launches = {k: n + reference[k] for k, n in train_launches.items()}
 
     src = "tdnet_tpu_torch/csrc/"
     entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",

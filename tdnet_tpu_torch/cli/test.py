@@ -7,6 +7,12 @@ PSPNet-101 forward per frame), colorized quarter-resolution PNG outputs, and
 per-frame latency with the 6-frame warm-up excluded. Frames are read and
 outputs written by ``data/png.py`` (no image library). ``--stem_impl fused``
 runs the deep-base stems (TD2-PSP50, PSP-101) through the fused stem kernel.
+The checkpoint path of the model (``--_td4_psp18_path`` ...) may hold the
+reference's file (TD4-PSP18 and TD2-PSP50 in the Testing twin's naming,
+PSP-101 as ``pretrained.*`` and ``head.*``), the port's own
+(``cli/convert.py``) or, for a TDNet, the JAX package's
+(``utils/torch_import.py:load_tdnet``); with no file the weights are random
+(seed 0).
 
     python -m tdnet_tpu_torch.cli.test --img_path frames/ --output_path out/ \\
         --model td2-psp50 --device cuda --dtype bfloat16 --stem_impl fused
@@ -61,6 +67,7 @@ def main(argv=None):
     from tdnet_tpu_torch.data.streaming import DATASET_META, FrameSource, decode_segmap
     from tdnet_tpu_torch.models import PSPNetConfig, init_pspnet, init_tdnet, tdnet_config
     from tdnet_tpu_torch.stream.runtime import FrameRunner, Streamer
+    from tdnet_tpu_torch.utils.torch_import import load_pspnet, load_tdnet
 
     in_size = tuple(args.in_size)
     nclass, palette = DATASET_META[args.dataset]
@@ -70,20 +77,20 @@ def main(argv=None):
     ckpt_path = {"td4-psp18": args._td4_psp18_path,
                  "td2-psp50": args._td2_psp50_path,
                  "psp101": args._psp101_path}[args.model]
-    if ckpt_path and os.path.isfile(ckpt_path):
-        raise NotImplementedError(
-            f"loading reference checkpoints ({ckpt_path}) is not ported to tdnet_tpu_torch yet")
-    print(f"No pretrained found at '{ckpt_path}'")
-
     gen = torch.Generator().manual_seed(0)
     if args.model == "psp101":
         cfg = PSPNetConfig(nclass=nclass, backbone="resnet101", in_size=in_size)
-        runner = FrameRunner(init_pspnet(cfg, gen).to(device), dtype=dtype,
-                               stem_impl=args.stem_impl)
+        model, load = init_pspnet(cfg, gen), load_pspnet
     else:
-        cfg = tdnet_config(args.model, nclass=nclass, in_size=in_size)
-        runner = Streamer(init_tdnet(cfg, gen).to(device), dtype=dtype,
-                            stem_impl=args.stem_impl)
+        cfg = tdnet_config(args.model, nclass=nclass, in_size=in_size, streaming=True)
+        model, load = init_tdnet(cfg, gen), load_tdnet
+    if ckpt_path and os.path.isfile(ckpt_path):
+        print(f"Loading pretrained model from '{ckpt_path}'")
+        load(model, ckpt_path)
+    else:
+        print(f"No pretrained found at '{ckpt_path}'")
+    runner = (FrameRunner if args.model == "psp101" else Streamer)(
+        model.to(device), dtype=dtype, stem_impl=args.stem_impl)
     os.makedirs(args.output_path, exist_ok=True)
     # quarter-resolution nearest-neighbour sampling grid
     rows = np.arange(in_size[0] // 4) * in_size[0] // (in_size[0] // 4)

@@ -12,9 +12,22 @@ the whole train state saved every ``ckpt_interval`` iterations and at the end
 with a copy of the config and a file logger. Runs on one card (``--device
 cuda``, the default) or on the CPU (``--device cpu``).
 
-Not ported: bootstrapping the students or the teacher from the reference's
-checkpoints (a ``resume`` or ``teacher_model`` file that exists raises), the
-cached ImageNet backbones and ``--path_parallel`` (multi-GPU).
+The weights start as the reference's do (``tdnet_tpu/cli/train.py:86-121``):
+- ``training.resume``, a single-path PSPNet checkpoint of the reference,
+  bootstraps every sub-network (``utils/surgery.py:
+  student_bootstrap_from_psp_checkpoint``); the port's own file of the
+  bootstrapped TDNet (``cli.convert --bootstrap``) loads as it is;
+- without it, each path's backbone is the ImageNet one of the backbone store
+  (``utils/model_store.py``: ``~/.encoding/models``,
+  ``$TORCH_HOME/hub/checkpoints``, a download on a miss), where it has one: a
+  deep-stem ResNet (50, 101, 152) is the encoding zoo's ``resnet50s`` ..., as
+  the reference's students load it, never torchvision's 7x7-stem file of the
+  plain name;
+- ``teacher.teacher_model``, a PSPNet checkpoint, becomes the grouped teacher
+  (``teacher_from_psp_checkpoint``); the port's own teacher file (``cli.convert
+  --arch pspnet_4p``) loads as it is; without either the teacher is random.
+
+Not ported: ``--path_parallel`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -31,8 +44,52 @@ import torch
 SEED = 11733  # reference train.py:35
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to tdnet_tpu_torch yet")
+def _torch_state(path: str, what: str):
+    """(the model state in ``path``, 'port' or 'reference'); the JAX package's
+    pickle is refused, naming the file."""
+    from tdnet_tpu_torch.utils.torch_import import checkpoint_kind
+    state, kind = checkpoint_kind(path)
+    if kind == "jax":
+        raise ValueError(f"{path}: {what} is read from a torch checkpoint only")
+    return state, kind
+
+
+def load_student(model, path: str):
+    """``training.resume`` into ``model`` (a fresh TDNet): the reference's
+    single-path PSPNet through the bootstrap surgery, or the port's TDNet file."""
+    from tdnet_tpu_torch.utils.surgery import student_bootstrap_from_psp_checkpoint
+    from tdnet_tpu_torch.utils.torch_import import load_state_into
+    state, kind = _torch_state(path, "training.resume")
+    if kind == "reference":
+        state = student_bootstrap_from_psp_checkpoint(state, model.cfg, model.state_dict())
+    return load_state_into(model, state, path)
+
+
+def imagenet_backbones(model, name: str) -> bool:
+    """Every path's backbone from the store's ImageNet ``name`` where it holds
+    one (the zoo's ``{name}s`` for a deep stem); whether it did."""
+    from tdnet_tpu_torch.nn import BACKBONES
+    from tdnet_tpu_torch.utils.model_store import load_imagenet_backbone
+    bcfg = BACKBONES[name]()
+    backbone = load_imagenet_backbone(name + "s" if bcfg.deep_base else name, bcfg)
+    if backbone is None:
+        return False
+    for sub in model.paths:
+        sub.backbone.load_state_dict(backbone)
+    return True
+
+
+def load_teacher(tcfg, path: str):
+    """``teacher.teacher_model`` as a ``Teacher``: the reference's PSPNet through
+    the teacher surgery, or the port's teacher file."""
+    from tdnet_tpu_torch.models import Teacher
+    from tdnet_tpu_torch.utils.surgery import teacher_from_psp_checkpoint
+    state, kind = _torch_state(path, "teacher.teacher_model")
+    if kind == "reference":
+        state = teacher_from_psp_checkpoint(state, tcfg)
+    teacher = Teacher(tcfg)
+    teacher.load_state_dict(state)
+    return teacher
 
 
 def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
@@ -49,7 +106,7 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     from tdnet_tpu_torch.data.augment import get_composed_augmentations
     from tdnet_tpu_torch.data.cityscapes import ClipBatcher
     from tdnet_tpu_torch.kernels.fault import check_fault
-    from tdnet_tpu_torch.models import init_tdnet, init_teacher
+    from tdnet_tpu_torch.models import freeze, init_tdnet, init_teacher
     from tdnet_tpu_torch.train.metrics import AverageMeter, RunningScore
     from tdnet_tpu_torch.train.trainer import make_eval_step, make_train_state, make_train_step
     from tdnet_tpu_torch.utils import checkpoint as ckpt
@@ -89,19 +146,31 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     opt_kwargs = opt_kwargs_from_yaml(cfg)
     max_iter = int(cfg["training"]["train_iters"])
 
-    model = init_tdnet(mcfg, torch.Generator().manual_seed(seed)).to(device)
+    model = init_tdnet(mcfg, torch.Generator().manual_seed(seed))
     resume = cfg["training"].get("resume")
     if resume and os.path.isfile(resume):
-        raise _not_ported(f"bootstrapping the students from a reference checkpoint ({resume})")
-    logger.info(f"No pretrained found at '{resume}'")
+        logger.info(f"Initializing sub networks with pretrained '{resume}'")
+        load_student(model, resume)
+    else:
+        logger.info(f"No pretrained found at '{resume}'")
+        # reference students build their backbones with pretrained=True
+        # (ImageNet); use a cached checkpoint when available
+        if imagenet_backbones(model, cfg["model"]["backbone"]):
+            logger.info("initialized backbones from cached ImageNet checkpoint")
+        else:
+            logger.info(f"no ImageNet {cfg['model']['backbone']} in the backbone store: "
+                        f"backbones at random init")
+    model = model.to(device)
 
     teacher = None
     if tcfg is not None:
         tpath = cfg["teacher"].get("teacher_model")
         if tpath and os.path.isfile(tpath):
-            raise _not_ported(f"loading the teacher from a reference checkpoint ({tpath})")
-        logger.info(f"No teacher pretrained found at '{tpath}' — using random frozen teacher")
-        teacher = init_teacher(tcfg, torch.Generator().manual_seed(seed + 1)).to(device)
+            logger.info(f"Initializing Teacher with pretrained '{tpath}'")
+            teacher = freeze(load_teacher(tcfg, tpath)).to(device)
+        else:
+            logger.info(f"No teacher pretrained found at '{tpath}' — using random frozen teacher")
+            teacher = init_teacher(tcfg, torch.Generator().manual_seed(seed + 1)).to(device)
 
     state = make_train_state(model, seed=seed, opt_kwargs=opt_kwargs)
     if cfg["training"].get("ckpt_backend") == "orbax":

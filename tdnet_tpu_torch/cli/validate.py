@@ -5,13 +5,15 @@
 mirrors Training/validate.py: mean IoU, per-class IoU and frames/s over the
 val split with the training-side model in eval mode (``train/trainer.py:
 make_eval_step``: the hops through K1), round-robin ``pos_id = i % path_n``
-(validate.py:66). ``validating.resume`` names the weights:
-- the port's own checkpoint (``cli/train.py``'s best model: torch's zip format,
-  ``torch.load(weights_only=True)``);
+(validate.py:66). ``validating.resume`` names the weights
+(``utils/torch_import.py:load_tdnet``):
+- the port's own checkpoint (``cli/train.py``'s best model or ``cli/convert.py``'s
+  output: torch's zip format, ``torch.load(weights_only=True)``);
 - the JAX package's (its ``save_best`` pickle of numpy arrays), carried over
-  by ``utils/from_jax.tdnet_from_jax``.
-A reference (torch) checkpoint is not ported yet; with no file the weights are
-random (seed 0).
+  by ``utils/from_jax.tdnet_state_from_jax``;
+- the reference's ``*_best_model.pkl`` (torch's legacy or zip format), read by
+  ``utils/torch_import.tdnet_from_torch`` with the training twin's config.
+With no file the weights are random (seed 0).
 """
 
 from __future__ import annotations
@@ -24,25 +26,12 @@ import torch
 
 
 def load_weights(path: str, mcfg, device):
-    """The TDNet in ``path``: the port's zip checkpoint or the JAX package's
-    pickle, told apart by the file's first bytes."""
-    from tdnet_tpu_torch.models import TDNet
-    from tdnet_tpu_torch.utils.checkpoint import is_zip, load_checkpoint
-    from tdnet_tpu_torch.utils.from_jax import tdnet_from_jax
-    payload = load_checkpoint(path)
-    state = payload.get("model_state") if isinstance(payload, dict) else None
-    if state is None:
-        raise NotImplementedError(f"{path}: no 'model_state'; loading reference checkpoints is "
-                                  f"not ported to tdnet_tpu_torch yet")
-    if not is_zip(path):
-        return tdnet_from_jax(state, mcfg).to(device)
-    model = TDNet(mcfg, device)
-    try:
-        model.load_state_dict(state)
-    except RuntimeError as e:
-        raise NotImplementedError(f"{path}: not a tdnet_tpu_torch checkpoint of this model; "
-                                  f"loading reference checkpoints is not ported yet") from e
-    return model
+    """The TDNet in ``path`` (the port's, the JAX package's or the
+    reference's checkpoint) on ``device``; parts the file lacks (aux heads)
+    keep the seed-0 init."""
+    from tdnet_tpu_torch.models import init_tdnet
+    from tdnet_tpu_torch.utils.torch_import import load_tdnet
+    return load_tdnet(init_tdnet(mcfg, torch.Generator().manual_seed(0)), path).to(device)
 
 
 def validate(cfg: dict, args, stats: dict | None = None):

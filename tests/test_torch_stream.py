@@ -8,6 +8,7 @@ attention wrapper takes its plain version.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -211,10 +212,13 @@ def test_cli_psp101_fused_stem_writes_pngs(tmp_path):
 @pytest.mark.parametrize("argv", [["--model", "psp101", "--_psp101_path", "CHECKPOINT"],
                                   ["--model", "td2-fa"], ["--parallel", "group"]])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path):
-    """td2-fa, --parallel, and loading a reference checkpoint (here PSP-101's)."""
+    """td2-fa and --parallel are not ported; a checkpoint file that holds
+    nothing (here PSP-101's) raises an error that names it."""
     from tdnet_tpu_torch.cli.test import main
     ckpt = tmp_path / "psp101.pkl"
     ckpt.write_bytes(b"")
+    error, match = ((ValueError, re.escape(f"{ckpt}: not a checkpoint")) if "CHECKPOINT" in argv
+                    else (NotImplementedError, "not ported"))
     argv = [str(ckpt) if a == "CHECKPOINT" else a for a in argv]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(error, match=match):
         main(argv + ["--device", "cpu"])

@@ -20,6 +20,7 @@ mean IoU within 1e-3.
 import copy
 import logging
 import os
+import re
 import subprocess
 import sys
 import types
@@ -160,7 +161,7 @@ def test_train_writes_the_best_model_and_the_state(run):
     assert run.state.it == 4
     assert len(run.stats["losses"]) == 4 and np.all(np.isfinite(run.stats["losses"]))
     best = os.path.join(run.logdir, "td4_psp_cityscapes_best_model.pkl")
-    assert ckpt.is_zip(best)
+    assert ckpt.file_format(best) == "zip"
     payload = torch.load(best, weights_only=True)
     assert set(payload) == {"epoch", "model_state", "best_iou"}
     assert payload["best_iou"] == pytest.approx(run.best)
@@ -210,11 +211,13 @@ def test_train_halts_on_a_poisoned_loss(tree, tmp_path, monkeypatch):
 
 
 def test_train_cli_refuses_what_is_not_ported(tree, tmp_path):
+    """``--path_parallel`` is refused; a ``resume`` file that is no checkpoint
+    (two bytes of a zip's magic) raises an error that names it."""
     with pytest.raises(NotImplementedError, match="multi-GPU not ported yet"):
         cli_train.main(["--config", "unused.yml", "--path_parallel", "2"])
     (tmp_path / "psp18.pkl").write_bytes(b"PK")
     cfg = tiny_cfg(tree, resume=str(tmp_path / "psp18.pkl"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match=re.escape(f"{tmp_path / 'psp18.pkl'}: not a checkpoint")):
         cli_train.train(cfg, logging.getLogger("test"), str(tmp_path), device="cpu")
 
 
@@ -276,7 +279,7 @@ def test_jax_best_model_carries_over(tmp_path):
     jcfg, params = _jax_net(seed=5)
     path = jax_ckpt.save_best(str(tmp_path), "td4_psp", "cityscapes", step=7, params=params,
                               best_iou=0.5)
-    assert not ckpt.is_zip(path)
+    assert ckpt.file_format(path) == "pickle"
     with open(path, "rb") as f:
         saved = pickle.load(f)
     cfg = tdnet_config("td4_psp", in_size=tuple(CROP), streaming=False, backbone="resnet10")
@@ -290,11 +293,13 @@ def test_jax_best_model_carries_over(tmp_path):
 
 
 def test_validate_refuses_a_reference_checkpoint(tree, tmp_path):
+    """A torch file with neither ``model_state`` nor the reference's keys is
+    read as a reference state dict, and the first key it lacks is named."""
     ref = tmp_path / "td4-psp18.pkl"
     torch.save({"state_dict": {"module.pretrained.conv1.weight": torch.zeros(1)}}, str(ref))
     cfg = tiny_cfg(tree)
     cfg["validating"]["resume"] = str(ref)
-    with pytest.raises(NotImplementedError, match="reference checkpoints is not ported"):
+    with pytest.raises(KeyError, match="'pretrained1.conv1.weight' is missing"):
         cli_validate.validate(cfg, _args())
 
 
