@@ -372,6 +372,11 @@ FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K1_STARVE")
 K5_FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K5_STARVE")
 K2_FAULT_DEFINES = ("TDNET_CONSUMER_POLLS=4", "TDNET_K2_STARVE")
 D_K, D_V = 64, 512
+# the TD2-FANet hop at its 768x1536 crop: the 96x192 grid's queries against the 32x64 grid
+# of keys (stride 3), d_v 256; K3's [rows, 256] on that path
+FA_HOP = (1, 18432, 2048)
+FA_DV = 256
+FA_ROWS = 18432
 N_FRAMES = 12
 SEED = 0
 HEADLINE = (1, 33153, 2145)   # the TD2 hop: the case each kernels entry reports
@@ -497,11 +502,11 @@ def format_rows(rows) -> str:
     return "; ".join(f"{key[:90]} {ms:.3f}" for key, ms in rows)
 
 
-def attention_bounds(n, lq, lkv, fc, nbytes) -> dict:
+def attention_bounds(n, lq, lkv, fc, nbytes, dv=D_V) -> dict:
     """The forward's bound both ways: every product in f32 on the CUDA cores,
     and in 3xTF32 on the tensor cores (the card's rate for f32-accurate
     products, and K1's route for p v and the fc)."""
-    flops = 2 * n * lq * lkv * (D_K + D_V) + (2 * n * lq * D_V * D_V if fc else 0)
+    flops = 2 * n * lq * lkv * (D_K + dv) + (2 * n * lq * dv * dv if fc else 0)
     return dict(flops=flops, f32=bound(flops, nbytes, PEAK_F32),
                 tf32x3=bound(flops, nbytes, PEAK_TF32X3))
 
@@ -559,18 +564,23 @@ def phase_fault_report(kernel: str = "K1", tag: str = "2") -> None:
                              f"reported")
 
 
-def phase_kernel(card: str) -> dict:
+def phase_kernel(card: str, cases=None, dv: int = D_V, tag: str = "2") -> dict:
+    """K1 against its plain version at ``cases`` (n, Lq, Lkv) with ``dv`` value
+    columns (phase 2's shapes by default; phase 2-fa: TD2-FANet's hop, d_v
+    256); the times, library call and bound with the fc at ``HEADLINE`` (given
+    cases: the last). The default run also logs the bf16 digests and runs the
+    fault child."""
     from tdnet_tpu_torch.kernels.propagation_attention import (
         check_fault, fused_propagation_attention, propagation_attention_plain)
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
-    headline = {}
-    log(f"[2] kernel vs plain ({card}); tolerances: f32 2e-5 (5e-4 with fc), "
+    headline, headline_case = {}, HEADLINE if cases is None else cases[-1]
+    log(f"[{tag}] kernel vs plain at d_v {dv} ({card}); tolerances: f32 2e-5 (5e-4 with fc), "
         f"bf16 3e-2 x max|ref|")
-    for n, lq, lkv in [(1, *shape) for shape in SHAPES] + [BATCHED]:
+    for n, lq, lkv in cases or [(1, *shape) for shape in SHAPES] + [BATCHED]:
         host = dict(q=rng.randn(n, lq, D_K), k=rng.randn(n, lkv, D_K),
-                    v=rng.randn(n, lkv, D_V), w=rng.randn(D_V, D_V) * 0.05,
-                    b=rng.randn(D_V) * 0.1)
+                    v=rng.randn(n, lkv, dv), w=rng.randn(dv, dv) * 0.05,
+                    b=rng.randn(dv) * 0.1)
         for dtype in (torch.float32, torch.bfloat16):
             t = {n: torch.tensor(a, dtype=torch.float32, device=dev).to(dtype).contiguous()
                  for n, a in host.items()}
@@ -593,27 +603,27 @@ def phase_kernel(card: str) -> dict:
                 run = lambda: fused_propagation_attention(t["q"], t["k"], t["v"],
                                                           temperature=8.0, **fkw)
                 if not torch.equal(run(), got):
-                    raise AssertionError(f"[2] K1 at {n}x{lq}x{lkv} {dtype} fc={fc}: two calls "
-                                         f"differ")
+                    raise AssertionError(f"[{tag}] K1 at {n}x{lq}x{lkv} {dtype} fc={fc}: two "
+                                         f"calls differ")
                 ms = median_ms(run)
                 check_fault("cuda")
                 plain_ms = median_ms(lambda: propagation_attention_plain(
                     t["q"], t["k"], t["v"], temperature=8.0, **fkw))
                 name = "bf16" if dtype == torch.bfloat16 else "f32"
-                log(f"[2] n={n} {lq:6d} x {lkv:5d} {name:4s} fc={int(fc)}  max_abs_err {err:.3e} "
+                log(f"[{tag}] n={n} {lq:6d} x {lkv:5d} {name:4s} fc={int(fc)}  max_abs_err {err:.3e} "
                     f"(tol {tol:.3e}), bitwise repeat  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
                 rows = device_rows(run)
                 check_fault("cuda")
-                log(f"[2]   kernels (device ms): {format_rows(rows)}")
-                if (n, lq, lkv) == HEADLINE and fc:
+                log(f"[{tag}]   kernels (device ms): {format_rows(rows)}")
+                if (n, lq, lkv) == headline_case and fc:
                     sdpa = lambda: F.scaled_dot_product_attention(
                         t["q"], t["k"], t["v"], scale=1.0 / 8.0)
                     sdpa_ms = median_ms(sdpa)
                     # the same function as the kernel with the fc: SDPA, then addmm
-                    lib_ms = median_ms(lambda: torch.addmm(t["b"], sdpa().view(-1, D_V), t["w"]))
+                    lib_ms = median_ms(lambda: torch.addmm(t["b"], sdpa().view(-1, dv), t["w"]))
                     nbytes = t["q"].element_size() * (
-                        n * lq * (D_K + D_V) + n * lkv * (D_K + D_V) + D_V * D_V + D_V)
-                    b = attention_bounds(n, lq, lkv, fc, nbytes)
+                        n * lq * (D_K + dv) + n * lkv * (D_K + dv) + dv * dv + dv)
+                    b = attention_bounds(n, lq, lkv, fc, nbytes, dv)
                     kernel_bound = b["tf32x3"] if dtype == torch.float32 else \
                         bound(b["flops"], nbytes, PEAK_BF16)
                     headline[name] = dict(max_abs_err=err, ms=ms,
@@ -621,7 +631,7 @@ def phase_kernel(card: str) -> dict:
                                           else sum(t for _, t in rows),
                                           plain_ms=plain_ms, library_ms=lib_ms,
                                           library_sdpa_ms=sdpa_ms, **kernel_bound)
-                    log(f"[2]   F.scaled_dot_product_attention then torch.addmm (the fc) "
+                    log(f"[{tag}]   F.scaled_dot_product_attention then torch.addmm (the fc) "
                         f"{lib_ms:.3f} ms, SDPA alone {sdpa_ms:.3f} ms; {b['flops'] / 1e9:.2f} "
                         f"GFLOP, bound {kernel_bound['bound_ms']:.3f} ms by "
                         f"{kernel_bound['bound_by']}" + (
@@ -629,9 +639,10 @@ def phase_kernel(card: str) -> dict:
                             f"{b['f32']['bound_ms']:.3f} ms in f32 on the CUDA cores"
                             if dtype == torch.float32 else " in bf16"))
             del t, ref_in
-    log("[2] K1's error word clear after every call above")
-    k1_bf16_digests()
-    phase_fault_report()
+    log(f"[{tag}] K1's error word clear after every call above")
+    if cases is None:
+        k1_bf16_digests()
+        phase_fault_report()
     return headline
 
 
@@ -833,16 +844,16 @@ def check_stem(tag, runner, frames) -> None:
 
 
 def run_stream(arch, in_size, dtype, frames, card, tag, kernel=True, stem_impl="plain"):
-    """Stream the frames through a fresh seeded TDNet; returns (logits on the
-    host, K1 launches, K4 launches). ``kernel=False``: the attention is the
-    plain version, which launches nothing."""
-    from tdnet_tpu_torch.models import init_tdnet, tdnet_config
+    """Stream the frames through a fresh seeded TDNet (or TD2-FANet, ``td2-fa``);
+    returns (logits on the host, K1 launches, K4 launches). ``kernel=False``:
+    the attention is the plain version, which launches nothing."""
+    from tdnet_tpu_torch.models import init_model, tdnet_config
     from tdnet_tpu_torch.nn import BACKBONES
     from tdnet_tpu_torch.stream.runtime import Streamer
     cfg = tdnet_config(arch, in_size=in_size)
     deep_base = BACKBONES[cfg.backbone]().deep_base
     outs, launches, stem_launches = drive(
-        lambda: Streamer(init_tdnet(cfg, torch.Generator().manual_seed(SEED)).to("cuda"),
+        lambda: Streamer(init_model(cfg, torch.Generator().manual_seed(SEED)).to("cuda"),
                          dtype=dtype, stem_impl=stem_impl), frames, card, tag, arch)
     warm = N_FRAMES - cfg.window
     expected = (cfg.window * warm if kernel else 0,
@@ -944,21 +955,25 @@ def _train_attention_times(q, k, v, dy, k2, p2, tag: str = "7") -> dict:
     return times
 
 
-def phase_train_attention(card: str) -> dict:
-    """K2 against its plain version; returns the kernels entries' numbers."""
+def phase_train_attention(card: str, shapes=TRAIN_SHAPES, dv: int = D_V,
+                          tag: str = "7") -> dict:
+    """K2 against its plain version at ``shapes`` (Lq, Lkv) with ``dv`` value
+    columns (phase 7-fa: TD2-FANet's hop, d_v 256); returns the kernels
+    entries' numbers, at the last shape."""
     from tdnet_tpu_torch.kernels.propagation_attention_train import (
         propagation_attention_train as k2, propagation_attention_train_plain as p2)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
-    log(f"[7] training attention kernel vs plain ({card}); tolerances: output 1e-5 x "
+    log(f"[{tag}] training attention kernel vs plain at d_v {dv} ({card}); tolerances: "
+        f"output 1e-5 x "
         f"max|output|, dq/dk/dv atol 2e-4 rtol 1e-3, keep rate 0.9 +- 1e-3; the forward and "
         f"the backward bitwise equal across two runs")
     res = dict(fwd_err=0.0, bwd_err=0.0)
     hop_ms = {}
-    for lq, lkv in TRAIN_SHAPES:
+    for lq, lkv in shapes:
         q, k = (torch.randn(1, n, D_K, generator=gen).to(dev) for n in (lq, lkv))
-        v = torch.randn(1, lkv, D_V, generator=gen).to(dev)
-        dy = torch.randn(1, lq, D_V, generator=gen).to(dev)
+        v = torch.randn(1, lkv, dv, generator=gen).to(dev)
+        dy = torch.randn(1, lq, dv, generator=gen).to(dev)
         for rate in (0.0, 0.1):
             kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
             got, want = _fwd_bwd(k2, q, k, v, dy, **kw), _fwd_bwd(p2, q, k, v, dy, **kw)
@@ -975,7 +990,7 @@ def phase_train_attention(card: str) -> dict:
             rms = lambda o: ((o.double() - o64).pow(2).mean().sqrt()
                              / o64.pow(2).mean().sqrt()).item()
             d_kernel, d_plain = rms(got[0]), rms(want[0])
-            log(f"[7] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
+            log(f"[{tag}] {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
                 f"(tol {f_tol:.3e}), dq/dk/dv max abs err {g_err:.3e}; second forward / "
                 f"backward {' / '.join('bitwise equal' if x else 'DIFFERENT' for x in same)}; "
                 f"forward's rms distance from float64 over its rms: kernel {d_kernel:.3e}, "
@@ -995,23 +1010,23 @@ def phase_train_attention(card: str) -> dict:
         o = k2(torch.zeros_like(q), k, ones, temperature=8.0, dropout_rate=0.1, seed=SEED + 17)
         kept = torch.round(o[..., 0].double() * 0.9 * lkv).sum().item()
         rate = kept / (lq * lkv)
-        log(f"[7] {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {lq * lkv} elements")
+        log(f"[{tag}] {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {lq * lkv} elements")
         if abs(rate - 0.9) > 1e-3:
             raise AssertionError(f"K2 keep rate {rate} outside 0.9 +- 1e-3")
         del o, ones
 
-        times = _train_attention_times(q, k, v, dy, k2, p2)
-        log(f"[7] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
+        times = _train_attention_times(q, k, v, dy, k2, p2, tag)
+        log(f"[{tag}] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
             f"{times['kernel'][1]:.3f}, plain {times['plain'][0]:.3f} / "
             f"{times['plain'][1]:.3f}, F.scaled_dot_product_attention (no dropout) "
             f"{times['sdpa'][0]:.3f} / {times['sdpa'][1]:.3f}")
-        io = 4 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, f32
-        fwd_bs = attention_bounds(1, lq, lkv, False, io)
+        io = 4 * (lq * (D_K + dv) + lkv * (D_K + dv))   # q, k, v and o or dy, f32
+        fwd_bs = attention_bounds(1, lq, lkv, False, io, dv)
         fwd_b = fwd_bs["tf32x3"]   # the card's rate for f32-accurate products
-        bwd_flops, bwd_bytes = 2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq
+        bwd_flops, bwd_bytes = 2 * lq * lkv * (2 * dv + 3 * D_K), 2 * io + 4 * 2 * lq
         bwd_b = bound(bwd_flops, bwd_bytes, PEAK_TF32X3)
         bwd_b32 = bound(bwd_flops, bwd_bytes, PEAK_F32)
-        log(f"[7] {lq} x {lkv} bounds: forward {fwd_bs['flops'] / 1e9:.2f} GFLOP: "
+        log(f"[{tag}] {lq} x {lkv} bounds: forward {fwd_bs['flops'] / 1e9:.2f} GFLOP: "
             f"{fwd_b['bound_ms']:.3f} ms in 3xTF32 on the tensor cores, "
             f"{fwd_bs['f32']['bound_ms']:.3f} ms in f32 on the CUDA cores; the kernel's "
             f"forward at {fwd_bs['flops'] / times['kernel'][0] / 1e9:.1f} TFLOP/s; backward "
@@ -1022,7 +1037,7 @@ def phase_train_attention(card: str) -> dict:
             f"{bwd_flops / times['kernel'][1] / 1e9:.1f} TFLOP/s")
         hop_ms[lq, lkv] = times
         del q, k, v, dy
-    log("[7] forward ms, kernel / F.scaled_dot_product_attention: " + "; ".join(
+    log(f"[{tag}] forward ms, kernel / F.scaled_dot_product_attention: " + "; ".join(
         f"{lq} x {lkv} {t['kernel'][0]:.3f} / {t['sdpa'][0]:.3f}" for (lq, lkv), t in hop_ms.items()))
     # the kernels entries report the last hop, the largest
     return {
@@ -1043,8 +1058,9 @@ def _fwd_bwd_call(fn, x: torch.Tensor, dy: torch.Tensor):
     return run
 
 
-def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator) -> dict:
-    """K3's and ``F.dropout``'s calls at each of ``DROP_ROWS``, in turns (kernel,
+def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator, shapes=None) -> dict:
+    """K3's and ``F.dropout``'s calls at each [rows, columns] of ``shapes``
+    (default: ``DROP_ROWS`` x ``D_V``), in turns (kernel,
     F.dropout, F.dropout, kernel; each the median of ``K3_REPS`` CUDA-event
     calls): the forward alone on an x that needs no gradient, and forward plus
     backward through autograd (``_fwd_bwd_call``), the train step's form; then
@@ -1067,10 +1083,10 @@ def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator) -> dict:
                 f"K3 {format_rows(mine)}; F.dropout {format_rows(theirs)}")
 
     out = {}
-    for rows in DROP_ROWS:
-        x = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+    for rows, cols in shapes or [(r, D_V) for r in DROP_ROWS]:
+        x = torch.randn(rows, cols, generator=gen).to("cuda", dtype)
         xg = x.clone().requires_grad_(True)
-        dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+        dy = torch.randn(rows, cols, generator=gen).to("cuda", dtype)
         calls = {"forward": (lambda: dropout(x, 0.1, SEED),
                              lambda: F.dropout(x, 0.1, training=True)),
                  "forward+backward": (
@@ -1080,25 +1096,25 @@ def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator) -> dict:
         for what, (kernel, lib) in calls.items():
             turns = [median_ms(f, reps=K3_REPS) for f in (kernel, lib, lib, kernel)]
             r[what] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
-            log(f"[{tag}] [{rows}, {D_V}] {what} ms in turns (kernel, F.dropout, F.dropout, "
+            log(f"[{tag}] [{rows}, {cols}] {what} ms in turns (kernel, F.dropout, F.dropout, "
                 f"kernel): {', '.join(f'{t:.4f}' for t in turns)}; kernel / F.dropout "
                 f"{r[what][0] / r[what][1]:.3f}")
-        one = bound(0, 2 * dtype.itemsize * rows * D_V, PEAK_BF16)
-        both = bound(0, 4 * dtype.itemsize * rows * D_V, PEAK_BF16)   # x, y, dy, dx
-        n_sets = -(-200_000_000 // (4 * dtype.itemsize * rows * D_V))
+        one = bound(0, 2 * dtype.itemsize * rows * cols, PEAK_BF16)
+        both = bound(0, 4 * dtype.itemsize * rows * cols, PEAK_BF16)   # x, y, dy, dx
+        n_sets = -(-200_000_000 // (4 * dtype.itemsize * rows * cols))
         dev, lib_dev, rows_fwd = split(device_rows(*calls["forward"]))
         dev2, lib_dev2, rows_both = split(device_rows(*calls["forward+backward"]))
-        sets = [(torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True),
-                 torch.randn(rows, D_V, generator=gen).to("cuda", dtype))
+        sets = [(torch.randn(rows, cols, generator=gen).to("cuda", dtype).requires_grad_(True),
+                 torch.randn(rows, cols, generator=gen).to("cuda", dtype))
                 for _ in range(n_sets)]
         cold = device_rows(lambda: [_fwd_bwd_call(lambda t: dropout(t, 0.1, SEED), *s)()
                                     for s in sets])
         cold_ms = None if cold is None else split(cold)[0] / len(sets)
         del sets
-        log(f"[{tag}] [{rows}, {D_V}] forward device ms, one trace: {rows_fwd}; bound "
+        log(f"[{tag}] [{rows}, {cols}] forward device ms, one trace: {rows_fwd}; bound "
             f"{one['bound_ms']:.4f} ms by {one['bound_by']}"
             + ("" if dev is None else f", K3 at {one['bound_ms'] / dev:.3f} of it"))
-        log(f"[{tag}] [{rows}, {D_V}] forward+backward device ms, one trace: {rows_both}; "
+        log(f"[{tag}] [{rows}, {cols}] forward+backward device ms, one trace: {rows_both}; "
             f"K3 cold (over {n_sets} x and dy) "
             + ("not measured" if cold_ms is None else f"{cold_ms:.4f}")
             + f"; bound {both['bound_ms']:.4f} ms by {both['bound_by']}"
@@ -1244,22 +1260,25 @@ def k3_digests(dtype: torch.dtype, tag: str) -> None:
             f"{digest(y)}, of its dx {digest(dx)}")
 
 
-def phase_dropout(card: str, dtype: torch.dtype = torch.float32) -> dict:
-    """Phases 8 (f32) and 8b (bf16): K3 against its plain version, its calls
-    timed beside ``F.dropout``'s (``k3_turns``), the host split of one call
+def phase_dropout(card: str, dtype: torch.dtype = torch.float32, shapes=None,
+                  tag: str | None = None) -> dict:
+    """Phases 8 (f32) and 8b (bf16): K3 against its plain version at each [rows,
+    columns] of ``shapes`` (default ``DROP_ROWS`` x ``D_V``; 8-fa and 8b-fa:
+    TD2-FANet's [18,432, 256]), its calls timed beside ``F.dropout``'s
+    (``k3_turns``), and in the default run the host split of one call
     (``k3_host_split``) and the sha256 of its outputs (``k3_digests``); returns
-    the kernels entry's numbers at 18,721 rows, forward plus backward through
-    autograd as the train step runs it."""
+    the kernels entry's numbers at the first shape (18,721 rows by default),
+    forward plus backward through autograd as the train step runs it."""
     from tdnet_tpu_torch.kernels.dropout import _rate_args, dropout, dropout_plain
     f32 = dtype == torch.float32
-    tag = "8" if f32 else "8b"
+    tag = tag or ("8" if f32 else "8b")
     gen = torch.Generator().manual_seed(SEED + (1 if f32 else 4))
     log(f"[{tag}] dropout kernel vs plain in {str(dtype)[6:]} ({card}): bit-identical output "
         f"and backward, keep rate 0.9 +- 1e-3; the scale launched {_rate_args(0.1, dtype)[1]!r}")
-    for rows in DROP_ROWS:
-        x = torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True)
+    for rows, cols in shapes or [(r, D_V) for r in DROP_ROWS]:
+        x = torch.randn(rows, cols, generator=gen).to("cuda", dtype).requires_grad_(True)
         xp = x.detach().clone().requires_grad_(True)
-        dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+        dy = torch.randn(rows, cols, generator=gen).to("cuda", dtype)
         got, want = dropout(x, 0.1, SEED + 5), dropout_plain(xp, 0.1, SEED + 5)
         got.backward(dy)
         want.backward(dy)
@@ -1268,7 +1287,7 @@ def phase_dropout(card: str, dtype: torch.dtype = torch.float32) -> dict:
         keep = (got != 0).double().mean().item()
         same, same_bwd = torch.equal(got.detach(), want.detach()), torch.equal(x.grad, xp.grad)
         same_no_grad = torch.equal(no_grad, got.detach())
-        log(f"[{tag}] [{rows}, {D_V}]: output identical {same}, backward identical {same_bwd}, "
+        log(f"[{tag}] [{rows}, {cols}]: output identical {same}, backward identical {same_bwd}, "
             f"the call without a gradient identical {same_no_grad}, keep rate {keep:.6f}, "
             f"dtypes {got.dtype} / {x.grad.dtype}")
         if not same_bwd:
@@ -1280,19 +1299,21 @@ def phase_dropout(card: str, dtype: torch.dtype = torch.float32) -> dict:
         if not (same and same_bwd and same_no_grad and abs(keep - 0.9) <= 1e-3
                 and got.dtype == dtype and x.grad.dtype == dtype):
             raise AssertionError(f"[{tag}] K3 disagrees with its plain version at "
-                                 f"[{rows}, {D_V}]")
-    k3_digests(dtype, tag)
-    rows = DROP_ROWS[0]
-    xg = torch.randn(rows, D_V, generator=gen).to("cuda", dtype).requires_grad_(True)
-    dy = torch.randn(rows, D_V, generator=gen).to("cuda", dtype)
+                                 f"[{rows}, {cols}]")
+    if shapes is None:
+        k3_digests(dtype, tag)
+    rows, cols = (shapes or [(DROP_ROWS[0], D_V)])[0]
+    xg = torch.randn(rows, cols, generator=gen).to("cuda", dtype).requires_grad_(True)
+    dy = torch.randn(rows, cols, generator=gen).to("cuda", dtype)
     plain_ms = median_ms(_fwd_bwd_call(lambda t: dropout_plain(t, 0.1, SEED), xg, dy))
     del xg, dy
-    times = k3_turns(dtype, tag, gen)
-    k3_host_split(dtype, tag)
+    times = k3_turns(dtype, tag, gen, shapes)
+    if shapes is None:
+        k3_host_split(dtype, tag)
     t = times[rows]
-    log(f"[{tag}] [{rows}, {D_V}] forward+backward ms: kernel {t['ms']:.4f}, plain "
+    log(f"[{tag}] [{rows}, {cols}] forward+backward ms: kernel {t['ms']:.4f}, plain "
         f"{plain_ms:.4f}, F.dropout {t['library_ms']:.4f}; bound {t['bound_ms']:.4f} ms by "
-        f"{t['bound_by']} ({4 * dtype.itemsize * rows * D_V / 1e6:.1f} MB)")
+        f"{t['bound_by']} ({4 * dtype.itemsize * rows * cols / 1e6:.1f} MB)")
     return dict(max_abs_err=0.0, plain_ms=plain_ms, **t)
 
 
@@ -1338,7 +1359,7 @@ def keep_rate_bf16(k2, lq: int, lkv: int, k) -> float:
     return kept / (n * lq * lkv)
 
 
-def k2_bf16_layout(n: int, lq: int, lkv: int) -> str:
+def k2_bf16_layout(n: int, lq: int, lkv: int, dv: int = D_V) -> str:
     """K2 bf16's grids at (n, lq, lkv): each kernel's blocks and waves (blocks over
     the card's block slots: two an SM for the stats, p v and dq kernels, one for
     the t and dk/dv passes)."""
@@ -1346,9 +1367,9 @@ def k2_bf16_layout(n: int, lq: int, lkv: int) -> str:
                                               train_backward_plan, train_forward_grids,
                                               train_forward_plan, train_waves)
     sms = sm_count(0)
-    fwd = train_forward_plan(n, lq, lkv, D_V, sms)
-    bwd = train_backward_plan(n, lq, lkv, D_V, sms)
-    grids = {**train_forward_grids(fwd, n, lq, lkv, D_V),
+    fwd = train_forward_plan(n, lq, lkv, dv, sms)
+    bwd = train_backward_plan(n, lq, lkv, dv, sms)
+    grids = {**train_forward_grids(fwd, n, lq, lkv, dv),
              **train_backward_grids(bwd, n, lq, lkv)}
     per_sm = dict(stats=2, pv=2, t=1, dkdv=1, dq=2)
     return "; ".join(f"{name} {g[0]}x{g[1]}x{g[2]} = {g[0] * g[1] * g[2]} blocks, "
@@ -1356,31 +1377,34 @@ def k2_bf16_layout(n: int, lq: int, lkv: int) -> str:
                      for name, g in grids.items())
 
 
-def phase_train_attention_bf16(card: str) -> dict:
-    """Phase 7b: K2 in bf16 against its plain bf16 version; returns the kernels
-    entries' numbers."""
+def phase_train_attention_bf16(card: str, cases=None, dv: int = D_V, tag: str = "7b") -> dict:
+    """Phase 7b: K2 in bf16 against its plain bf16 version at ``cases`` (n, Lq,
+    Lkv) with ``dv`` value columns (7b-fa: TD2-FANet's hop, d_v 256); returns the
+    kernels entries' numbers, at the last case with n = 1. The default run also
+    logs the kernels' registers, holds ``K2_DV_CASES`` and runs the fault child."""
     from tdnet_tpu_torch.kernels.fault import check_fault
     from tdnet_tpu_torch.kernels.propagation_attention_train import (
         bf16_attributes, propagation_attention_train as k2,
         propagation_attention_train_plain as p2)
     bf = torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 3)
-    log(f"[7b] training attention kernel vs plain in bf16 ({card}); rule: every output within "
+    log(f"[{tag}] training attention kernel vs plain in bf16 at d_v {dv} ({card}); rule: every "
+        f"output within "
         f"one bf16 ulp of max|plain output|, dq/dk/dv within {BF16_GRAD_RTOL:g} x max|grad| of "
         f"each tensor; keep rate 0.9 +- 1e-3; the forward and the backward bitwise equal "
         f"across two runs; K2's error word read after every call")
-    for drop in (False, True):
+    for drop in (False, True) if cases is None else ():
         attrs = bf16_attributes(drop)
         log(f"[7b] kernels at d_v {D_V}, dropout {'on' if drop else 'off'}: " + "; ".join(
             f"{name} {a['registers']} registers a thread at launch, {a['local_bytes']} bytes of "
             f"local memory" for name, a in attrs.items()) + " (consumers take 232 or 240 "
             "registers by setmaxnreg)")
     res = dict(fwd_err=0.0, bwd_err=0.0)
-    for n, lq, lkv in [(1, *shape) for shape in TRAIN_SHAPES] + [BATCHED]:
+    for n, lq, lkv in cases or [(1, *shape) for shape in TRAIN_SHAPES] + [BATCHED]:
         q, k = (torch.randn(n, m, D_K, generator=gen).to("cuda", bf) for m in (lq, lkv))
-        v = torch.randn(n, lkv, D_V, generator=gen).to("cuda", bf)
-        dy = torch.randn(n, lq, D_V, generator=gen).to("cuda", bf)
-        log(f"[7b] n={n} {lq} x {lkv} grids: {k2_bf16_layout(n, lq, lkv)}")
+        v = torch.randn(n, lkv, dv, generator=gen).to("cuda", bf)
+        dy = torch.randn(n, lq, dv, generator=gen).to("cuda", bf)
+        log(f"[{tag}] n={n} {lq} x {lkv} grids: {k2_bf16_layout(n, lq, lkv, dv)}")
         for rate in (0.0, 0.1):
             kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
             got = _fwd_bwd(k2, q, k, v, dy, **kw)
@@ -1395,16 +1419,16 @@ def phase_train_attention_bf16(card: str) -> dict:
             shares = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
                       for a, b in zip(got[1:], want[1:])]
             dtypes = {t.dtype for t in got}
-            log(f"[7b] n={n} {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
+            log(f"[{tag}] n={n} {lq:6d} x {lkv:5d} dropout {rate}: output max abs err {f_err:.3e} "
                 f"(one ulp {f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
                 f"{', '.join(f'{x:.2e}' for x in shares)}; second forward / backward "
                 f"{' / '.join('bitwise equal' if x else 'DIFFERENT' for x in same)}; dtypes "
                 f"{sorted(str(d) for d in dtypes)}")
             if not (f_err <= f_tol and max(shares) <= BF16_GRAD_RTOL and dtypes == {bf}):
-                raise AssertionError(f"[7b] K2 bf16 disagrees with its plain version at "
+                raise AssertionError(f"[{tag}] K2 bf16 disagrees with its plain version at "
                                      f"n={n} {lq}x{lkv} dropout {rate}")
             if not all(same):
-                raise AssertionError(f"[7b] K2 bf16 is not deterministic at n={n} {lq}x{lkv}: "
+                raise AssertionError(f"[{tag}] K2 bf16 is not deterministic at n={n} {lq}x{lkv}: "
                                      f"{same}")
             res["fwd_err"] = max(res["fwd_err"], f_err)
             res["bwd_err"] = max(res["bwd_err"], max(
@@ -1412,31 +1436,31 @@ def phase_train_attention_bf16(card: str) -> dict:
             del got, want, again
         rate = keep_rate_bf16(k2, lq, lkv, k)
         check_fault("cuda")
-        log(f"[7b] n={n} {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {n * lq * lkv} "
+        log(f"[{tag}] n={n} {lq:6d} x {lkv:5d} observed keep rate {rate:.6f} over {n * lq * lkv} "
             f"elements")
         if abs(rate - 0.9) > 1e-3:
-            raise AssertionError(f"[7b] K2 bf16 keep rate {rate} outside 0.9 +- 1e-3")
+            raise AssertionError(f"[{tag}] K2 bf16 keep rate {rate} outside 0.9 +- 1e-3")
         if n == 1:
-            times = _train_attention_times(q, k, v, dy, k2, p2, tag="7b")
+            times = _train_attention_times(q, k, v, dy, k2, p2, tag=tag)
             check_fault("cuda")
-            io = 2 * (lq * (D_K + D_V) + lkv * (D_K + D_V))   # q, k, v and o or dy, bf16
-            fwd_b = bound(2 * lq * lkv * (D_K + D_V), io, PEAK_BF16)
-            bwd_b = bound(2 * lq * lkv * (2 * D_V + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_BF16)
-            log(f"[7b] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
+            io = 2 * (lq * (D_K + dv) + lkv * (D_K + dv))   # q, k, v and o or dy, bf16
+            fwd_b = bound(2 * lq * lkv * (D_K + dv), io, PEAK_BF16)
+            bwd_b = bound(2 * lq * lkv * (2 * dv + 3 * D_K), 2 * io + 4 * 2 * lq, PEAK_BF16)
+            log(f"[{tag}] {lq} x {lkv} forward / backward ms: kernel {times['kernel'][0]:.3f} / "
                 f"{times['kernel'][1]:.3f} (device {times['device'][0]} / "
                 f"{times['device'][1]}), "
                 f"plain {times['plain'][0]:.3f} / {times['plain'][1]:.3f}, "
                 f"F.scaled_dot_product_attention (bf16, no dropout) {times['sdpa'][0]:.3f} / "
                 f"{times['sdpa'][1]:.3f}; bounds in bf16 ({PEAK_BF16 / 1e12:.0f} TFLOP/s): "
-                f"forward {2 * lq * lkv * (D_K + D_V) / 1e9:.2f} GFLOP "
+                f"forward {2 * lq * lkv * (D_K + dv) / 1e9:.2f} GFLOP "
                 f"{fwd_b['bound_ms']:.4f} ms, "
-                f"backward {2 * lq * lkv * (2 * D_V + 3 * D_K) / 1e9:.2f} GFLOP "
+                f"backward {2 * lq * lkv * (2 * dv + 3 * D_K) / 1e9:.2f} GFLOP "
                 f"{bwd_b['bound_ms']:.4f} ms")
             last = dict(times=times, fwd_b=fwd_b, bwd_b=bwd_b)
         del q, k, v, dy
-    for n, lq, lkv, dv in K2_DV_CASES:   # the rules only
+    for n, lq, lkv, dv_case in K2_DV_CASES if cases is None else ():   # the rules only
         q, k = (torch.randn(n, m, D_K, generator=gen).to("cuda", bf) for m in (lq, lkv))
-        v, dy = (torch.randn(n, m, dv, generator=gen).to("cuda", bf) for m in (lkv, lq))
+        v, dy = (torch.randn(n, m, dv_case, generator=gen).to("cuda", bf) for m in (lkv, lq))
         for rate in (0.0, 0.1):
             kw = dict(temperature=8.0, dropout_rate=rate, seed=SEED + 17)
             got = _fwd_bwd(k2, q, k, v, dy, **kw)
@@ -1446,14 +1470,15 @@ def phase_train_attention_bf16(card: str) -> dict:
             f_tol = bf16_ulp(want[0].float().abs().max()).item()
             shares = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
                       for a, b in zip(got[1:], want[1:])]
-            log(f"[7b] n={n} {lq} x {lkv}, d_v {dv}, dropout {rate}: output max abs err "
+            log(f"[7b] n={n} {lq} x {lkv}, d_v {dv_case}, dropout {rate}: output max abs err "
                 f"{f_err:.3e} (one ulp {f_tol:.3e}); dq/dk/dv max abs err / max|grad| "
                 f"{', '.join(f'{x:.2e}' for x in shares)}")
             if not (f_err <= f_tol and max(shares) <= BF16_GRAD_RTOL):
                 raise AssertionError(f"[7b] K2 bf16 disagrees with its plain version at "
-                                     f"n={n} {lq}x{lkv} d_v {dv} dropout {rate}")
-    log("[7b] K2's error word clear after every call above")
-    phase_fault_report("K2", "7b")
+                                     f"n={n} {lq}x{lkv} d_v {dv_case} dropout {rate}")
+    log(f"[{tag}] K2's error word clear after every call above")
+    if cases is None:
+        phase_fault_report("K2", "7b")
     # the kernels entries report the last training hop, the largest
     times, fwd_b, bwd_b = last["times"], last["fwd_b"], last["bwd_b"]
     return {
@@ -1692,16 +1717,16 @@ def kernel_vs_plain(path, plain, noise) -> dict:
     return dict(problem=problem, worst=worst, needed=needed)
 
 
-def faulty_forward(eps: float):
+def faulty_forward(eps: float, lq: int = PROBE_LQ):
     """K2's forward with a relative error ``eps`` on one 64-row q block of
-    the last hop (``PROBE_ROWS`` of ``PROBE_LQ``), its backward untouched: a
+    the last hop (``PROBE_ROWS`` of its ``lq`` rows), its backward untouched: a
     fault for phase 9's check to flag."""
     from tdnet_tpu_torch.nn import encoding
     kernel = encoding.propagation_attention_train
 
     def faulty(q, k, v, **kw):
         o = kernel(q, k, v, **kw)
-        if q.shape[1] != PROBE_LQ:
+        if q.shape[1] != lq:
             return o
         err = torch.zeros_like(o)
         err[:, PROBE_ROWS] = eps * o.detach()[:, PROBE_ROWS]
@@ -2822,7 +2847,12 @@ ENCODING_NAMES = {"w_vs": "w_vs.0.conv", **{f"{w}.{m}": f"{w}.{r}" for w in ("w_
                                                           ("conv1", "1.conv"))}}
 STEM_NAMES = {"stem.conv0": "conv1.0", "stem.bn0": "conv1.1", "stem.conv1": "conv1.3",
               "stem.bn1": "conv1.4", "stem.conv2": "conv1.6"}
-NAMINGS = ("testing", "training", "psp_source", "psp101", "torchvision")
+NAMINGS = ("testing", "training", "psp_source", "psp101", "torchvision", "td2_fa",
+           "fanet_source")
+# a single-path FANet's names of the parts td2_fa.pretrained_init copies (reference
+# utils.py:35-67): the backbone, the four FAModules and the two heads
+FANET_SOURCE_NAMES = {"backbone": "resnet", "head": "clslayer_8", "head_aux": "clslayer_32",
+                      **{f"ffm_{s}": f"ffm_{s}" for s in (32, 16, 8, 4)}}
 
 
 def _renamed(key: str, names: dict) -> str:
@@ -2834,6 +2864,17 @@ def _resnet_name(key: str, deep_base: bool) -> str:
     module, _, leaf = key.rpartition(".")
     if module.startswith("stem."):
         module = STEM_NAMES[module] if deep_base else "conv1"
+    module = module.replace("downsample.conv", "downsample.0").replace("downsample.bn",
+                                                                        "downsample.1")
+    return f"{module}.{leaf}"
+
+
+def _fanet_resnet_name(key: str) -> str:
+    """A ``FANetResNet`` key as td2_fanet/resnet.py names it (``conv1``, ``bn1``,
+    ``layerX.Y.convJ`` / ``bnJ``, ``downsample.0`` / ``.1``)."""
+    module, _, leaf = key.rpartition(".")
+    module = {"stem.conv": "conv1", "stem.bn": "bn1"}.get(module, module)
+    module = re.sub(r"\.conv(\d)\.(conv|bn)$", lambda m: f".{m[2]}{m[1]}", module)
     module = module.replace("downsample.conv", "downsample.0").replace("downsample.bn",
                                                                         "downsample.1")
     return f"{module}.{leaf}"
@@ -2852,13 +2893,41 @@ def reference_state(model, cfg, naming: str) -> dict:
     - ``psp_source``: a single-path PSPNet, ``pretrained``, ``head.conv5.*``,
       ``auxlayer`` (the bootstrap and teacher sources);
     - ``psp101``: the same without the aux head (Testing's psp101.pkl);
-    - ``torchvision``: a ResNet as torchvision names it, with a seeded ``fc``.
-    ``cfg`` is the model's config (TDNetConfig, PSPNetConfig or ResNetConfig)."""
+    - ``torchvision``: a ResNet as torchvision names it, with a seeded ``fc``;
+    - ``td2_fa``: a FATD in the reference's td2_fa training naming,
+      ``pretrained{i}`` (td2_fanet/resnet.py), ``ffm_{32,16,8,4}_{i}``,
+      ``enc{i}``, ``layer_norm{i}``, ``head{i}``, ``head_aux{i}``, ``atn{p+1}``;
+    - ``fanet_source``: path 0 of a FATD as a single-path FANet file
+      (``resnet``, ``ffm_*``, ``clslayer_8``, ``clslayer_32``: the bootstrap source).
+    ``cfg`` is the model's config (TDNetConfig, FATDConfig, PSPNetConfig or
+    ResNetConfig)."""
     from tdnet_tpu_torch.nn import BACKBONES
     if naming not in NAMINGS:
         raise ValueError(f"naming {naming!r} not in {NAMINGS}")
     out = OrderedDict()
-    if naming in ("testing", "training"):
+    if naming in ("td2_fa", "fanet_source"):
+        for key, v in model.state_dict().items():
+            m = re.fullmatch(r"atn\.(\d+)\.0\.(w|b)", key)
+            if m:
+                if naming == "td2_fa":
+                    leaf = "weight" if m[2] == "w" else "bias"
+                    out[f"atn{int(m[1]) + 1}.fc.0.conv.{leaf}"] = (
+                        v.t()[:, :, None, None] if m[2] == "w" else v)
+                continue
+            p, part, rest = re.fullmatch(r"paths\.(\d+)\.(\w+)\.(.+)", key).groups()
+            i = int(p) + 1
+            if part == "backbone":
+                rest = _fanet_resnet_name(rest)
+            elif part == "enc":
+                rest = _renamed(rest, ENCODING_NAMES)
+            if naming == "fanet_source":
+                if p == "0" and part in FANET_SOURCE_NAMES:
+                    out[f"{FANET_SOURCE_NAMES[part]}.{rest}"] = v
+                continue
+            out[{"backbone": f"pretrained{i}", "ln": f"layer_norm{i}.ln", "enc": f"enc{i}",
+                 "head": f"head{i}", "head_aux": f"head_aux{i}"}.get(part, f"{part}_{i}")
+                + "." + rest] = v
+    elif naming in ("testing", "training"):
         deep = BACKBONES[cfg.backbone]().deep_base
         for key, v in model.state_dict().items():
             m = re.fullmatch(r"atn\.(\d+)\.(\d+)\.(w|b)", key)
@@ -2928,14 +2997,17 @@ def seeded(model, seed: int):
 
 def seeded_model(kind: str, in_size, seed: int = REF_SEED):
     """A seeded port model: a TDNet twin (``td4-psp18``, ``td2-psp50``: the
-    streaming twin), a PSPNet (``psp18``: ResNet-18 with the aux head, the
-    bootstrap source; ``psp101``) or a ResNet-18 (``resnet18``); and its config."""
-    from tdnet_tpu_torch.models import PSPNetConfig, init_pspnet, init_tdnet, tdnet_config
+    streaming twin), a TD2-FANet (``td2-fa``; its path 0 is the ``fanet_source``
+    naming's single-path FANet), a PSPNet (``psp18``: ResNet-18 with the aux
+    head, the bootstrap source; ``psp101``) or a ResNet-18 (``resnet18``); and
+    its config."""
+    from tdnet_tpu_torch.models import (PSPNetConfig, init_model, init_pspnet,
+                                        tdnet_config)
     from tdnet_tpu_torch.nn import BACKBONES, ResNet, init_resnet
     gen = torch.Generator().manual_seed(seed)
-    if kind in ("td4-psp18", "td2-psp50"):
+    if kind in ("td4-psp18", "td2-psp50", "td2-fa"):
         cfg = tdnet_config(kind, in_size=in_size)
-        return seeded(init_tdnet(cfg, gen), seed), cfg
+        return seeded(init_model(cfg, gen), seed), cfg
     if kind in ("psp18", "psp101"):
         cfg = PSPNetConfig(backbone="resnet" + kind[3:], in_size=in_size, aux=kind == "psp18")
         return seeded(init_pspnet(cfg, gen), seed), cfg
@@ -3217,23 +3289,318 @@ def phase_reference_train(card: str, work: str, root: str, files: dict, sizes: d
     return {"fwd": total[0], "bwd": total[1], "drop": total[2] + total[3], "K1 f32": total[4]}
 
 
-def phase_reference(card: str, root: str) -> dict:
-    """Phase 20: the reference's checkpoints at full width (steps 1-4 above);
-    returns its launches by kernel."""
-    import shutil
+def phase_reference(card: str, root: str, work: str) -> tuple[dict, dict]:
+    """Phase 20: the reference's checkpoints at full width (steps 1-4 above) in
+    ``work``; returns its launches by kernel and its reference files (which,
+    with its frames, phase 21 reads again)."""
     from tdnet_tpu_torch.models import STREAM_SIZE
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase20")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     t0 = time.perf_counter()
     files = phase_reference_convert(work, STREAM_SIZE)
     launches = phase_reference_serve(card, work, files, STREAM_SIZE)
     trained = phase_reference_train(card, work, root, files, STREAM_SIZE)
     launches["K1 f32"] += trained.pop("K1 f32")
-    shutil.rmtree(work, ignore_errors=True)
-    shutil.rmtree(os.path.dirname(root), ignore_errors=True)
     log(f"[20] {time.perf_counter() - t0:.1f} s in all")
-    return {**launches, **trained}
+    return {**launches, **trained}, files
+
+
+# phase 21: TD2-FANet
+FA_STEPS = 4   # phase 21's timed steps, each dtype
+# phase 21's probes (the one hop's 18,432 q rows, PROBE_ROWS among them), f32 and bf16: each
+# ladder's shares are printed and the check must flag the gate, the smallest eps flagged with
+# dropout off and on (PERF.md §6, TD2-FANet's run A1: f32 1e-2 at 3.27 and 1.95 of the limit,
+# bf16 3 at 16.5 and 3.78; bf16 1 flagged off only)
+PROBE_LADDER_FA = {"f32": (1e-3, 1e-2, 1e-1, 1.0), "bf16": (0.3, 1.0, 3.0)}
+PROBE_GATE_FA = {"f32": 1e-2, "bf16": 3.0}
+
+
+def phase_fanet_stream(card: str) -> dict:
+    """Phase 21 (a): TD2-FA18 at 768x1536 through ``Streamer`` on seeded weights
+    and the 12 seeded frames, f32 and bf16, each against the same stream with
+    the plain attention (f32 1e-3 x max|logits| as phase 3, bf16 3e-2 as phase
+    4), one K1 launch a warm frame (``run_stream``); the bf16 stream's distance
+    from f32 printed. Returns K1's launches by dtype."""
+    from tdnet_tpu_torch.models import STREAM_SIZE
+    size = STREAM_SIZE["td2-fa"]
+    launches, outs = {}, {}
+    for name, dtype, frac in (("f32", torch.float32, 1e-3), ("bf16", torch.bfloat16, 3e-2)):
+        frames = stream_frames(size, dtype)
+        outs[name], launches[name], _ = run_stream("td2-fa", size, dtype, frames, card,
+                                                   f"21 {name}")
+        with plain_attention():
+            plain, _, _ = run_stream("td2-fa", size, dtype, frames, card, f"21 {name}-plain",
+                                     kernel=False)
+        check_close("21", outs[name], plain, frac,
+                    f"TD2-FANet kernel-path vs plain-attention {name}")
+        del plain, frames
+    dist = max((a.float() - b).abs().max().item() for a, b in zip(outs["bf16"], outs["f32"]))
+    scale = max(o.abs().max().item() for o in outs["f32"])
+    log(f"[21] TD2-FANet bf16 stream vs f32 (report): max abs diff {dist:.4e}, "
+        f"{dist / scale:.3e} of max|f32 logits| {scale:.4e}; argmax agreement "
+        f"{argmax_agreement(outs['bf16'], outs['f32']):.4f}")
+    return launches
+
+
+def phase_fanet_train(card: str) -> dict:
+    """Phase 21 (b): ``td2_fa_full_recipe`` (768x1536, batch 1, the ``pspnet_2p``
+    ResNet-101 teacher) in f32 and then bf16: a warm-up step and ``FA_STEPS``
+    steps each, every loss finite, K2 and K3 1 + 1 a step in the step's dtype
+    and none in the other; ms/step, peak memory, device ms and the idle share;
+    then one float64 run from the recipe's seeded initial state (dropout off
+    and on), and the kernel path against it beside the plain path (K2 and K3
+    swapped for their plain versions), f32 by phase 9's float64 rule and bf16
+    by phase 15's; the probe (K2's forward off on one 64-row q block of the
+    hop) at each eps of ``PROBE_LADDER_FA``, which must flag
+    ``PROBE_GATE_FA``. Returns K2's and K3's launches by dtype."""
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.train.trainer import make_loss_of, make_train_step, td2_fa_full_recipe
+    t0 = time.perf_counter()
+    state, _, teacher, frames, labels, loss_fn = td2_fa_full_recipe(seed=SEED)
+    model, cfg = state.model, state.model.cfg
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    in_size, lq = cfg.in_size, cfg.feat_hw[0] * cfg.feat_hw[1]
+    log(f"[21] TD2-FANet full recipe {in_size[0]}x{in_size[1]} b1 ({card}): {cfg.backbone} x "
+        f"{cfg.path_num} paths, d_v {cfg.d_v}, hop {lq} x {cfg.kv_tokens}, kv_stride "
+        f"{cfg.kv_stride}, pool_before_proj {cfg.pool_before_proj}, no aux, OHEM n_min "
+        f"{in_size[0] * in_size[1] // 16}, KD from a {teacher.cfg.path_num}-path "
+        f"{teacher.cfg.backbone}, AdaOptimizer; {sum(p.numel() for p in model.parameters())} "
+        f"student parameters (built in {time.perf_counter() - t0:.1f} s)")
+    launches = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        step = make_train_step(loss_fn=loss_fn, compute_dtype=dtype)
+        t0 = time.perf_counter()
+        m = step(state, frames, labels, 0, teacher)
+        torch.cuda.synchronize()
+        log(f"[21] {name}: warm-up step loss {m['loss'].item():.5f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        pre, other = ("", "bf16_") if dtype is None else ("bf16_", "")
+        counters = [(fn, p + attr) for p in (pre, other)
+                    for fn in (propagation_attention_train, dropout)
+                    for attr in ("launches", "backward_launches")]
+        times, got = run_steps(f"21 {name}", step, state, frames, labels, teacher, FA_STEPS,
+                               counters)
+        if got != [FA_STEPS] * 4 + [0] * 4:
+            raise AssertionError(f"[21] {name} launches {got}, expected {FA_STEPS} of each of "
+                                 f"K2's and K3's {name} kernels and none of the others")
+        idle_share(f"21 {name}", step, state, frames, labels, teacher, times)
+        launches[name] = dict(fwd=got[0], bwd=got[1], drop=got[2] + got[3])
+
+    t0 = time.perf_counter()
+    refs = f64_references(loss_fn, model, start, teacher, frames, labels)
+    log(f"[21] float64 run from the initial state, dropout off and on: losses "
+        f"{refs[False][0]:.6f} / {refs[True][0]:.6f} ({time.perf_counter() - t0:.1f} s)")
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        for use_dropout in (False, True):
+            setting = f"{name}, dropout {'on' if use_dropout else 'off'}, pos_id {POS_ID}"
+
+            def run():
+                model.load_state_dict(start)
+                loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout,
+                                       compute_dtype=dtype)
+                return _loss_and_grads(model, loss_of, frames, labels, POS_ID, teacher)
+
+            path = run()
+            with plain_train_kernels():
+                plain = run()
+            ref = refs[use_dropout]
+            held = against_f64(path, plain, ref, bf16=dtype is not None)
+            log(f"[21] kernel path (K2, K3) vs float64, beside the plain path ({setting}): "
+                f"loss {path[0]:.6f}, plain {plain[0]:.6f}, float64 {ref[0]:.6f}; "
+                f"{describe(held)}")
+            if held.problem:
+                raise AssertionError(f"[21] kernel path vs float64 ({setting}): {held.problem}")
+            flagged = {}
+            for eps in PROBE_LADDER_FA[name]:
+                with faulty_forward(eps, lq):
+                    probed = run()
+                v = against_f64(probed, plain, ref, bf16=dtype is not None)
+                flagged[eps] = bool(v.problem)
+                log(f"[21] probe: K2's forward off by {eps:g} on rows {PROBE_ROWS.start}-"
+                    f"{PROBE_ROWS.stop - 1} of {lq} ({setting}): "
+                    f"{'flagged' if v.problem else 'passed'}, worst {v.worst[0]:.3f} of its "
+                    f"limit ({v.worst[1]})")
+            if not flagged[PROBE_GATE_FA[name]]:
+                raise AssertionError(f"[21] the check passed K2's forward off by "
+                                     f"{PROBE_GATE_FA[name]:g} ({setting}): it cannot see "
+                                     f"such a fault")
+            check_fault("cuda")
+    log("[21] the error word clear after every step and comparison above")
+    del state, teacher, model, refs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fanet_cli(card: str, work: str, root: str, files: dict) -> dict:
+    """Phase 21 (c): the reference's td2_fa files through the CLIs, at 768x1536.
+    A seeded TD2-FANet written under the reference's training names
+    (``reference_state(..., "td2_fa")``, ``num_batches_tracked``, the legacy
+    format) goes through ``cli.convert --arch td2_fa`` (bitwise the seeded
+    model) and is served by ``cli.test.main --model td2-fa`` over phase 20's 12
+    PNG frames ("Loading pretrained model" printed, 1 K1 launch a warm frame,
+    the class maps bitwise equal to a ``Streamer`` on the seeded model's); then
+    ``cli.train.train`` on configs/td2_fa_cityscapes.yml over phase 19's tree,
+    batch 2, 2 iterations, ``resume`` a seeded single-path FANet file
+    (``fanet_source``) and the teacher phase 20's PSP-101 file: both paths'
+    backbone, FAModules and heads bitwise the file's before step 1, every loss
+    finite, K2 and K3 1 + 1 a step; then ``cli.validate`` on the run's best
+    model, its confusion matrix the run's validation's (or its pixels agreeing
+    in ``AGREEMENT_MIN``). Returns K1's, K2's and K3's launches."""
+    import io
+    import logging
+    from tdnet_tpu_torch.cli import convert, test as cli_test
+    from tdnet_tpu_torch.cli import train as cli_train
+    from tdnet_tpu_torch.cli import validate as cli_validate
+    from tdnet_tpu_torch.data.png import read_png
+    from tdnet_tpu_torch.data.streaming import CITYSCAPES_COLORS, FrameSource, decode_segmap
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.models import STREAM_SIZE
+    from tdnet_tpu_torch.stream.runtime import Streamer
+    from tdnet_tpu_torch.train import trainer
+    from tdnet_tpu_torch.utils.config import load_config
+    size = STREAM_SIZE["td2-fa"]
+    t = time.perf_counter()
+    model, cfg = seeded_model("td2-fa", size)
+    want = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    src, dst = os.path.join(work, "td2-fa.pkl"), os.path.join(work, "td2-fa_converted.pt")
+    write_reference(src, reference_state(model, cfg, "td2_fa"))
+    with contextlib.redirect_stdout(sys.stderr):
+        convert.main(["--arch", "td2_fa", "--src", src, "--dst", dst, "--in_size",
+                      str(size[0]), str(size[1])])
+    got = torch.load(dst, weights_only=True)["model_state"]
+    same = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    log(f"[21] td2-fa {size[0]}x{size[1]}: reference file {os.path.getsize(src) / 2**20:.0f} MiB "
+        f"(legacy format), converted (--arch td2_fa): {len(got)} tensors "
+        f"{'bitwise equal to' if same else 'DIFFERENT from'} the seeded model's; "
+        f"{time.perf_counter() - t:.1f} s")
+    if not same:
+        raise AssertionError("[21] the converted td2_fa state differs from the seeded model's")
+    del got
+
+    frames_dir = os.path.join(work, "frames")
+    out_dir = os.path.join(work, "out", "td2-fa")
+    argv = ["--img_path", frames_dir, "--output_path", out_dir, "--model", "td2-fa",
+            "--_td2_fa_path", dst, "--device", "cuda", "--in_size", str(size[0]), str(size[1])]
+    fused_propagation_attention.launches = 0
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli_test.main(argv)
+    wall = time.perf_counter() - t
+    check_fault("cuda")
+    n1 = fused_propagation_attention.launches
+    lines = printed.getvalue().splitlines()
+    if not (any(ln.startswith("Loading pretrained model from") for ln in lines)
+            and n1 == N_FRAMES - 1):
+        raise AssertionError(f"[21] cli.test td2-fa: K1 launches {n1} (expected "
+                             f"{N_FRAMES - 1}); printed {lines[:2]}")
+    runner = Streamer(model.to("cuda"))
+    rows = np.arange(size[0] // 4) * size[0] // (size[0] // 4)
+    cols = np.arange(size[1] // 4) * size[1] // (size[1] // 4)
+    same = 0
+    for x, name, folder, _ in FrameSource(frames_dir, size):
+        pred = runner.step(torch.from_numpy(x), timed=False)[0][0].argmax(-1)
+        want_map = decode_segmap(pred.to(torch.uint8).cpu().numpy()[rows][:, cols],
+                                 CITYSCAPES_COLORS)
+        same += np.array_equal(read_png(os.path.join(out_dir, folder, name)), want_map)
+    check_fault("cuda")
+    log(f"[21] cli.test td2-fa float32 ({card}), {size[0]}x{size[1]}: {lines[0]}; "
+        f"{lines[-2].strip()}; launches K1 {n1}; class maps of {same} of {N_FRAMES} frames "
+        f"bitwise equal to the seeded model's own run; {wall:.1f} s")
+    if same != N_FRAMES:
+        raise AssertionError(f"[21] cli.test td2-fa: {N_FRAMES - same} class maps differ")
+    del model, runner, want
+    torch.cuda.empty_cache()
+
+    src_model, _ = seeded_model("td2-fa", size, seed=REF_SEED + 1)
+    source = {k: v.detach().clone() for k, v in src_model.state_dict().items()
+              if k.startswith("paths.0.") and k.split(".")[2] in FANET_SOURCE_NAMES}
+    files["fanet18"] = os.path.join(work, "fanet18.pkl")
+    write_reference(files["fanet18"], reference_state(src_model, cfg, "fanet_source"))
+    del src_model
+    yml = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "td2_fa_cityscapes.yml"))
+    yml["data"]["path"] = root
+    yml["teacher"]["teacher_model"] = files["psp101"]
+    yml["training"].update(train_iters=2, batch_size=2, val_interval=1000, print_interval=1,
+                           ckpt_interval=0, resume=files["fanet18"])
+    counters = ((propagation_attention_train, "launches"),
+                (propagation_attention_train, "backward_launches"),
+                (dropout, "launches"), (dropout, "backward_launches"),
+                (fused_propagation_attention, "launches"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    seen = {}
+    real_state = trainer.make_train_state
+
+    def record_state(m, **kw):
+        seen["model"] = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+        return real_state(m, **kw)
+    run_dir = os.path.join(work, "run-td2-fa")
+    os.makedirs(run_dir)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t = time.perf_counter()
+    with swapped(trainer, "make_train_state", record_state):
+        cli_train.train(yml, logging.getLogger("tdnet_tpu_torch.chip_smoke"), run_dir,
+                        device="cuda", stats=stats)
+    check_fault("cuda")
+    n = len(stats["step_s"])
+    launches = [getattr(fn, attr) for fn, attr in counters]
+    log(f"[21] cli.train td2_fa ({card}): {n} steps of batch 2 at {size[0]}x{size[1]}; losses "
+        f"{', '.join(f'{x:.4f}' for x in stats['losses'])}; ms a step "
+        f"{ms_list(stats['step_s'])} (waiting on ClipBatcher {ms_list(stats['data_s'])}); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; launches K2 fwd/bwd "
+        f"{launches[0]}/{launches[1]}, K3 fwd/bwd {launches[2]}/{launches[3]}, K1 "
+        f"{launches[4]}; {time.perf_counter() - t:.1f} s in all")
+    if not (n == 2 and np.all(np.isfinite(stats["losses"])) and launches[:4] == [n] * 4):
+        raise AssertionError(f"[21] cli.train td2_fa: losses {stats['losses']}, launches "
+                             f"{launches}")
+    pairs = [(f"paths.{p}.{k[8:]}", seen["model"][f"paths.{p}.{k[8:]}"], v)
+             for p in range(cfg.path_num) for k, v in source.items()]
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    log(f"[21] the students before step 1 against the single-path FANet file: "
+        f"{len(pairs) - len(bad)} of {len(pairs)} tensors bitwise equal")
+    if bad:
+        raise AssertionError(f"[21] the bootstrapped students differ at {bad[:4]}")
+
+    best = os.path.join(run_dir, "td2_fa_cityscapes_best_model.pkl")
+    yml["validating"]["resume"] = best
+    vstats = {}
+    args = types.SimpleNamespace(measure_time=False, max_batches=None, device="cuda")
+    fused_propagation_attention.launches = 0
+    t = time.perf_counter()
+    score, _ = cli_validate.validate(yml, args, stats=vstats)
+    check_fault("cuda")
+    equal = np.array_equal(vstats["confusion"], stats["best_confusion"])
+    log(f"[21] cli.validate on {os.path.basename(best)}: mean IoU {score[MEAN_IOU]:.6f}; "
+        f"confusion matrix {'equal to' if equal else 'DIFFERENT from'} the run's validation "
+        f"pass; K1 launches {fused_propagation_attention.launches}; "
+        f"{ms_list(vstats['batch_s'])} ms a batch; {time.perf_counter() - t:.1f} s")
+    if not equal:
+        agree = 1.0 - np.abs(vstats["confusion"] - stats["best_confusion"]).sum() / (
+            2 * stats["best_confusion"].sum())
+        if agree < AGREEMENT_MIN:
+            raise AssertionError(f"[21] validate vs the run's validation: agreement {agree}")
+    return {"K1 f32": n1 + launches[4] + fused_propagation_attention.launches,
+            "fwd": launches[0], "bwd": launches[1], "drop": launches[2] + launches[3]}
+
+
+def phase_fanet(card: str, work: str, root: str, files: dict) -> dict:
+    """Phase 21: TD2-FA18 at full width, (a) the stream, (b) the recipe and (c)
+    the reference's files through the CLIs; returns the launches by kernel and
+    dtype, keyed as the kernels line adds them."""
+    t0 = time.perf_counter()
+    stream = phase_fanet_stream(card)
+    recipe = phase_fanet_train(card)
+    cli = phase_fanet_cli(card, work, root, files)
+    log(f"[21] {time.perf_counter() - t0:.1f} s in all")
+    return {"K1 f32": stream["f32"] + cli["K1 f32"], "K1 bf16": stream["bf16"],
+            "f32": {k: recipe["f32"][k] + cli[k] for k in ("fwd", "bwd", "drop")},
+            "bf16": recipe["bf16"]}
 
 
 def ms_list(xs) -> str:
@@ -3241,12 +3608,14 @@ def ms_list(xs) -> str:
 
 
 def main() -> int:
+    import shutil
     card = phase_toolchain()
     offline_store(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "store"))
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     k1 = phase_kernel(card)
+    k1_fa = phase_kernel(card, [FA_HOP], FA_DV, "2-fa")
 
     from tdnet_tpu_torch.models import STREAM_SIZE
     td4, td2 = STREAM_SIZE["td4-psp18"], STREAM_SIZE["td2-psp50"]
@@ -3273,10 +3642,14 @@ def main() -> int:
 
     phase_train_build()
     k2 = phase_train_attention(card)
+    k2_fa = phase_train_attention(card, [FA_HOP[1:]], FA_DV, "7-fa")
     k2_bf16 = phase_train_attention_bf16(card)
+    k2_bf16_fa = phase_train_attention_bf16(card, [FA_HOP], FA_DV, "7b-fa")
     phase_step_inputs_bf16(card)
     k3 = phase_dropout(card)
+    k3_fa = phase_dropout(card, torch.float32, [(FA_ROWS, FA_DV)], "8-fa")
     k3_bf16 = phase_dropout(card, torch.bfloat16)
+    k3_bf16_fa = phase_dropout(card, torch.bfloat16, [(FA_ROWS, FA_DV)], "8b-fa")
     recipe, train_launches = phase_train(card)
 
     k4 = phase_stem_kernel(card)
@@ -3303,40 +3676,51 @@ def main() -> int:
     td2_launches = phase_td2_train(card)
     phase_fused_trunk(card, td4, td2)
     root = phase_train_cli(card)
-    reference = phase_reference(card, root)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase20")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    reference, files = phase_reference(card, root, work)
     launches["f32"] += reference["K1 f32"]
     launches["bf16"] += reference["K1 bf16"]
     stem_launches["bf16"] += reference["K4 bf16"]
     train_launches = {k: n + reference[k] for k, n in train_launches.items()}
+    fanet = phase_fanet(card, work, root, files)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(root), ignore_errors=True)
+    launches["f32"] += fanet["K1 f32"]
+    launches["bf16"] += fanet["K1 bf16"]
+    train_launches = {k: n + fanet["f32"][k] for k, n in train_launches.items()}
+    bf16_launches = {k: n + fanet["bf16"][k] for k, n in bf16_launches.items()}
+    fa = lambda d: {"fa_hop": dict(d)}   # the TD2-FANet hop's (d_v 256) numbers of a kernel
 
     src = "tdnet_tpu_torch/csrc/"
     entries = [{"name": f"propagation_attention_{dt}", "route": "cuda",
                 "source": src + "propagation_attention.cu",
                 "replaces": "tdnet_tpu/kernels/propagation_attention.py:127",
-                "launches": launches[dt], **k1[dt]} for dt in ("f32", "bf16")]
+                "launches": launches[dt], **k1[dt], **fa(k1_fa[dt])} for dt in ("f32", "bf16")]
     entries += [
         {"name": "propagation_attention_train_fwd", "route": "cuda",
          "source": src + "propagation_attention_train.cu",
          "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:154",
-         "launches": train_launches["fwd"], **k2["fwd"]},
+         "launches": train_launches["fwd"], **k2["fwd"], **fa(k2_fa["fwd"])},
         {"name": "propagation_attention_train_bwd", "route": "cuda",
          "source": src + "propagation_attention_train.cu",
          "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:188",
-         "launches": train_launches["bwd"], **k2["bwd"]},
+         "launches": train_launches["bwd"], **k2["bwd"], **fa(k2_fa["bwd"])},
         {"name": "dropout", "route": "cuda", "source": src + "dropout.cu",
          "replaces": "tdnet_tpu/kernels/dropout.py:38",
-         "launches": train_launches["drop"], **k3},
+         "launches": train_launches["drop"], **k3, **fa(k3_fa)},
         {"name": "propagation_attention_train_bf16_fwd", "route": "cuda",
          "source": src + "propagation_attention_train.cu",
          "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:154",
-         "launches": bf16_launches["fwd"], **k2_bf16["fwd"]},
+         "launches": bf16_launches["fwd"], **k2_bf16["fwd"], **fa(k2_bf16_fa["fwd"])},
         {"name": "propagation_attention_train_bf16_bwd", "route": "cuda",
          "source": src + "propagation_attention_train.cu",
          "replaces": "tdnet_tpu/kernels/propagation_attention_train.py:188",
-         "launches": bf16_launches["bwd"], **k2_bf16["bwd"]},
+         "launches": bf16_launches["bwd"], **k2_bf16["bwd"], **fa(k2_bf16_fa["bwd"])},
         {"name": "dropout_bf16", "route": "cuda", "source": src + "dropout.cu",
          "replaces": "tdnet_tpu/kernels/dropout.py:38",
-         "launches": bf16_launches["drop"], **k3_bf16}]
+         "launches": bf16_launches["drop"], **k3_bf16, **fa(k3_bf16_fa)}]
     entries += [{"name": f"fused_stem_{dt}", "route": "cuda", "source": src + "fused_stem.cu",
                  "replaces": "tdnet_tpu/kernels/fused_stem.py:199",
                  "launches": stem_launches[dt], **k4[dt]} for dt in ("f32", "bf16")]

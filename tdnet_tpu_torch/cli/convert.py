@@ -14,6 +14,13 @@ Converts the reference's PyTorch checkpoints into the port's own format
 
   # teacher surgery
   python -m tdnet_tpu_torch.cli.convert --arch pspnet_4p --src psp101.pkl ...
+
+  # a trained TD2-FANet (the reference's td2_fa training naming), at its crop
+  python -m tdnet_tpu_torch.cli.convert --arch td2_fa --src td2-fa.pkl \\
+      --dst td2-fa.pt --in_size 768 1536
+
+  # a single-path FANet -> TD2-FANet bootstrap (copied into both paths)
+  python -m tdnet_tpu_torch.cli.convert --arch td2_fa --bootstrap --src fanet18.pkl ...
 """
 
 from __future__ import annotations
@@ -34,20 +41,19 @@ def main(argv=None):
     parser.add_argument("--streaming", action="store_true",
                         help="use streaming-twin KV settings")
     parser.add_argument("--bootstrap", action="store_true",
-                        help="src is a single-path PSPNet; run channel "
-                             "surgery into a fresh TDNet")
+                        help="src is a single-path PSPNet (td2_fa: FANet); run channel "
+                             "surgery into a fresh TDNet (copy it into a fresh TD2-FANet)")
     parser.add_argument("--nclass", type=int, default=19)
     args = parser.parse_args(argv)
     arch = args.arch.replace("-", "_")
-    if arch == "td2_fa":
-        raise NotImplementedError("td2_fa is not ported to tdnet_tpu_torch yet")
 
-    from tdnet_tpu_torch.models import TeacherConfig, init_tdnet, tdnet_config
+    from tdnet_tpu_torch.models import FATDConfig, TeacherConfig, init_model, tdnet_config
     from tdnet_tpu_torch.utils.checkpoint import save_state
     from tdnet_tpu_torch.utils.surgery import (student_bootstrap_from_psp_checkpoint,
                                                teacher_from_psp_checkpoint)
-    from tdnet_tpu_torch.utils.torch_import import (load_torch_state, strip_module_prefix,
-                                                    tdnet_from_torch)
+    from tdnet_tpu_torch.utils.torch_import import (fanet_bootstrap_from_checkpoint,
+                                                    fatd_from_torch, load_torch_state,
+                                                    strip_module_prefix, tdnet_from_torch)
 
     sd = strip_module_prefix(load_torch_state(args.src))
     if arch in ("pspnet_4p", "pspnet_2p"):
@@ -56,11 +62,14 @@ def main(argv=None):
     else:
         cfg = tdnet_config(arch, nclass=args.nclass, in_size=tuple(args.in_size),
                            streaming=args.streaming)
+        fa = isinstance(cfg, FATDConfig)
         if args.bootstrap:
-            fresh = init_tdnet(cfg, torch.Generator().manual_seed(0)).state_dict()
-            state = student_bootstrap_from_psp_checkpoint(sd, cfg, fresh)
+            fresh = init_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+            bootstrap = (fanet_bootstrap_from_checkpoint if fa
+                         else student_bootstrap_from_psp_checkpoint)
+            state = bootstrap(sd, cfg, fresh)
         else:
-            state = tdnet_from_torch(sd, cfg)
+            state = (fatd_from_torch if fa else tdnet_from_torch)(sd, cfg)
 
     save_state(args.dst, state)
     n = sum(v.numel() for v in state.values())

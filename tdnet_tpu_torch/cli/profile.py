@@ -7,13 +7,14 @@ how far it spreads.
         --out profiles/
     python -m tdnet_tpu_torch.cli.profile --model td4-psp18-train td2-psp50-train \\
         --dtype float32 bfloat16 --conv_wgrad cudnn kernel
+    python -m tdnet_tpu_torch.cli.profile --model td2-fa td2-fa-train --dtype float32 bfloat16
 
 For each model (``psp101``: the single-frame PSPNet-101 baseline through
 ``stream.runtime.FrameRunner``), on seeded random weights and seeded
 synthetic frames (``stream.runtime.synthetic_frames``) at the model's
-streaming size (``models.STREAM_SIZE``), with the stem ``--stem_impl`` and,
-for the TDNets, each grouped-PSP + QKV form of ``--trunk`` in turn, after one
-pipelined pass over the 48 frames as a warm-up:
+streaming size (``models.STREAM_SIZE``; ``td2-fa``: TD2-FANet at 768x1536), with
+the stem ``--stem_impl`` and, for the TDNets, each grouped-PSP + QKV form of
+``--trunk`` in turn, after one pipelined pass over the 48 frames as a warm-up:
 
 1. 7 pipelined runs over the frames (queued back to back, one synchronize at
    the end): frames/s of each run;
@@ -29,7 +30,9 @@ pipelined pass over the 48 frames as a warm-up:
 ``td4-psp18-train`` and ``td2-psp50-train`` are the TD4-PSP18 and TD2-PSP50
 full training recipes at 769x1537 (``train.trainer.td4_full_recipe``,
 ``td2_full_recipe``; dilated convs ``--conv_wgrad``: ``kernel`` runs them
-through K5, in f32 or in bf16), f32, or bf16 mixed precision with ``--dtype
+through K5, in f32 or in bf16), ``td2-fa-train`` the TD2-FANet recipe at
+768x1536 (``td2_fa_full_recipe``; no dilated conv, so ``--conv_wgrad`` changes
+nothing), f32, or bf16 mixed precision with ``--dtype
 bfloat16`` (the streams' default dtype is bfloat16, the train steps'
 float32): after 2 warm-up steps, 8 synchronized steps (ms/step of each and
 the peak memory), then one ``torch.profiler`` trace of 4 steps split by
@@ -131,7 +134,7 @@ def write_tables(prof, out: str | None, name: str, shapes: bool, rows: int) -> N
 
 def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: bool,
                   trunk: str = "fused") -> dict:
-    from tdnet_tpu_torch.models import (STREAM_SIZE, PSPNetConfig, init_pspnet, init_tdnet,
+    from tdnet_tpu_torch.models import (STREAM_SIZE, PSPNetConfig, init_model, init_pspnet,
                                         tdnet_config)
     from tdnet_tpu_torch.stream.runtime import (FrameRunner, LatencyMeter, Streamer,
                                                 synthetic_frames)
@@ -142,7 +145,7 @@ def profile_model(arch: str, dtype, stem_impl: str, out: str | None, shapes: boo
                                stem_impl=stem_impl)
     else:
         cfg = tdnet_config(arch, in_size=STREAM_SIZE[arch])
-        streamer = Streamer(init_tdnet(cfg, gen).to("cuda"), dtype=dtype, stem_impl=stem_impl,
+        streamer = Streamer(init_model(cfg, gen).to("cuda"), dtype=dtype, stem_impl=stem_impl,
                             fused_trunk=trunk == "fused")
     frames = synthetic_frames(FRAMES, cfg.in_size, seed=0, device="cuda", dtype=dtype)
     streamer.run_pipelined(frames)
@@ -172,7 +175,8 @@ def profile_train(model: str, conv_wgrad: str, dtype, out: str | None, shapes: b
     from tdnet_tpu_torch.kernels.fault import check_fault
     from tdnet_tpu_torch.train import trainer
     recipe = {"td4-psp18-train": trainer.td4_full_recipe,
-              "td2-psp50-train": trainer.td2_full_recipe}[model]
+              "td2-psp50-train": trainer.td2_full_recipe,
+              "td2-fa-train": trainer.td2_fa_full_recipe}[model]
     state, step, teacher, frames, labels, _ = recipe(
         conv_wgrad=conv_wgrad, compute_dtype=None if dtype == torch.float32 else dtype)
     p_num = state.model.cfg.path_num
@@ -215,8 +219,8 @@ def profile_train(model: str, conv_wgrad: str, dtype, out: str | None, shapes: b
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", nargs="+", default=["td4-psp18", "td2-psp50"],
-                        choices=["td4-psp18", "td2-psp50", "psp101", "td4-psp18-train",
-                                 "td2-psp50-train"])
+                        choices=["td4-psp18", "td2-psp50", "td2-fa", "psp101",
+                                 "td4-psp18-train", "td2-psp50-train", "td2-fa-train"])
     parser.add_argument("--dtype", nargs="+", default=None, choices=["float32", "bfloat16"],
                         help="each model runs in each; default: bfloat16 for the streams, "
                              "float32 for the train steps")
@@ -247,7 +251,8 @@ def main(argv=None):
                     res = profile_train(arch, conv_wgrad, dtypes[dtype], args.out, args.shapes)
                     print(json.dumps(res), flush=True)
             else:
-                for trunk in args.trunk if arch != "psp101" else ["fused"]:
+                # PSP-101 and TD2-FANet have no grouped PSP to fuse
+                for trunk in args.trunk if arch in ("td4-psp18", "td2-psp50") else ["none"]:
                     res = profile_model(arch, dtypes[dtype], args.stem_impl, args.out,
                                         args.shapes, trunk)
                     print(json.dumps(res), flush=True)

@@ -1,5 +1,5 @@
-"""Streaming inference CLI for the TDNet models and the PSPNet-101 baseline
-on one device.
+"""Streaming inference CLI for the TDNet models, TD2-FANet and the PSPNet-101
+baseline on one device.
 
 Mirrors ``python Testing/test.py`` (reference Testing/test.py:85-110):
 round-robin streaming over a frame directory (``--model psp101``: one
@@ -9,10 +9,12 @@ outputs written by ``data/png.py`` (no image library). ``--stem_impl fused``
 runs the deep-base stems (TD2-PSP50, PSP-101) through the fused stem kernel.
 The checkpoint path of the model (``--_td4_psp18_path`` ...) may hold the
 reference's file (TD4-PSP18 and TD2-PSP50 in the Testing twin's naming,
-PSP-101 as ``pretrained.*`` and ``head.*``), the port's own
-(``cli/convert.py``) or, for a TDNet, the JAX package's
-(``utils/torch_import.py:load_tdnet``); with no file the weights are random
-(seed 0).
+TD2-FANet in its training naming, PSP-101 as ``pretrained.*`` and ``head.*``),
+the port's own (``cli/convert.py``) or, for a TDNet or TD2-FANet, the JAX
+package's (``utils/torch_import.py:load_tdnet``, ``load_fatd``); with no file
+the weights are random (seed 0). ``--model td2-fa`` streams TD2-FANet
+(``models/fanet_td.py``; its LayerNorm fixes the input size, 768x1536 for the
+reference's files).
 
     python -m tdnet_tpu_torch.cli.test --img_path frames/ --output_path out/ \\
         --model td2-psp50 --device cuda --dtype bfloat16 --stem_impl fused
@@ -26,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-NOT_PORTED = ("td2-fa",)
+MODELS = ("td4-psp18", "td2-psp50", "td2-fa", "psp101")
 
 
 def main(argv=None):
@@ -39,10 +41,12 @@ def main(argv=None):
                         default="./checkpoint/td4-psp18.pkl")
     parser.add_argument("--_td2_psp50_path", nargs="?", type=str,
                         default="./checkpoint/td2-psp50.pkl")
+    parser.add_argument("--_td2_fa_path", nargs="?", type=str,
+                        default="./checkpoint/td2-fa.pkl")
     parser.add_argument("--_psp101_path", nargs="?", type=str,
                         default="./checkpoint/psp101.pkl")
-    parser.add_argument("--model", nargs="?", type=str, default="td4-psp18",
-                        help="model in [td4-psp18, td2-psp50, psp101]")
+    parser.add_argument("--model", nargs="?", type=str, default="td4-psp18", choices=MODELS,
+                        help=f"model in [{', '.join(MODELS)}]")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
@@ -59,15 +63,14 @@ def main(argv=None):
     parser.add_argument("--parallel", type=str, default=None, choices=["group", "spatial"],
                         help="multi-device streaming (not ported yet)")
     args = parser.parse_args(argv)
-    if args.model in NOT_PORTED or args.parallel:
-        what = f"--parallel {args.parallel}" if args.parallel else args.model
-        raise NotImplementedError(f"{what} is not ported to tdnet_tpu_torch yet")
+    if args.parallel:
+        raise NotImplementedError(f"--parallel {args.parallel} is not ported to tdnet_tpu_torch")
 
     from tdnet_tpu_torch.data.png import write_png
     from tdnet_tpu_torch.data.streaming import DATASET_META, FrameSource, decode_segmap
-    from tdnet_tpu_torch.models import PSPNetConfig, init_pspnet, init_tdnet, tdnet_config
+    from tdnet_tpu_torch.models import PSPNetConfig, init_model, init_pspnet, tdnet_config
     from tdnet_tpu_torch.stream.runtime import FrameRunner, Streamer
-    from tdnet_tpu_torch.utils.torch_import import load_pspnet, load_tdnet
+    from tdnet_tpu_torch.utils.torch_import import load_fatd, load_pspnet, load_tdnet
 
     in_size = tuple(args.in_size)
     nclass, palette = DATASET_META[args.dataset]
@@ -76,6 +79,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     ckpt_path = {"td4-psp18": args._td4_psp18_path,
                  "td2-psp50": args._td2_psp50_path,
+                 "td2-fa": args._td2_fa_path,
                  "psp101": args._psp101_path}[args.model]
     gen = torch.Generator().manual_seed(0)
     if args.model == "psp101":
@@ -83,7 +87,8 @@ def main(argv=None):
         model, load = init_pspnet(cfg, gen), load_pspnet
     else:
         cfg = tdnet_config(args.model, nclass=nclass, in_size=in_size, streaming=True)
-        model, load = init_tdnet(cfg, gen), load_tdnet
+        model = init_model(cfg, gen)
+        load = load_fatd if args.model == "td2-fa" else load_tdnet
     if ckpt_path and os.path.isfile(ckpt_path):
         print(f"Loading pretrained model from '{ckpt_path}'")
         load(model, ckpt_path)

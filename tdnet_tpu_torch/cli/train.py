@@ -17,12 +17,16 @@ The weights start as the reference's do (``tdnet_tpu/cli/train.py:86-121``):
   bootstraps every sub-network (``utils/surgery.py:
   student_bootstrap_from_psp_checkpoint``); the port's own file of the
   bootstrapped TDNet (``cli.convert --bootstrap``) loads as it is;
+- for a TD2-FANet (``arch: td2_fa``), ``training.resume`` is a single-path
+  FANet checkpoint copied into both paths (``utils/torch_import.py:
+  fanet_bootstrap_from_checkpoint``), or the port's own FATD file;
 - without it, each path's backbone is the ImageNet one of the backbone store
   (``utils/model_store.py``: ``~/.encoding/models``,
   ``$TORCH_HOME/hub/checkpoints``, a download on a miss), where it has one: a
   deep-stem ResNet (50, 101, 152) is the encoding zoo's ``resnet50s`` ..., as
   the reference's students load it, never torchvision's 7x7-stem file of the
-  plain name;
+  plain name; a TD2-FANet asks the store for nothing and keeps its seeded
+  init, as ``tdnet_tpu/cli/train.py:98`` skips it;
 - ``teacher.teacher_model``, a PSPNet checkpoint, becomes the grouped teacher
   (``teacher_from_psp_checkpoint``); the port's own teacher file (``cli.convert
   --arch pspnet_4p``) loads as it is; without either the teacher is random.
@@ -55,13 +59,18 @@ def _torch_state(path: str, what: str):
 
 
 def load_student(model, path: str):
-    """``training.resume`` into ``model`` (a fresh TDNet): the reference's
-    single-path PSPNet through the bootstrap surgery, or the port's TDNet file."""
+    """``training.resume`` into ``model`` (a fresh TDNet or FATD): the reference's
+    single-path PSPNet through the bootstrap surgery (a single-path FANet copied
+    into every path), or the port's file of the model."""
+    from tdnet_tpu_torch.models import FATD
     from tdnet_tpu_torch.utils.surgery import student_bootstrap_from_psp_checkpoint
-    from tdnet_tpu_torch.utils.torch_import import load_state_into
+    from tdnet_tpu_torch.utils.torch_import import (fanet_bootstrap_from_checkpoint,
+                                                    load_state_into)
     state, kind = _torch_state(path, "training.resume")
     if kind == "reference":
-        state = student_bootstrap_from_psp_checkpoint(state, model.cfg, model.state_dict())
+        bootstrap = (fanet_bootstrap_from_checkpoint if isinstance(model, FATD)
+                     else student_bootstrap_from_psp_checkpoint)
+        state = bootstrap(state, model.cfg, model.state_dict())
     return load_state_into(model, state, path)
 
 
@@ -106,7 +115,7 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     from tdnet_tpu_torch.data.augment import get_composed_augmentations
     from tdnet_tpu_torch.data.cityscapes import ClipBatcher
     from tdnet_tpu_torch.kernels.fault import check_fault
-    from tdnet_tpu_torch.models import freeze, init_tdnet, init_teacher
+    from tdnet_tpu_torch.models import FATDConfig, freeze, init_model, init_teacher
     from tdnet_tpu_torch.train.metrics import AverageMeter, RunningScore
     from tdnet_tpu_torch.train.trainer import make_eval_step, make_train_state, make_train_step
     from tdnet_tpu_torch.utils import checkpoint as ckpt
@@ -146,7 +155,7 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     opt_kwargs = opt_kwargs_from_yaml(cfg)
     max_iter = int(cfg["training"]["train_iters"])
 
-    model = init_tdnet(mcfg, torch.Generator().manual_seed(seed))
+    model = init_model(mcfg, torch.Generator().manual_seed(seed))
     resume = cfg["training"].get("resume")
     if resume and os.path.isfile(resume):
         logger.info(f"Initializing sub networks with pretrained '{resume}'")
@@ -155,7 +164,9 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
         logger.info(f"No pretrained found at '{resume}'")
         # reference students build their backbones with pretrained=True
         # (ImageNet); use a cached checkpoint when available
-        if imagenet_backbones(model, cfg["model"]["backbone"]):
+        if isinstance(mcfg, FATDConfig):
+            logger.info("td2_fa: no ImageNet backbone is loaded; backbones at random init")
+        elif imagenet_backbones(model, cfg["model"]["backbone"]):
             logger.info("initialized backbones from cached ImageNet checkpoint")
         else:
             logger.info(f"no ImageNet {cfg['model']['backbone']} in the backbone store: "

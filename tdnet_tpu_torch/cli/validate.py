@@ -5,14 +5,16 @@
 mirrors Training/validate.py: mean IoU, per-class IoU and frames/s over the
 val split with the training-side model in eval mode (``train/trainer.py:
 make_eval_step``: the hops through K1), round-robin ``pos_id = i % path_n``
-(validate.py:66). ``validating.resume`` names the weights
-(``utils/torch_import.py:load_tdnet``):
+(validate.py:66). The model is the YAML's: a TDNet, or a TD2-FANet for
+``arch: td2_fa``. ``validating.resume`` names the weights
+(``utils/torch_import.py:load_tdnet``, ``load_fatd``):
 - the port's own checkpoint (``cli/train.py``'s best model or ``cli/convert.py``'s
   output: torch's zip format, ``torch.load(weights_only=True)``);
 - the JAX package's (its ``save_best`` pickle of numpy arrays), carried over
   by ``utils/from_jax.tdnet_state_from_jax``;
 - the reference's ``*_best_model.pkl`` (torch's legacy or zip format), read by
-  ``utils/torch_import.tdnet_from_torch`` with the training twin's config.
+  ``utils/torch_import.tdnet_from_torch`` (``fatd_from_torch``) with the
+  training twin's config.
 With no file the weights are random (seed 0).
 """
 
@@ -26,12 +28,13 @@ import torch
 
 
 def load_weights(path: str, mcfg, device):
-    """The TDNet in ``path`` (the port's, the JAX package's or the
+    """The TDNet or TD2-FANet in ``path`` (the port's, the JAX package's or the
     reference's checkpoint) on ``device``; parts the file lacks (aux heads)
     keep the seed-0 init."""
-    from tdnet_tpu_torch.models import init_tdnet
-    from tdnet_tpu_torch.utils.torch_import import load_tdnet
-    return load_tdnet(init_tdnet(mcfg, torch.Generator().manual_seed(0)), path).to(device)
+    from tdnet_tpu_torch.models import FATDConfig, init_model
+    from tdnet_tpu_torch.utils.torch_import import load_fatd, load_tdnet
+    load = load_fatd if isinstance(mcfg, FATDConfig) else load_tdnet
+    return load(init_model(mcfg, torch.Generator().manual_seed(0)), path).to(device)
 
 
 def validate(cfg: dict, args, stats: dict | None = None):
@@ -43,7 +46,7 @@ def validate(cfg: dict, args, stats: dict | None = None):
     from tdnet_tpu_torch.data.augment import get_composed_augmentations
     from tdnet_tpu_torch.data.cityscapes import ClipBatcher
     from tdnet_tpu_torch.kernels.fault import check_fault
-    from tdnet_tpu_torch.models import init_tdnet
+    from tdnet_tpu_torch.models import init_model
     from tdnet_tpu_torch.train.metrics import RunningScore
     from tdnet_tpu_torch.train.trainer import make_eval_step
     from tdnet_tpu_torch.utils.config import model_config_from_yaml
@@ -65,7 +68,7 @@ def validate(cfg: dict, args, stats: dict | None = None):
         model = load_weights(resume, mcfg, device)
     else:
         print(f"No checkpoint at '{resume}' — random weights")
-        model = init_tdnet(mcfg, torch.Generator().manual_seed(0)).to(device)
+        model = init_model(mcfg, torch.Generator().manual_seed(0)).to(device)
 
     batcher = ClipBatcher(v_ds, cfg["validating"]["batch_size"], shuffle=False,
                           drop_last=False, num_workers=cfg["validating"]["n_workers"])

@@ -3,8 +3,8 @@
 Replaces the reference's per-frame loop over a stateful nn.Module
 (Testing/test.py:46-74) with:
 - the model's weights cast once to the stream's dtype and every BatchNorm's
-  eval affine folded once at construction, for the TDNet stream
-  (``Streamer``) and the single-frame PSPNet baseline (``FrameRunner``);
+  eval affine folded once at construction, for the TDNet and TD2-FANet
+  streams (``Streamer``) and the single-frame PSPNet baseline (``FrameRunner``);
 - ``stem_impl``: the backbones' stem, plain or through the fused kernel K4;
 - ``fused_trunk``: the grouped PSP and QKV projections without the pyramid
   feature (``nn/fused_trunk.py``), the ``Streamer``'s default;
@@ -26,8 +26,7 @@ from torch import nn
 
 from tdnet_tpu_torch.data.streaming import IMAGENET_MEAN, IMAGENET_STD
 from tdnet_tpu_torch.kernels.propagation_attention import check_fault
-from tdnet_tpu_torch.models.pspnet import apply_pspnet
-from tdnet_tpu_torch.models.tdnet import init_cache, stream_step
+from tdnet_tpu_torch.models import TDNet, apply_pspnet, model_init_cache, model_stream_step
 from tdnet_tpu_torch.nn import Ctx, Encoding, ResNet
 from tdnet_tpu_torch.ops import BatchNorm
 from tdnet_tpu_torch.ops.dtype import no_tf32
@@ -121,28 +120,31 @@ class _Runner:
 
 
 class Streamer(_Runner):
-    """Drives a ``TDNet`` over a frame stream, one sub-network per frame, with
-    the K/V/Q ring cache. ``fused_trunk=True`` (the default, as the JAX
-    ``Streamer``'s) takes the grouped PSP and the QKV projections through
-    ``nn/fused_trunk.py``; ``False`` builds the pyramid feature."""
+    """Drives a ``TDNet`` or a ``FATD`` over a frame stream, one sub-network per
+    frame, with the K/V/Q ring cache (``models.model_stream_step``).
+    ``fused_trunk=True`` (the default, as the JAX ``Streamer``'s) takes a
+    TDNet's grouped PSP and QKV projections through ``nn/fused_trunk.py``;
+    ``False`` builds the pyramid feature. A FATD has no PSP to fuse: its
+    encoding keeps its own weights."""
 
     def __init__(self, model: nn.Module, *, dtype=torch.float32, stem_impl: str = "plain",
                  fused_trunk: bool = True):
         super().__init__(model, dtype=dtype, stem_impl=stem_impl)
-        self.ctx.fused_trunk = fused_trunk
+        self._stream_step = model_stream_step(self.cfg)
+        self.ctx.fused_trunk = fused_trunk = fused_trunk and isinstance(self.model, TDNet)
         if fused_trunk:
             for m in self.model.modules():
                 if isinstance(m, Encoding):
                     m.fold_trunk()
 
     def reset(self):
-        self.cache = init_cache(self.cfg, 1, self.dtype, self.device)
+        self.cache = model_init_cache(self.cfg)(self.cfg, 1, self.dtype, self.device)
         self.frame_idx = 0
 
     def _forward(self, img):
         p = self.frame_idx % self.cfg.path_num
-        return stream_step(self.model.paths[p], self.model.atn[p], self.cache, img, self.cfg,
-                           self.cfg.psp_pid(p), self.ctx)
+        return self._stream_step(self.model.paths[p], self.model.atn[p], self.cache, img,
+                                 self.cfg, self.cfg.psp_pid(p), self.ctx)
 
 
 class FrameRunner(_Runner):

@@ -4,8 +4,10 @@
 Loss recipe (reference td4_psp.py:367-374):
   loss = CE(out) + 0.5 CE(out_sub) + 0.1 CE(auxout) + KD
   KD   = KL(out_lowres || T_full) + 0.5 KL(out_sub_lowres || T_group[pos_id])
-at the c4 grid, the frozen teacher run on the current frame. One backward and
-one AdaOptimizer update per step; every parameter takes part in the update
+at the c4 grid, the frozen teacher run on the current frame. A TD2-FANet
+(``FATD``) has no aux term (td2_fa.py:205-211); the forward is
+``models.model_clip_forward(cfg)``, the clip forward of the model's type.
+One backward and one AdaOptimizer update per step; every parameter takes part in the update
 (a parameter the step did not reach gets a zero gradient, so that its weight
 decay and momentum run as optax runs them). The step's dropout draws come
 from a generator seeded by (seed, it).
@@ -34,8 +36,8 @@ default, None, is the f32 recipe.
 argmax of its logits.
 
 ``full_recipe(yaml)`` builds a YAML's full recipe on seeded random weights and
-data at its crop, batch 1; ``td4_full_recipe`` (TD4-PSP18) and
-``td2_full_recipe`` (TD2-PSP50) are its two configs.
+data at its crop, batch 1; ``td4_full_recipe`` (TD4-PSP18), ``td2_full_recipe``
+(TD2-PSP50) and ``td2_fa_full_recipe`` (TD2-FANet) are its three configs.
 
 Every step, and every call of ``make_loss_of``'s function, runs without TF32
 (``ops.dtype.no_tf32``): cuDNN's convs and the f32 matrix products keep f32's
@@ -50,7 +52,7 @@ import os
 import torch
 from torch import nn
 
-from tdnet_tpu_torch.models import TDNet, Teacher, apply_teacher, clip_forward, init_tdnet
+from tdnet_tpu_torch.models import Teacher, apply_teacher, init_model, model_clip_forward
 from tdnet_tpu_torch.nn import Ctx, step_generator
 from tdnet_tpu_torch.nn.encoding import Attention
 from tdnet_tpu_torch.ops import Conv2d
@@ -62,18 +64,19 @@ CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "configs")
 RECIPE_YAML = os.path.join(CONFIGS, "td4_psp18_cityscapes.yml")
 TD2_RECIPE_YAML = os.path.join(CONFIGS, "td2_psp50_cityscapes.yml")
+TD2_FA_RECIPE_YAML = os.path.join(CONFIGS, "td2_fa_cityscapes.yml")
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: TDNet
+    model: nn.Module     # a TDNet or a FATD
     optimizer: torch.optim.Optimizer
     schedule: object
     it: int = 0
     seed: int = 0
 
 
-def make_train_state(model: TDNet, *, seed: int = 0,
+def make_train_state(model: nn.Module, *, seed: int = 0,
                      opt_kwargs: dict | None = None) -> TrainState:
     """The model in train mode with its AdaOptimizer (``opt_kwargs`` over
     ``ada_optimizer``'s defaults, the reference's recipe); ``seed`` seeds the
@@ -126,13 +129,14 @@ def make_loss_of(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "c
     if loss_fn is None:
         loss_fn = lambda lg, lb: cross_entropy(lg, lb, 250)
 
-    def loss_of(model: TDNet, frames, labels, pos_id: int, generator, teacher=None):
+    def loss_of(model: nn.Module, frames, labels, pos_id: int, generator, teacher=None):
         with no_tf32():
             ctx = Ctx(train=True, use_dropout=use_dropout, generator=generator,
                       conv_wgrad=conv_wgrad)
             if compute_dtype is not None:
                 frames = frames.to(compute_dtype)
-            res = call_cast(clip_forward, model, compute_dtype, frames, pos_id, ctx)
+            res = call_cast(model_clip_forward(model.cfg), model, compute_dtype, frames, pos_id,
+                            ctx)
             loss = loss_fn(res["out"], labels) + 0.5 * loss_fn(res["out_sub"], labels)
             if model.cfg.aux:
                 loss = loss + 0.1 * loss_fn(res["auxout"], labels)
@@ -183,12 +187,12 @@ def make_eval_step():
     their running statistics, which it leaves unmoved) and the argmax of
     ``out`` over classes. It restores the model's mode after."""
 
-    def eval_step(model: TDNet, frames: torch.Tensor, pos_id: int) -> torch.Tensor:
+    def eval_step(model: nn.Module, frames: torch.Tensor, pos_id: int) -> torch.Tensor:
         was_training = model.training
         model.eval()
         try:
             with torch.no_grad(), no_tf32():
-                res = clip_forward(model, frames, pos_id, Ctx(train=False))
+                res = model_clip_forward(model.cfg)(model, frames, pos_id, Ctx(train=False))
                 return res["out"].argmax(dim=1)
         finally:
             model.train(was_training)
@@ -199,8 +203,8 @@ def make_eval_step():
 def full_recipe(yaml_path: str, *, seed: int = 0, conv_wgrad: str = "cudnn",
                 compute_dtype: torch.dtype | None = None, device: str = "cuda"):
     """The full training recipe of a YAML config (model, teacher, loss and
-    optimizer sections: kv_stride 3, aux head, OHEM, KD from its grouped
-    ResNet-101 teacher, AdaOptimizer) at its crop on one card at batch 1, as
+    optimizer sections: kv_stride 3, the aux head where the model has one,
+    OHEM, KD from its grouped ResNet-101 teacher, AdaOptimizer) at its crop on one card at batch 1, as
     ``bench_train.py:49-64`` runs it on the TPU, on seeded random weights,
     frames and labels (a corner band at the ignore label 250).
     ``compute_dtype``: None, the f32 recipe, or ``torch.bfloat16``, mixed
@@ -215,7 +219,7 @@ def full_recipe(yaml_path: str, *, seed: int = 0, conv_wgrad: str = "cudnn",
     yml = load_config(yaml_path)
     yml["training"]["batch_size"] = 1
     cfg = model_config_from_yaml(yml)
-    model = init_tdnet(cfg, torch.Generator().manual_seed(seed)).to(device)
+    model = init_model(cfg, torch.Generator().manual_seed(seed)).to(device)
     teacher = init_teacher(teacher_config_from_yaml(yml),
                            torch.Generator().manual_seed(seed + 1)).to(device)
     loss_fn = loss_fn_from_yaml(yml, n_devices=1)
@@ -241,3 +245,10 @@ def td2_full_recipe(**kw):
     769x1537 (``full_recipe``'s keywords): 2 ResNet-50 paths, projected before
     they pool, a ``pspnet_2p`` teacher."""
     return full_recipe(TD2_RECIPE_YAML, **kw)
+
+
+def td2_fa_full_recipe(**kw):
+    """The TD2-FANet full recipe of ``configs/td2_fa_cityscapes.yml`` at 768x1536
+    (``full_recipe``'s keywords): 2 FANet-18 paths, projected before they pool,
+    d_v 256, no aux loss, a ``pspnet_2p`` ResNet-101 teacher."""
+    return full_recipe(TD2_FA_RECIPE_YAML, **kw)

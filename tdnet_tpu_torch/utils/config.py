@@ -15,7 +15,7 @@ def load_config(path: str) -> dict:
 
 
 def model_config_from_yaml(cfg: dict, nclass: int = 19, in_size=None, streaming: bool = False):
-    """cfg['model'] (and the train crop) -> TDNetConfig."""
+    """cfg['model'] (and the train crop) -> TDNetConfig, or FATDConfig for td2_fa."""
     from tdnet_tpu_torch.models import tdnet_config
     m = cfg["model"]
     if in_size is None:

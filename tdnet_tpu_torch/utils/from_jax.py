@@ -10,6 +10,8 @@ leaves with NHWC-era layouts:
   running_var}; LayerNorm {scale, bias} stay [H, W] as {weight, bias};
 - the attention fc ``fc.w[0, 0]`` is [in, out], which is the orientation the
   kernel takes (o @ W + b), so it is not transposed;
+- ``fanet_td.init_fatd``'s FATD tree stacks its paths and hops the same way
+  (``paths.{p}.ffm_32.w_qs.conv.weight``, ``atn.{p}.0``; ``head_aux`` carried);
 - the teacher's tree (``tdnet_tpu.models.teacher.init_teacher``) and the
   PSPNet baseline's (``tdnet_tpu.models.pspnet.init_pspnet``) are not
   stacked and convert as they are.
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tdnet_tpu_torch.models.fanet_td import FATD, FATDConfig
 from tdnet_tpu_torch.models.pspnet import PSPNet, PSPNetConfig
 from tdnet_tpu_torch.models.tdnet import TDNet, TDNetConfig
 from tdnet_tpu_torch.models.teacher import Teacher, TeacherConfig, freeze
@@ -70,10 +73,9 @@ def convert_tree(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     return out
 
 
-def tdnet_state_from_jax(params: dict, cfg: TDNetConfig) -> dict[str, torch.Tensor]:
-    """The full params pytree (or a gradient tree of the same structure) -> a
-    ``TDNet`` state dict. The aux heads are carried when ``cfg.aux`` and left
-    out otherwise (the streaming model has none)."""
+def _stacked_state(params: dict, cfg, drop: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """A stacked {paths, atn} tree -> ``paths.{p}.`` and ``atn.{p}.{h}.`` entries;
+    each path's subtrees named in ``drop`` left out."""
     state: dict[str, torch.Tensor] = {}
     fc_w = params["atn"]["fc"]["w"]  # [P, W, 1, 1, in, out]
     fc_b = params["atn"]["fc"]["b"]  # [P, W, out]
@@ -81,13 +83,33 @@ def tdnet_state_from_jax(params: dict, cfg: TDNetConfig) -> dict[str, torch.Tens
     fc_b = np.asarray(fc_b, dtype=_float_type(fc_b))
     for p in range(cfg.path_num):
         sub = _tree_map(lambda a: np.asarray(a)[p], params["paths"])
-        if not cfg.aux:
-            sub.pop("aux", None)
+        for name in drop:
+            sub.pop(name, None)
         state.update(convert_tree(sub, f"paths.{p}."))
         for h in range(cfg.window):
             state[f"atn.{p}.{h}.w"] = torch.from_numpy(fc_w[p, h, 0, 0].copy())
             state[f"atn.{p}.{h}.b"] = torch.from_numpy(fc_b[p, h].copy())
     return state
+
+
+def tdnet_state_from_jax(params: dict, cfg: TDNetConfig) -> dict[str, torch.Tensor]:
+    """The full params pytree (or a gradient tree of the same structure) -> a
+    ``TDNet`` state dict. The aux heads are carried when ``cfg.aux`` and left
+    out otherwise (the streaming model has none)."""
+    return _stacked_state(params, cfg, () if cfg.aux else ("aux",))
+
+
+def fatd_state_from_jax(params: dict, cfg: FATDConfig) -> dict[str, torch.Tensor]:
+    """``init_fatd``'s pytree (or a gradient tree of the same structure) -> a
+    ``FATD`` state dict, ``head_aux`` included."""
+    return _stacked_state(params, cfg, ())
+
+
+def fatd_from_jax(params: dict, cfg: FATDConfig, device=None) -> FATD:
+    """A trainable FATD holding ``params`` (the Streamer sets eval itself)."""
+    model = FATD(cfg, device)
+    model.load_state_dict(fatd_state_from_jax(params, cfg))
+    return model
 
 
 def tdnet_from_jax(params: dict, cfg: TDNetConfig, device=None) -> TDNet:

@@ -6,7 +6,10 @@ port: a trained TDNet in the Testing twin's naming (``pretrained{i}``,
 ``psp{i}``, ``enc{i}``, ``atn{p}_{s}``, ``layer_norm{i}``, ``head{i}``, and in
 training ``auxlayer{i}``), a single-path PSPNet as ``pretrained``,
 ``head.conv5.*`` and ``auxlayer``, a torchvision ResNet as ``conv1``, ``bn1``,
-``layerX.Y``. Both sides hold OIHW weights, so each function here is a name
+``layerX.Y``, a trained TD2-FANet in its training naming (``pretrained{i}``,
+``ffm_{32,16,8,4}_{i}``, ``enc{i}``, ``layer_norm{i}``, ``head{i}``,
+``head_aux{i}``, ``atn{i}``) and a single-path FANet as ``resnet``, ``ffm_*``,
+``clslayer_8`` and ``clslayer_32``. Both sides hold OIHW weights, so each function here is a name
 map returning entries of the port's state dicts (``{port key: tensor}``);
 only the attention fc is transposed (the port keeps it [in, out]). The
 channel surgery of the PSPNet sources is ``utils/surgery.py``.
@@ -16,7 +19,7 @@ that is needed and missing raises ``KeyError`` naming it; the reference's
 ``num_batches_tracked`` buffers are ignored, and any other key that an
 import left unread is logged (``log_unread``).
 
-``load_tdnet`` and ``load_pspnet`` read any file the port accepts into a
+``load_tdnet``, ``load_fatd`` and ``load_pspnet`` read any file the port accepts into a
 model: the port's own (``utils/checkpoint.py``; keys ``paths.`` or
 ``backbone.``), the JAX package's pickle (``utils/from_jax.py``) or the
 reference's (torch's legacy or zip format, keys ``pretrained{i}.`` or
@@ -30,9 +33,10 @@ import logging
 import numpy as np
 import torch
 
+from tdnet_tpu_torch.nn.fanet import FANetResNetConfig, block_plan
 from tdnet_tpu_torch.nn.resnet import BACKBONES, ResNetConfig, _block_plan
 from tdnet_tpu_torch.utils.checkpoint import load_checkpoint
-from tdnet_tpu_torch.utils.from_jax import tdnet_state_from_jax
+from tdnet_tpu_torch.utils.from_jax import fatd_state_from_jax, tdnet_state_from_jax
 
 log = logging.getLogger("tdnet_tpu_torch")
 
@@ -168,6 +172,92 @@ def psp_head_from_torch(sd, prefix: str) -> dict:
             **_bn(sd, prefix + "conv5.2", "conv.bn."), **_conv(sd, prefix + "conv5.5", "out.")}
 
 
+def _conv_bn(sd, conv: str, bn: str, dst: str) -> dict:
+    return {**_conv(sd, conv, dst + "conv."), **_bn(sd, bn, dst + "bn.")}
+
+
+def fanet_resnet_from_torch(sd, cfg: FANetResNetConfig, prefix: str = "") -> dict:
+    """A ``FANetResNet``'s entries (td2_fanet/resnet.py naming: ``conv1``,
+    ``bn1``, ``layerX.Y.convJ`` / ``bnJ``, ``downsample.0`` / ``.1``)."""
+    p = _conv_bn(sd, prefix + "conv1", prefix + "bn1", "stem.")
+    for li, layer in enumerate(block_plan(cfg)):
+        for bi, (_, _, _, down) in enumerate(layer):
+            src, dst = f"{prefix}layer{li + 1}.{bi}", f"layer{li + 1}.{bi}."
+            for j in (1, 2, 3) if cfg.block == "bottleneck" else (1, 2):
+                p.update(_conv_bn(sd, f"{src}.conv{j}", f"{src}.bn{j}", f"{dst}conv{j}."))
+            if down:
+                p.update(_conv_bn(sd, src + ".downsample.0", src + ".downsample.1",
+                                  dst + "downsample."))
+    return p
+
+
+def fa_module_from_torch(sd, prefix: str) -> dict:
+    """An ``FAModule``'s entries (``{prefix}{name}.conv`` / ``.bn``)."""
+    p = {}
+    for name in ("w_qs", "w_ks", "w_vs", "latlayer3", "up", "smooth"):
+        p.update(_conv_bn(sd, f"{prefix}{name}.conv", f"{prefix}{name}.bn", name + "."))
+    return p
+
+
+def fpn_output_from_torch(sd, prefix: str) -> dict:
+    return {**_conv_bn(sd, prefix + "conv.conv", prefix + "conv.bn", "conv."),
+            **_conv(sd, prefix + "conv_out", "conv_out.")}
+
+
+FFMS = ("ffm_32", "ffm_16", "ffm_8", "ffm_4")
+
+
+def _check_ln(ln: torch.Tensor, i: int, cfg) -> None:
+    if tuple(ln.shape) != tuple(cfg.feat_hw):
+        raise ValueError(
+            f"layer_norm{i}: the checkpoint's feature grid is {tuple(ln.shape)}, the config's "
+            f"{tuple(cfg.feat_hw)} (input {cfg.in_size[0]}x{cfg.in_size[1]}): the file was "
+            f"trained at another input size")
+
+
+def fatd_from_torch(sd, cfg) -> dict[str, torch.Tensor]:
+    """A trained TD2-FANet (the reference's td2_fa training naming) -> a ``FATD``
+    state dict; path p's one hop is ``atn{p+1}``. The LayerNorm fixes the
+    input size, as in ``tdnet_from_torch``."""
+    sd = reader(strip_module_prefix(sd))
+    state: dict[str, torch.Tensor] = {}
+    for p in range(cfg.path_num):
+        i = p + 1
+        parts = {"backbone": fanet_resnet_from_torch(sd, cfg.backbone_cfg, f"pretrained{i}."),
+                 **{f: fa_module_from_torch(sd, f"{f}_{i}.") for f in FFMS},
+                 "enc": encoding_from_torch(sd, f"enc{i}."),
+                 "ln": {"weight": _t(sd[f"layer_norm{i}.ln.weight"]),
+                        "bias": _t(sd[f"layer_norm{i}.ln.bias"])},
+                 "head": fpn_output_from_torch(sd, f"head{i}."),
+                 "head_aux": fpn_output_from_torch(sd, f"head_aux{i}.")}
+        _check_ln(parts["ln"]["weight"], i, cfg)
+        for name, entries in parts.items():
+            state.update(_prefixed(entries, f"paths.{p}.{name}."))
+        for h in range(cfg.window):
+            state.update(_prefixed(attention_from_torch(sd, f"atn{i}."), f"atn.{p}.{h}."))
+    log_unread(sd, "fatd_from_torch")
+    return state
+
+
+def fanet_bootstrap_from_checkpoint(sd, cfg, fresh: dict) -> dict[str, torch.Tensor]:
+    """The reference's split_fanet_dict (utils.py:35-67, td2_fa.pretrained_init):
+    a single-path FANet file (``resnet.*``, ``ffm_*``, ``clslayer_8`` -> head,
+    ``clslayer_32`` -> head_aux) copied into every path of ``fresh``, a FATD
+    state dict whose encodings, LayerNorms and hops stay as they are."""
+    sd = reader(strip_module_prefix(sd))
+    parts = {"backbone": fanet_resnet_from_torch(sd, cfg.backbone_cfg, "resnet."),
+             **{f: fa_module_from_torch(sd, f + ".") for f in FFMS},
+             "head": fpn_output_from_torch(sd, "clslayer_8."),
+             "head_aux": fpn_output_from_torch(sd, "clslayer_32.")}
+    state = dict(fresh)
+    for p in range(cfg.path_num):
+        for name, entries in parts.items():
+            state.update(_prefixed({k: v.clone() for k, v in entries.items()},
+                                   f"paths.{p}.{name}."))
+    log_unread(sd, "fanet_bootstrap_from_checkpoint")
+    return state
+
+
 def tdnet_from_torch(sd, cfg) -> dict[str, torch.Tensor]:
     """A trained TDNet (the Testing twin's naming, the training twin's aux
     heads read when ``cfg.aux`` asks for them and the file has them) -> a
@@ -183,12 +273,7 @@ def tdnet_from_torch(sd, cfg) -> dict[str, torch.Tensor]:
                  "ln": {"weight": _t(sd[f"layer_norm{i}.ln.weight"]),
                         "bias": _t(sd[f"layer_norm{i}.ln.bias"])},
                  "head": fcn_head_from_torch(sd, f"head{i}.")}
-        if tuple(parts["ln"]["weight"].shape) != tuple(cfg.feat_hw):
-            raise ValueError(
-                f"layer_norm{i}: the checkpoint's feature grid is "
-                f"{tuple(parts['ln']['weight'].shape)}, the config's {tuple(cfg.feat_hw)} "
-                f"(input {cfg.in_size[0]}x{cfg.in_size[1]}): the file was trained at another "
-                f"input size")
+        _check_ln(parts["ln"]["weight"], i, cfg)
         if cfg.aux and f"auxlayer{i}.conv5.0.weight" in sd:
             parts["aux"] = fcn_head_from_torch(sd, f"auxlayer{i}.")
         for name, entries in parts.items():
@@ -246,6 +331,16 @@ def load_tdnet(model, path: str):
         state = tdnet_state_from_jax(state, model.cfg)
     elif kind == "reference":
         state = tdnet_from_torch(state, model.cfg)
+    return load_state_into(model, state, path)
+
+
+def load_fatd(model, path: str):
+    """Loads the TD2-FANet checkpoint in ``path`` (any of the three kinds) into ``model``."""
+    state, kind = checkpoint_kind(path)
+    if kind == "jax":
+        state = fatd_state_from_jax(state, model.cfg)
+    elif kind == "reference":
+        state = fatd_from_torch(state, model.cfg)
     return load_state_into(model, state, path)
 
 

@@ -203,6 +203,11 @@ def test_cli_streams_pngs(tmp_path):
     _cli_pngs(tmp_path, ["--model", "td4-psp18"])
 
 
+def test_cli_streams_td2_fa_pngs(tmp_path):
+    """``--model td2-fa``: TD2-FANet, one sub-network a frame, its hop at d_v 256."""
+    _cli_pngs(tmp_path, ["--model", "td2-fa"])
+
+
 def test_cli_psp101_fused_stem_writes_pngs(tmp_path):
     """``--model psp101``: one PSPNet-101 forward a frame, the deep-base stem
     through the fused tail (its plain version on the CPU)."""
@@ -210,10 +215,10 @@ def test_cli_psp101_fused_stem_writes_pngs(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--model", "psp101", "--_psp101_path", "CHECKPOINT"],
-                                  ["--model", "td2-fa"], ["--parallel", "group"]])
+                                  ["--parallel", "group"]])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path):
-    """td2-fa and --parallel are not ported; a checkpoint file that holds
-    nothing (here PSP-101's) raises an error that names it."""
+    """--parallel is not ported; a checkpoint file that holds nothing (here
+    PSP-101's) raises an error that names it."""
     from tdnet_tpu_torch.cli.test import main
     ckpt = tmp_path / "psp101.pkl"
     ckpt.write_bytes(b"")
