@@ -278,12 +278,32 @@ Phases (any failure exits non-zero):
     prefix>.pth``, every path's backbone bitwise the file's; losses finite, K2
     and K3 3 + 3 a step, ms a step and peak memory; the error word read after
     every run.
+22. multi-GPU (``phase_multi_gpu``): (d) K1, K2 and K5 bf16 launched on each
+    card's tensors (cuda:0, and cuda:1 where there is one) with cuda:0 current,
+    from the main thread and a fresh one, against their plain versions, and the
+    host time of the wrappers' device entry; (a) the TD4-PSP18 recipe at full
+    width over 2 rank processes, one image each (NCCL a card a rank where there
+    are two cards, gloo on one shared card), f32 and bf16: the ranks' mean loss
+    and averaged gradients against the one-process batch-2 step and a float64
+    run (f32 held at ``DP_F64_GATE`` of phase 9's float64 rule, bf16 by phase
+    15's rule, each with an unsynchronised-BatchNorm probe that must read above
+    its gate), then 2 timed steps with dropout, every rank launching K2 and K3
+    3 + 3 a step in the step's dtype and none in the other, the ranks'
+    parameters bitwise equal; (b) ``GroupStreamer`` for TD4-PSP18 at
+    769x1537 and TD2-PSP50 at 1025x2049, bf16 and f32, over min(P, cards) cards
+    (the first repeated): every frame of 3 super-steps bitwise the serial
+    ``Streamer``'s, K1's launches the serial stream's, frames/s and the
+    super-step's latency beside the serial stream's; (c) ``cli.test --parallel
+    group`` on 12 seeded PNG frames and ``torchrun --nproc_per_node=2 -m
+    tdnet_tpu_torch.cli.train`` for 2 steps on phase 19's tree, rank 0's losses
+    within ``CLI_LOSS_RTOL`` of phase 19's.
 The line before the last is one JSON object of the kernels: K1 per dtype (its
 error and times at the TD2 hop with the fc), K2 forward and backward in f32
 and in bf16, K3 in f32 and in bf16, K4 per dtype (at the TD2 stem shape) and
 K5 forward and dgrad in f32 and in bf16 (at 512->512 d4; launches of phases
 14 and 17, and 16 and 17; phase 20's launches added to K1's, K2's, K3's and
-K4's), each with launches, error, times, library time and
+K4's, phase 22's group streams' and ``cli.test --parallel group``'s to K1's),
+each with launches, error, times, library time and
 bound (K1's library time is SDPA followed by ``torch.addmm``, with SDPA alone
 beside it; all add their device time); the last line
 is ``{"ok": true, "device": {...}}``. TF32 stays off throughout, as the
@@ -457,17 +477,19 @@ def phase_build() -> None:
     propagation_attention.build()
 
 
-def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
+def device_rows(*fns, steps: int = 3, need=None) -> list[tuple[str, float]] | None:
     """The kernels that one call of each of ``fns`` runs, with their device
     ms, from a ``torch.profiler`` trace: one warm-up step (a trace started at
     a call dropped its first launches), then ``steps`` traced steps,
     averaged; user annotations (the profiler's step rows, whose device time is
-    a span) left out. A trace that holds no kernel, or in which a kernel's
-    launches are not a multiple of ``steps`` (a trace can lack a launch), is
-    taken again, up to twice more; if the last still lacks launches, each
-    kernel's time a call is its mean time a launch times its launches a step
-    rounded up (logged as estimated); a trace with no kernel gives None: the
-    device time is then not measured."""
+    a span) left out. A trace that holds no kernel, in which a kernel's
+    launches are not a multiple of ``steps`` (a trace can lack a launch), or
+    whose kernel names fail ``need`` (a trace can lack every launch of one of
+    ``fns``) is taken again, up to twice more; if the last still lacks
+    launches, each kernel's time a call is its mean time a launch times its
+    launches a step rounded up (logged as estimated); a trace with no kernel
+    gives None: the device time is then not measured. A caller that splits
+    the rows by kernel must still treat a side with no row as not measured."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
         traced = []
@@ -483,7 +505,8 @@ def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
                 if r.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(r, "is_user_annotation", False)
                 and not r.key.startswith("ProfilerStep")]
-        if rows and all(count % steps == 0 for _, _, count in rows):
+        if rows and all(count % steps == 0 for _, _, count in rows) and (
+                need is None or need([key for key, _, _ in rows])):
             return sorted(((key, ms / steps) for key, ms, _ in rows), key=lambda r: -r[1])
     if not rows:
         log(f"device time not measured: three traces of {steps} steps held no kernel")
@@ -493,6 +516,18 @@ def device_rows(*fns, steps: int = 3) -> list[tuple[str, float]] | None:
         f"a launch x its launches a step rounded up")
     return sorted(((key, ms / count * -(-count // steps)) for key, ms, count in rows),
                   key=lambda r: -r[1])
+
+
+def split_need(family: str, train: bool = False, other: bool = True):
+    """``device_rows``' ``need`` for a trace split by name: a kernel of
+    ``family`` and, where ``other``, one of another family (the plain or the
+    library call traced beside it)."""
+    from tdnet_tpu_torch.cli.profile import kernel_family
+
+    def need(keys):
+        mine = [kernel_family(k, train=train) == family for k in keys]
+        return any(mine) and (not other or not all(mine))
+    return need
 
 
 def format_rows(rows) -> str:
@@ -1075,12 +1110,17 @@ def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator, shapes=None) ->
     from tdnet_tpu_torch.kernels.dropout import dropout
 
     def split(traced):
+        """(K3's device ms, the others', the line); a side with no kernel in
+        the trace is not measured (None)."""
         if traced is None:
             return None, None, "not measured"
         mine = [t for t in traced if kernel_family(t[0], train=True) == "K3 dropout"]
         theirs = [t for t in traced if t not in mine]
-        return (sum(t for _, t in mine), sum(t for _, t in theirs),
-                f"K3 {format_rows(mine)}; F.dropout {format_rows(theirs)}")
+        return (sum(t for _, t in mine) if mine else None,
+                sum(t for _, t in theirs) if theirs else None,
+                f"K3 {format_rows(mine or None)}; F.dropout {format_rows(theirs or None)}")
+
+    both_k3 = split_need("K3 dropout", train=True)
 
     out = {}
     for rows, cols in shapes or [(r, D_V) for r in DROP_ROWS]:
@@ -1102,14 +1142,15 @@ def k3_turns(dtype: torch.dtype, tag: str, gen: torch.Generator, shapes=None) ->
         one = bound(0, 2 * dtype.itemsize * rows * cols, PEAK_BF16)
         both = bound(0, 4 * dtype.itemsize * rows * cols, PEAK_BF16)   # x, y, dy, dx
         n_sets = -(-200_000_000 // (4 * dtype.itemsize * rows * cols))
-        dev, lib_dev, rows_fwd = split(device_rows(*calls["forward"]))
-        dev2, lib_dev2, rows_both = split(device_rows(*calls["forward+backward"]))
+        dev, lib_dev, rows_fwd = split(device_rows(*calls["forward"], need=both_k3))
+        dev2, lib_dev2, rows_both = split(device_rows(*calls["forward+backward"], need=both_k3))
         sets = [(torch.randn(rows, cols, generator=gen).to("cuda", dtype).requires_grad_(True),
                  torch.randn(rows, cols, generator=gen).to("cuda", dtype))
                 for _ in range(n_sets)]
-        cold = device_rows(lambda: [_fwd_bwd_call(lambda t: dropout(t, 0.1, SEED), *s)()
-                                    for s in sets])
-        cold_ms = None if cold is None else split(cold)[0] / len(sets)
+        cold = split(device_rows(lambda: [_fwd_bwd_call(lambda t: dropout(t, 0.1, SEED), *s)()
+                                          for s in sets],
+                                 need=split_need("K3 dropout", train=True, other=False)))[0]
+        cold_ms = None if cold is None else cold / len(sets)
         del sets
         log(f"[{tag}] [{rows}, {cols}] forward device ms, one trace: {rows_fwd}; bound "
             f"{one['bound_ms']:.4f} ms by {one['bound_by']}"
@@ -1901,9 +1942,10 @@ def phase_stem_kernel(card: str) -> dict:
                    else ""))
             if (h, w) == STEM_SHAPES[0]:
                 # one trace of the kernel and the plain sequence, split by name
-                both = device_rows(run, lambda: fused_stem_plain(*args))
+                both = device_rows(run, lambda: fused_stem_plain(*args),
+                                   need=split_need("K4 fused stem"))
                 device_ms = None
-                if both is not None:
+                if both is not None and split_need("K4 fused stem")([k for k, _ in both]):
                     rows = [r for r in both if kernel_family(r[0]) == "K4 fused stem"]
                     device_ms = sum(t for _, t in rows)
                     log(f"[10] [1, 64, {h}, {w}] {name} device ms, one trace: kernel "
@@ -2021,9 +2063,11 @@ def phase_dilated_conv(card: str) -> dict:
                                                                  dilation=d)))
             device = {}
             for part, (kernel_fn, cudnn_fn) in traces.items():
-                both = device_rows(kernel_fn, cudnn_fn)   # one trace, split by name
+                both = device_rows(kernel_fn, cudnn_fn,   # one trace, split by name
+                                   need=split_need("K5 dilated conv", train=True))
                 device[part] = None
-                if both is None:
+                if both is None or not split_need("K5 dilated conv", train=True)(
+                        [k for k, _ in both]):
                     continue
                 rows = [r for r in both if kernel_family(r[0], train=True) == "K5 dilated conv"]
                 rows_c = [r for r in both if r not in rows]
@@ -2708,7 +2752,8 @@ def phase_train_cli(card: str) -> str:
     the error word read after every step and validation; ms a step split into
     the wait for ``ClipBatcher`` and the step, the peak memory, and K2's, K3's
     and K1's launches; first, one frame's decode time (``decode_times``).
-    Returns the tree's root, which phase 20 trains on again."""
+    Returns the tree's root, which phases 20 and 22 train on again, and the
+    first run's losses, which phase 22 compares its data-parallel run with."""
     import logging
     import shutil
     from tdnet_tpu_torch.cli import train as cli_train
@@ -2827,7 +2872,7 @@ def phase_train_cli(card: str) -> str:
         raise AssertionError(f"[19] validate vs the run's validation: agreement {agree}")
     for d in (logdir, resumed_dir):
         shutil.rmtree(d, ignore_errors=True)
-    return root
+    return root, stats["losses"]
 
 
 # phase 20: the reference's checkpoints
@@ -3603,6 +3648,517 @@ def phase_fanet(card: str, work: str, root: str, files: dict) -> dict:
             "bf16": recipe["bf16"]}
 
 
+# --- phase 22: the data-parallel step, group streaming, kernels on any device -----------
+
+DP_WORLD = 2          # ranks of phase 22(a) and (c): one image each of a global batch of 2
+DP_STEPS = 2          # timed steps a dtype, dropout on
+# 22(a)'s f32 gate: the data-parallel step's largest share of phase 9's float64 rule (the
+# limit: twice the one-process step's distance from float64 plus 1e-3 x max(max|grad|,
+# floor)). The rule's factor 2 assumes two paths that round the convs alike (phase 9's
+# kernel and plain paths); here each rank's cuDNN sums its own image's weight gradients and
+# the all-reduce adds the two, where the one-process step sums the batch inside cuDNN, so on
+# a gradient that nearly vanishes at random init either may lie farther from float64 (1.558
+# on layer2's conv weights in two runs on one H100, the same bits both times; PERF.md). The
+# probe, BatchNorm left unsynchronised, must read above the gate. bf16 is held by phase 15's
+# rule as it stands (0.957 in three runs, on gloo and on NCCL; PERF.md).
+DP_F64_GATE = {"f32": 3.0, "bf16": 1.0}
+DP_TIMEOUT = 600      # seconds a rank process or the torchrun call may take
+CLI_LOSS_RTOL = 0.25  # torchrun's rank-0 losses against phase 19's: dropout masks and crops
+                      # differ (rank 1 draws its own masks and its clip's gaps), so loosely
+GROUP_GROUPS = 3      # super-steps of phase 22(b) compared frame by frame with the serial stream
+DEVICE_HOP = SHAPES[1]   # phase 22(d)'s K1 call: TD4's last streaming hop (Lq, Lkv)
+
+
+def hop_inputs(shape, dev, dtype) -> tuple:
+    """Seeded q, k, v [1, L, d] of a hop (Lq, Lkv) on ``dev``."""
+    lq, lkv = shape
+    g = torch.Generator().manual_seed(SEED)
+    return tuple(torch.randn(1, m, d, generator=g).to(dev, dtype)
+                 for m, d in ((lq, D_K), (lkv, D_K), (lkv, D_V)))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def params_digest(model) -> str:
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 22(a), one rank (a process of its own, started by ``phase_data_parallel``):
+    the TD4-PSP18 full recipe at full width with a global batch of ``world`` images,
+    one a rank, over ``parallel.mesh.init_distributed``'s group (NCCL where each rank
+    has a card, gloo where they share one), f32 and then bf16 mixed precision.
+    First one step with dropout off at ``POS_ID``, whose mean loss and averaged
+    gradients rank 0 holds, by phase 9's rules, to a float64 run of the whole batch
+    beside two one-process f32 (or bf16) steps on it at ``n_devices=world``
+    (``against_f64``; bf16 by phase 15's form of it) and to the first of those
+    steps (``kernel_vs_plain``, the two giving its run-to-run term), and the
+    probe, the same step with each rank's BatchNorm on its own image's
+    statistics (``sync_batch_norm`` swapped for a no-op); then ``DP_STEPS``
+    timed steps with dropout on from a fresh optimizer, with K2's and K3's
+    launch counts (both dtypes) set to 0 just before and read just after, after
+    which every rank's parameters and buffers must hash the same (the hash's
+    first 7 bytes all-reduced with MAX and MIN). Writes its findings as JSON to
+    ``out``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from tdnet_tpu_torch.kernels.dropout import dropout
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention_train import propagation_attention_train
+    from tdnet_tpu_torch.parallel.mesh import init_distributed
+    from tdnet_tpu_torch.train.trainer import (RECIPE_YAML, make_train_state, make_train_step,
+                                               td4_full_recipe)
+    from tdnet_tpu_torch.utils.config import load_config, opt_kwargs_from_yaml
+    group = init_distributed(device="cuda")
+    dev = group.device
+    res = {"rank": rank, "backend": group.backend, "device": str(dev),
+           "card": torch.cuda.get_device_name(dev)}
+    state, _, teacher, frames, labels, loss_fn = td4_full_recipe(
+        seed=SEED, batch=world, n_devices=world, device=str(dev))
+    model = state.model
+    opt_kwargs = opt_kwargs_from_yaml(load_config(RECIPE_YAML))
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    share = slice(rank, rank + 1)
+    # rank 0 compares the gradients that the float64 run reaches (the step gives the
+    # others zeros)
+    keep = set()
+    grads = lambda: {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                     if k in keep}
+    if rank == 0:
+        from tdnet_tpu_torch.train.trainer import make_loss_of
+        model64, teacher64 = copy.deepcopy(model).double(), copy.deepcopy(teacher).double()
+        model64.load_state_dict(start)
+        with plain_train_kernels():
+            ref64 = _loss_and_grads(model64, make_loss_of(loss_fn=loss_fn, use_dropout=False),
+                                    frames.double(), labels, POS_ID, teacher64)
+        del model64, teacher64
+        torch.cuda.empty_cache()
+        keep = set(ref64[1])
+
+    def run(step, st, f, lab, pos):
+        m = step(st, f, lab, pos, teacher)
+        loss = m["loss"].item()
+        check_fault(dev)
+        return loss
+
+    from tdnet_tpu_torch.train import trainer
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        step = make_train_step(loss_fn=loss_fn, compute_dtype=dtype, group=group,
+                               use_dropout=False)
+
+        def group_step():
+            model.load_state_dict(start)
+            loss = run(step, make_train_state(model, seed=SEED, opt_kwargs=opt_kwargs,
+                                              group=group), frames[:, share], labels[share],
+                       POS_ID)
+            return loss, grads()
+        got = group_step()
+        with swapped(trainer, "sync_batch_norm", lambda m, g: contextlib.nullcontext()):
+            probe = group_step()
+        if rank == 0:
+            one = make_train_step(loss_fn=loss_fn, compute_dtype=dtype, use_dropout=False)
+            refs = []
+            for _ in range(2):
+                model.load_state_dict(start)
+                refs.append((run(one, make_train_state(model, seed=SEED, opt_kwargs=opt_kwargs),
+                                 frames, labels, POS_ID), grads()))
+            noise = {k: (refs[0][1][k] - refs[1][1][k]).abs().max().item() for k in refs[0][1]}
+            verdict = kernel_vs_plain(got, refs[0], noise)
+            bf16 = dtype is not None
+            held = against_f64(got, refs[0], ref64, bf16=bf16)
+            flagged = against_f64(probe, refs[0], ref64, bf16=bf16)
+            loss, gate = got[0], DP_F64_GATE[name]
+            # the loss by phase 9's rule (f32) or 15's (bf16), the gradients by the gate
+            loss_off = (held.rel > LOSS_RTOL if not bf16 else
+                        abs(loss - ref64[0]) > 2 * abs(refs[0][0] - ref64[0])
+                        + GRAD_RTOL * abs(ref64[0]))
+            problem = (f"loss {loss}, one process {refs[0][0]}, float64 {ref64[0]}"
+                       if loss_off else f"{describe(held)}" if held.worst[0] > gate else
+                       f"the probe passed: {describe(flagged)}"
+                       if flagged.worst[0] <= gate else "")
+            res[name] = {"loss": loss, "one_process_loss": refs[0][0], "f64_loss": ref64[0],
+                         "f64": describe(held), "f64_problem": problem,
+                         "probe": describe(flagged),
+                         "worst": list(verdict["worst"]), "problem": verdict["problem"],
+                         "needed": verdict["needed"],
+                         "largest_diff": max((got[1][k] - g).abs().max().item()
+                                             for k, g in refs[0][1].items())}
+            del refs
+        del got
+        probe = None
+        group.barrier()
+        model.load_state_dict(start)
+        tstate = make_train_state(model, seed=SEED, opt_kwargs=opt_kwargs, group=group)
+        tstep = make_train_step(loss_fn=loss_fn, compute_dtype=dtype, group=group)
+        counters = [(f, p + a) for p in (("bf16_", "") if dtype else ("", "bf16_"))
+                    for f in (propagation_attention_train, dropout)
+                    for a in ("launches", "backward_launches")]
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        times, losses = [], []
+        for i in range(DP_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            losses.append(run(tstep, tstate, frames[:, share], labels[share], i))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = [getattr(fn, attr) for fn, attr in counters]
+        digest = params_digest(model)
+        word = torch.tensor([int(digest[:14], 16)], dtype=torch.int64, device=dev)
+        hi = group.all_reduce_(word.clone(), dist.ReduceOp.MAX)
+        lo = group.all_reduce_(word.clone(), dist.ReduceOp.MIN)
+        res.setdefault(name, {}).update(
+            ms=times, losses=losses, launches=launches, digest=digest[:16],
+            equal=bool(torch.equal(hi, lo)),
+            peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+    group.close()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def run_ranks(tag: str, world: int, call: str, work: str) -> list[dict]:
+    """``call`` (a function of chip_smoke taking rank, world, port, out) in
+    ``world`` processes of their own; their JSON findings by rank. A rank that
+    fails or outlasts ``DP_TIMEOUT`` fails the phase, and every rank is ended."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    outs = [os.path.join(work, f"{tag}-rank{r}.json") for r in range(world)]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as c; c.{call}("
+                               f"{r}, {world}, {port}, {outs[r]!r})"], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        texts = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0 or not os.path.exists(outs[r]):
+            raise AssertionError(f"[{tag}] rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    return [json.load(open(o)) for o in outs]
+
+
+def phase_data_parallel(card: str, work: str) -> None:
+    """Phase 22(a): ``dp_rank`` in ``DP_WORLD`` processes. Each rank's loss is the
+    ranks' mean. f32: the loss within phase 9's LOSS_RTOL of float64's, the
+    gradients' largest share of phase 9's float64 rule beside the one-process
+    step on the whole batch at most ``DP_F64_GATE["f32"]``; bf16: the loss and
+    the gradients by phase 15's rule (``DP_F64_GATE["bf16"]`` = 1); in both the
+    probe's share (BatchNorm unsynchronised) above the gate; the share of the
+    rule against the one-process step alone is printed. In the timed steps
+    every rank launches K2 and K3 forward and backward 3 times a step in the
+    step's dtype and never in the other. Every rank's parameters must hash the
+    same after the timed steps."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("22a", DP_WORLD, "dp_rank", work)
+    r0 = ranks[0]
+    cards = sorted({r["device"] for r in ranks})
+    log(f"[22a] TD4-PSP18 full recipe 769x1537 data-parallel ({card}): {DP_WORLD} ranks, "
+        f"backend {r0['backend']}, on {len(cards)} card(s) {', '.join(cards)}; "
+        f"a global batch of {DP_WORLD}, one image a rank; {time.perf_counter() - t0:.1f} s "
+        f"with the ranks' start-up")
+    for name in ("f32", "bf16"):
+        a = r0[name]
+        log(f"[22a] {name}, dropout off, step 1: rank-0 loss (the ranks' mean) {a['loss']:.6f}, "
+            f"one process at batch {DP_WORLD} (n_devices {DP_WORLD}) {a['one_process_loss']:.6f} "
+            f"(rel {abs(a['loss'] - a['one_process_loss']) / abs(a['one_process_loss']):.2e}); "
+            f"gradients: largest difference {a['largest_diff']:.3e}; against float64 "
+            f"(loss {a['f64_loss']:.6f}) beside the one-process step: {a['f64']}; against the "
+            f"one-process step: worst {a['worst'][0]:.3f} of {GRAD_RTOL:g} x max(max|grad|, "
+            f"floor) + 2 x run-to-run ({a['worst'][1]}), {a['needed']} needing the run-to-run "
+            f"term")
+        log(f"[22a] {name}, dropout off, the probe (each rank's BatchNorm on its own image, "
+            f"unsynchronised) against float64 beside the one-process step: {a['probe']}; the "
+            f"gate {DP_F64_GATE[name]:g}")
+        log(f"[22a] {name}, dropout on, {DP_STEPS} steps: K2 fwd/bwd, K3 fwd/bwd launches "
+            f"({name}; then the other dtype's) by rank " + "; ".join(
+                f"rank {r['rank']} {'/'.join(str(x) for x in r[name]['launches'])}"
+                for r in ranks))
+        log(f"[22a] {name}, dropout on, {DP_STEPS} steps: ms/step by rank " + "; ".join(
+            f"rank {r['rank']} {', '.join(f'{t:.1f}' for t in r[name]['ms'])}" for r in ranks)
+            + f"; losses {', '.join(f'{x:.4f}' for x in r0[name]['losses'])}; parameters and "
+            f"buffers after step {DP_STEPS} "
+            f"{'bitwise equal across ranks' if all(r[name]['equal'] for r in ranks) else 'DIFFER'}"
+            f" (sha256 {r0[name]['digest']}...); peak MiB by rank "
+            + ", ".join(f"{r[name]['peak_mib']:.0f}" for r in ranks))
+        if not all(r[name]["equal"] and r[name]["digest"] == r0[name]["digest"] for r in ranks):
+            raise AssertionError(f"[22a] {name}: the ranks' parameters differ after the steps")
+        if not all(np.isfinite(r[name]["losses"]).all() for r in ranks):
+            raise AssertionError(f"[22a] {name}: a loss is not finite")
+        want = [3 * DP_STEPS] * 4 + [0] * 4
+        for r in ranks:
+            if r[name]["launches"] != want:
+                raise AssertionError(f"[22a] {name} rank {r['rank']}: K2/K3 launches "
+                                     f"{r[name]['launches']}, expected {want}")
+    for name in ("f32", "bf16"):
+        if r0[name]["f64_problem"]:
+            raise AssertionError(f"[22a] {name} data-parallel vs float64, beside one process: "
+                                 f"{r0[name]['f64_problem']}")
+    if len(cards) == 1:
+        log("[22a] the ranks share one card: their ms/step is no scaling figure")
+
+
+def group_stream_run(arch: str, dtype, card: str) -> int:
+    """Phase 22(b) for one model and dtype: ``GroupStreamer`` over min(P, cards)
+    cards (the first repeated where fewer), ``GROUP_GROUPS`` super-steps of seeded
+    frames, every frame's logits against the serial ``Streamer``'s on the same
+    frames and weights (bitwise), K1's launches; then, over the frames 3 times,
+    the latency (a super-step's after the warm-up, beside the serial stream's
+    frame) and the throughput (frames/s pipelined) of both. Returns the K1
+    launches of the compared run."""
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.models import STREAM_SIZE, init_model, tdnet_config
+    from tdnet_tpu_torch.stream.parallel_runtime import GroupStreamer
+    from tdnet_tpu_torch.stream.runtime import Streamer, synthetic_frames
+    size = STREAM_SIZE[arch]
+    cfg = tdnet_config(arch, in_size=size)
+    p = cfg.path_num
+    n = GROUP_GROUPS * p
+    frames = synthetic_frames(n, size, seed=SEED, device="cuda", dtype=dtype)
+    model = lambda: init_model(cfg, torch.Generator().manual_seed(SEED))
+    serial = Streamer(model().to("cuda"), dtype=dtype)
+    want = [serial.step(f, timed=False)[0] for f in frames]
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % cards) for i in range(p)]
+    group = GroupStreamer(model(), dtype=dtype, devices=devices)
+    fused_propagation_attention.launches = 0
+    got = []
+    for f in frames:
+        got += [o for o, _ in group.submit(f, timed=False)]
+    got += [o for o, _ in group.flush(timed=False)]
+    launches = fused_propagation_attention.launches
+    equal = sum(torch.equal(a.to(b.device), b) for a, b in zip(got, want))
+    worst = max((a.to(b.device).float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    expected = cfg.window * (n - cfg.window)
+    del got, want
+    for runner in (serial, group):
+        runner.reset()
+        for f in frames * 3:
+            runner.step(f) if runner is serial else runner.submit(f)
+        runner.reset()
+    _, serial_spf = serial.run_pipelined(frames * 3)
+    _, group_spf = group.run_pipelined(frames * 3)
+    log(f"[22b] GroupStreamer {arch} {size[0]}x{size[1]} {str(dtype)[6:]} over "
+        f"{', '.join(str(d) for d in group.devices)} ({card}): {n} frames in "
+        f"{GROUP_GROUPS} super-steps, logits of {equal} bitwise equal to the serial Streamer's "
+        f"(largest difference {worst:.3e}); K1 launches {launches} (serial: {expected}); over "
+        f"{3 * n} frames: super-step latency {group.superstep_meter.avg * 1e3:.2f} ms for {p} "
+        f"frames ({len(group.superstep_meter.times)} super-steps after "
+        f"{group.superstep_meter.warmup}; serial {serial.meter.avg * 1e3:.2f} ms a frame), "
+        f"pipelined {1.0 / group_spf:.2f} frames/s (serial {1.0 / serial_spf:.2f})")
+    if equal != n or launches != expected:
+        raise AssertionError(f"[22b] {arch} {dtype}: {equal} of {n} frames equal, K1 launches "
+                             f"{launches} (expected {expected})")
+    del group, serial
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_devices(card: str) -> None:
+    """Phase 22(d): each bf16 kernel whose wrapper opts in to more than 48 KB of
+    shared memory (K1 at the TD4 hop, K2's forward and backward at its first
+    training hop, K5 at layer4's d4 conv) launched with ``cuda:0`` current on the
+    tensors of every card (cuda:0, then cuda:1 where there is one), from the main
+    thread and from a fresh thread, each against its plain version on that card
+    by phase 2's, 7b's and 13b's rules. And the host time of the wrappers'
+    device entry (``kernels/device.py:on_device``)."""
+    import threading
+    from tdnet_tpu_torch.kernels.device import on_device
+    cards = torch.cuda.device_count()
+    for dev in range(min(cards, 2)):
+        for where in ("main thread", "fresh thread"):
+            found = {}
+
+            def check():
+                with torch.cuda.device(0):
+                    found.update(device_kernels(torch.device("cuda", dev)))
+            if where == "main thread":
+                check()
+            else:
+                t = threading.Thread(target=check)
+                t.start()
+                t.join()
+            if not found or any(v != "ok" for v in found.values()):
+                raise AssertionError(f"[22d] cuda:{dev} from the {where}, cuda:0 current: "
+                                     f"{found}")
+            log(f"[22d] cuda:{dev}, cuda:0 current, {where}: " + "; ".join(
+                f"{k} {v}" for k, v in found.items()))
+    x = torch.zeros(1, device="cuda")
+    us = host_us(lambda: _enter_exit(on_device(x)), calls=2000)
+    log(f"[22d] host us of a wrapper's device entry (kernels/device.py:on_device, enter and "
+        f"exit) on {card}: {us:.2f}" + ("" if cards >= 2 else "; one card: the launch on a "
+                                        "second card waits on a machine with two"))
+
+
+def _enter_exit(cm) -> None:
+    with cm:
+        pass
+
+
+def device_kernels(dev) -> dict:
+    """K1, K2 and K5 bf16 on ``dev``'s tensors against their plain versions
+    (K1 by phase 2's rule, K2 by phase 7b's, K5 by 13b's): "ok" or what failed,
+    by kernel."""
+    from tdnet_tpu_torch.kernels import dilated_conv as dc
+    from tdnet_tpu_torch.kernels import propagation_attention as pa
+    from tdnet_tpu_torch.kernels import propagation_attention_train as pat
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    out = {}
+    q, k, v = hop_inputs(DEVICE_HOP, dev, torch.bfloat16)
+    got = pa.fused_propagation_attention(q, k, v, temperature=8.0)
+    want = pa.propagation_attention_plain(q.float(), k.float(), v.float(), temperature=8.0)
+    out["K1 bf16"] = within(got, want, 3e-2)   # phase 2's bf16 rule
+    (lq, lkv), n = TRAIN_SHAPES[0], 1
+    g = torch.Generator().manual_seed(SEED)
+    q, k, v, dy = (torch.randn(n, m, d, generator=g).to(dev, torch.bfloat16)
+                   for m, d in ((lq, D_K), (lkv, D_K), (lkv, D_V), (lq, D_V)))
+    qs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = pat.propagation_attention_train(*qs, temperature=8.0, dropout_rate=0.1, seed=SEED)
+    o.backward(dy)
+    ps = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    op = pat.propagation_attention_train_plain(*ps, temperature=8.0, dropout_rate=0.1, seed=SEED)
+    op.backward(dy)
+    out["K2 bf16 fwd"] = within(o, op, 2.0 ** -7)
+    out["K2 bf16 bwd"] = all(within(a.grad, b.grad, 1e-2) == "ok" for a, b in zip(qs, ps)) \
+        and "ok" or "gradients off"
+    x = torch.randn(1, 512, *K5_GRID, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(512, 512, 3, 3, generator=g) * 0.02).to(dev, torch.bfloat16)
+    out["K5 bf16"] = within(dc.conv2d_dil(x, w, 4, 4), dc.dilated_conv_plain(x, w, 4, 4), 2.0 ** -7)
+    torch.cuda.synchronize(dev)
+    check_fault(dev)
+    return out
+
+
+def within(got, want, frac) -> str:
+    err = (got.float() - want.float()).abs().max().item()
+    tol = frac * want.float().abs().max().item()
+    return "ok" if got.device == want.device and err <= tol else f"{err:.3e} > {tol:.3e}"
+
+
+def phase_cli_parallel(card: str, root: str, losses19: list, work: str) -> int:
+    """Phase 22(c): ``cli.test --parallel group`` on 12 seeded 1024x2048 PNG
+    frames (TD4-PSP18 f32, P cards or the one repeated): 12 class maps written,
+    "Throughput/frame" per frame and the super-step latency printed, K1 3 a warm
+    frame; then ``torchrun --nproc_per_node=2 -m tdnet_tpu_torch.cli.train`` for 2
+    steps on phase 19's tree with phase 19's YAML (batch 2, one image a rank,
+    dropout on): rank 0's logged losses within ``CLI_LOSS_RTOL`` of phase 19's
+    first two (the ranks draw other dropout masks and clip gaps, so no closer),
+    its run directory with the checkpoints. Returns the K1 launches."""
+    import io
+    import yaml
+    from tdnet_tpu_torch.cli import test as cli_test
+    from tdnet_tpu_torch.data.png import write_png
+    from tdnet_tpu_torch.kernels.fault import check_fault
+    from tdnet_tpu_torch.kernels.propagation_attention import fused_propagation_attention
+    from tdnet_tpu_torch.utils.config import load_config
+    frames_dir = os.path.join(work, "frames", "clip")
+    os.makedirs(frames_dir)
+    rng = np.random.RandomState(SEED)
+    h, w = TREE_SIZE
+    scene = np.repeat(np.repeat(rng.randint(0, 256, (h // 16, w // 16 + 2, 3)), 16, 0), 16, 1)
+    for t in range(N_FRAMES):
+        write_png(os.path.join(frames_dir, f"frame_{t:03d}.png"),
+                  scene[:, 2 * t:2 * t + w].astype(np.uint8), level=1)
+    out_dir = os.path.join(work, "out")
+    printed = io.StringIO()
+    fused_propagation_attention.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli_test.main(["--img_path", os.path.dirname(frames_dir), "--output_path", out_dir,
+                       "--model", "td4-psp18", "--parallel", "group", "--device", "cuda"])
+    check_fault("cuda")
+    launches = fused_propagation_attention.launches
+    lines = printed.getvalue().splitlines()
+    pngs = sum(f.endswith(".png") for _, _, fs in os.walk(out_dir) for f in fs)
+    per_frame = sum("Throughput/frame=" in ln for ln in lines if ln.startswith(" Frame"))
+    log(f"[22c] cli.test --parallel group td4-psp18 769x1537 f32 ({card}): {lines[1]}; "
+        f"{pngs} class maps, {per_frame} per-frame lines; {lines[-3].strip()}; "
+        f"{lines[-2].strip()}; K1 launches {launches}; {time.perf_counter() - t0:.1f} s")
+    if not (pngs == per_frame == N_FRAMES and launches == 3 * (N_FRAMES - 3)
+            and any("Super-step latency" in ln for ln in lines)):
+        raise AssertionError(f"[22c] cli.test --parallel group: {pngs} PNGs, {per_frame} lines, "
+                             f"K1 {launches}: {lines[:3]}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configs", "td4_psp18_cityscapes.yml"))
+    cfg["data"]["path"] = root
+    cfg["training"].update(train_iters=4, batch_size=DP_WORLD, val_interval=2, print_interval=1,
+                           ckpt_interval=2)
+    yml = os.path.join(work, "td4_dp.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                             f"--nproc_per_node={DP_WORLD}", f"--master_port={free_port()}",
+                             "-m", "tdnet_tpu_torch.cli.train", "--config", yml,
+                             "--max_steps", "2", "--device", "cuda"], cwd=work, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        text = proc.communicate(timeout=DP_TIMEOUT)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    logs = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "runs")) for f in fs
+            if f.startswith("run_") and f.endswith(".log")]
+    if proc.returncode != 0 or len(logs) != 1:
+        raise AssertionError(f"[22c] torchrun exited {proc.returncode}, {len(logs)} run logs:\n"
+                             f"{text[-3000:]}")
+    logged = open(logs[0]).read()
+    losses = [float(x) for x in re.findall(r"Loss: ([-+0-9.eE]+|nan|inf)", logged)]
+    run_files = sorted(os.listdir(os.path.dirname(logs[0])))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses19)]
+    log(f"[22c] torchrun --nproc_per_node={DP_WORLD} -m tdnet_tpu_torch.cli.train, 2 steps of "
+        f"batch {DP_WORLD} on phase 19's tree ({card}): "
+        f"{re.search(r'data-parallel: .*', logged).group(0) if 'data-parallel' in logged else '?'}"
+        f"; rank-0 losses {', '.join(f'{x:.4f}' for x in losses)} against phase 19's "
+        f"{', '.join(f'{x:.4f}' for x in losses19[:len(losses)])} (rel "
+        f"{', '.join(f'{x:.3f}' for x in rel)}, held to {CLI_LOSS_RTOL}); run files "
+        f"{', '.join(run_files)}; {wall:.1f} s with the ranks' start-up")
+    if not (len(losses) == 2 and all(r <= CLI_LOSS_RTOL for r in rel)
+            and "state_latest.pkl" in run_files
+            and any(f.endswith("_best_model.pkl") for f in run_files)):
+        raise AssertionError(f"[22c] torchrun's run: losses {losses}, files {run_files}")
+    return launches
+
+
+def phase_multi_gpu(card: str, root: str, losses19: list) -> dict:
+    """Phase 22: (d) kernels on any device, (a) the data-parallel recipe, (b) group
+    streaming, (c) the CLIs; returns the K1 launches of (b) and (c) by dtype."""
+    import shutil
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase22")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    phase_devices(card)
+    phase_data_parallel(card, work)
+    launches = {"f32": 0, "bf16": 0}
+    for arch in ("td4-psp18", "td2-psp50"):
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            launches[name] += group_stream_run(arch, dtype, card)
+    launches["f32"] += phase_cli_parallel(card, root, losses19, work)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[22] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def ms_list(xs) -> str:
     return ", ".join(f"{1e3 * x:.1f}" for x in xs)
 
@@ -3675,7 +4231,7 @@ def main() -> int:
     del recipe
     td2_launches = phase_td2_train(card)
     phase_fused_trunk(card, td4, td2)
-    root = phase_train_cli(card)
+    root, losses19 = phase_train_cli(card)
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase20")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3686,7 +4242,9 @@ def main() -> int:
     train_launches = {k: n + reference[k] for k, n in train_launches.items()}
     fanet = phase_fanet(card, work, root, files)
     shutil.rmtree(work, ignore_errors=True)
+    group_launches = phase_multi_gpu(card, root, losses19)
     shutil.rmtree(os.path.dirname(root), ignore_errors=True)
+    launches = {k: n + group_launches[k] for k, n in launches.items()}
     launches["f32"] += fanet["K1 f32"]
     launches["bf16"] += fanet["K1 bf16"]
     train_launches = {k: n + fanet["f32"][k] for k, n in train_launches.items()}

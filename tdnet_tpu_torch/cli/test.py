@@ -18,6 +18,13 @@ reference's files).
 
     python -m tdnet_tpu_torch.cli.test --img_path frames/ --output_path out/ \\
         --model td2-psp50 --device cuda --dtype bfloat16 --stem_impl fused
+
+``--parallel group`` streams a TDNet over P devices, one sub-network each
+(``stream/parallel_runtime.py:GroupStreamer``): the first P cards, or
+``--device`` repeated where fewer are there (one card, or the CPU), P frames a
+super-step; each frame's line gives its share of the super-step's time
+(Throughput/frame), the summary the super-step's latency. ``--parallel
+spatial`` and group streaming of TD2-FANet are not ported.
 """
 
 from __future__ import annotations
@@ -61,10 +68,14 @@ def main(argv=None):
     parser.add_argument("--nclass", type=int, default=None,
                         help="override the class count")
     parser.add_argument("--parallel", type=str, default=None, choices=["group", "spatial"],
-                        help="multi-device streaming (not ported yet)")
+                        help="multi-device streaming: 'group' puts one sub-network on each of "
+                             "P devices and runs P frames a super-step; 'spatial' is not ported")
     args = parser.parse_args(argv)
-    if args.parallel:
-        raise NotImplementedError(f"--parallel {args.parallel} is not ported to tdnet_tpu_torch")
+    if args.parallel == "spatial":
+        from tdnet_tpu_torch.stream.parallel_runtime import SPATIAL
+        raise NotImplementedError(SPATIAL)
+    if args.parallel and args.model == "psp101":
+        parser.error("--parallel targets the TDNet PSP students; psp101 is not supported")
 
     from tdnet_tpu_torch.data.png import write_png
     from tdnet_tpu_torch.data.streaming import DATASET_META, FrameSource, decode_segmap
@@ -94,26 +105,53 @@ def main(argv=None):
         load(model, ckpt_path)
     else:
         print(f"No pretrained found at '{ckpt_path}'")
-    runner = (FrameRunner if args.model == "psp101" else Streamer)(
-        model.to(device), dtype=dtype, stem_impl=args.stem_impl)
+    if args.parallel == "group":
+        from tdnet_tpu_torch.stream.parallel_runtime import GroupStreamer
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        devices = None if cards >= cfg.path_num else [device] * cfg.path_num
+        runner = GroupStreamer(model, dtype=dtype, stem_impl=args.stem_impl, devices=devices)
+        print(f"group streaming over {cfg.path_num} devices: "
+              f"{', '.join(str(d) for d in runner.devices)}")
+    else:
+        runner = (FrameRunner if args.model == "psp101" else Streamer)(
+            model.to(device), dtype=dtype, stem_impl=args.stem_impl)
     os.makedirs(args.output_path, exist_ok=True)
     # quarter-resolution nearest-neighbour sampling grid
     rows = np.arange(in_size[0] // 4) * in_size[0] // (in_size[0] // 4)
     cols = np.arange(in_size[1] // 4) * in_size[1] // (in_size[1] // 4)
 
-    for i, (x, img_name, folder, _) in enumerate(FrameSource(args.img_path, in_size)):
-        out, dt = runner.step(torch.from_numpy(x))
+    group = args.parallel == "group"
+    # group mode: a frame's number is its share of a super-step's time, not a latency
+    label = "Throughput/frame" if group else "RunningTime/Latency"
+    waiting = []   # (img_name, folder) of frames whose group has not run yet
+    emitted = 0
+
+    def emit(out, dt):
+        nonlocal emitted
+        img_name, folder = waiting.pop(0)
+        emitted += 1
         if not args.no_save:
             pred = out[0].argmax(-1).to(torch.uint8).cpu().numpy()
             save_dir = os.path.join(args.output_path, folder)
             os.makedirs(save_dir, exist_ok=True)
             write_png(os.path.join(save_dir, img_name), decode_segmap(pred[rows][:, cols], palette))
-        print(" Frame {0:2d}   RunningTime/Latency={1:3.5f} s".format(i + 1, dt))
+        print(" Frame {0:2d}   {1:s}={2:3.5f} s".format(emitted, label, dt))
+
+    for x, img_name, folder, _ in FrameSource(args.img_path, in_size):
+        waiting.append((img_name, folder))
+        x = torch.from_numpy(x)
+        for out, dt in runner.submit(x) if group else [runner.step(x)]:
+            emit(out, dt)
+    for out, dt in runner.flush() if group else []:
+        emit(out, dt)
 
     meter = runner.meter
     print("---------------------")
     print(" Model: {0:s}".format(args.model))
-    print(" Average  RunningTime/Latency={0:3.5f} s  ({1:.1f} FPS)".format(meter.avg, meter.fps))
+    print(" Average  {0:s}={1:3.5f} s  ({2:.1f} FPS)".format(label, meter.avg, meter.fps))
+    if group:
+        print(" Average  Super-step latency={0:3.5f} s  ({1:d} frames per super-step)".format(
+            runner.superstep_meter.avg, cfg.path_num))
     print("---------------------")
 
 

@@ -31,13 +31,26 @@ The weights start as the reference's do (``tdnet_tpu/cli/train.py:86-121``):
   (``teacher_from_psp_checkpoint``); the port's own teacher file (``cli.convert
   --arch pspnet_4p``) loads as it is; without either the teacher is random.
 
-Not ported: ``--path_parallel`` (multi-GPU).
+Data-parallel over N cards (or N ranks on the CPU, ``--device cpu``):
+
+    torchrun --nproc_per_node=N -m tdnet_tpu_torch.cli.train --config ...
+
+Each rank takes its share of every global batch (``training.batch_size``
+must divide by N: the JAX package's data axis is ``gcd(batch_size,
+devices)`` and leaves devices idle, which the port does not); the BatchNorm
+moments, the gradients and the validation's confusion matrix are reduced over
+the ranks (``parallel/mesh.py``). Rank 0 logs and writes every checkpoint,
+the others wait for it; every rank resumes from the same file. Without
+torchrun the run is a world of 1, the one-process code. Not ported:
+``--path_parallel`` (path-parallel training, ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
+import math
 import os
 import random
 import time
@@ -46,6 +59,9 @@ import numpy as np
 import torch
 
 SEED = 11733  # reference train.py:35
+PATH_PARALLEL = ("--path_parallel: path-parallel multi-GPU not ported yet (the sub-network axis "
+                 "sharded over devices; data-parallel training runs under torchrun): "
+                 "ROADMAP Queue 1 item 9")
 
 
 def _torch_state(path: str, what: str):
@@ -101,16 +117,46 @@ def load_teacher(tcfg, path: str):
     return teacher
 
 
+def check_batch(batch_size: int, world: int) -> None:
+    """A global batch that splits evenly over the ranks, or a ValueError."""
+    if batch_size % world:
+        raise ValueError(
+            f"training.batch_size {batch_size} does not split over {world} ranks: the port "
+            f"gives every rank an equal share (the JAX package trains on a data axis of "
+            f"gcd(batch_size, devices) = {math.gcd(batch_size, world)} devices and leaves "
+            f"the rest idle)")
+
+
 def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
           path_parallel: int | None = None, resume_state: str | None = None,
-          device: str = "cuda", stats: dict | None = None):
+          device: str = "cuda", stats: dict | None = None, group=None):
     """Train by ``cfg`` (a loaded YAML); returns (state, best_iou).
 
     ``stats``, when given, collects per step the seconds spent waiting on the
     data (``data_s``) and in the step (``step_s``, synchronized) and the
     losses; the number of validation passes (``val_passes``), and the index and
     confusion matrix of the pass that saved the best checkpoint (``best_pass``,
-    ``best_confusion``)."""
+    ``best_confusion``).
+
+    ``group``: the data group (``parallel.mesh.init_distributed``); None makes
+    it from torchrun's environment (a world of 1 without torchrun) and ends it
+    on return. Only rank 0 writes to ``logdir``."""
+    from tdnet_tpu_torch.parallel.mesh import init_distributed
+
+    if path_parallel:
+        raise NotImplementedError(PATH_PARALLEL)
+    owns = group is None
+    if owns:
+        group = init_distributed(device=device)
+    try:
+        return _train(cfg, logger, logdir, max_steps=max_steps, resume_state=resume_state,
+                      stats=stats, group=group)
+    finally:
+        if owns:
+            group.close()
+
+
+def _train(cfg, logger, logdir, *, max_steps, resume_state, stats, group):
     from tdnet_tpu_torch.data import get_loader
     from tdnet_tpu_torch.data.augment import get_composed_augmentations
     from tdnet_tpu_torch.data.cityscapes import ClipBatcher
@@ -123,13 +169,13 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
                                               model_config_from_yaml, opt_kwargs_from_yaml,
                                               teacher_config_from_yaml)
 
-    if path_parallel:
-        raise NotImplementedError("--path_parallel: multi-GPU not ported yet")
     stats = {} if stats is None else stats
     for key in ("data_s", "step_s", "losses"):
         stats.setdefault(key, [])
     stats.setdefault("val_passes", 0)
-    device = torch.device(device)
+    device, rank, world = group.device, group.rank, group.world
+    lead = rank == 0
+    check_batch(int(cfg["training"]["batch_size"]), world)
     seed = SEED
     np.random.seed(seed)
     random.seed(seed)
@@ -144,14 +190,18 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     v_ds = loader_cls(data_path, split=cfg["data"]["val_split"], augmentations=v_aug,
                       path_num=path_n, seed=seed)
     batcher = ClipBatcher(t_ds, cfg["training"]["batch_size"], shuffle=True, drop_last=True,
-                          num_workers=cfg["training"]["n_workers"], seed=seed, infinite=True)
+                          num_workers=cfg["training"]["n_workers"], seed=seed, infinite=True,
+                          rank=rank, world=world)
     v_batcher = ClipBatcher(v_ds, cfg["validating"]["batch_size"], shuffle=False,
-                            drop_last=False, num_workers=cfg["validating"]["n_workers"])
+                            drop_last=False, num_workers=cfg["validating"]["n_workers"],
+                            rank=rank, world=world)
     logger.info(f"device: {device}")
+    if world > 1:
+        logger.info(f"data-parallel: {world} ranks over {group.backend}")
 
     mcfg = model_config_from_yaml(cfg, nclass=t_ds.n_classes, streaming=False)
     tcfg = teacher_config_from_yaml(cfg, nclass=t_ds.n_classes)
-    loss_fn = loss_fn_from_yaml(cfg, n_devices=1)
+    loss_fn = loss_fn_from_yaml(cfg, n_devices=world)
     opt_kwargs = opt_kwargs_from_yaml(cfg)
     max_iter = int(cfg["training"]["train_iters"])
 
@@ -183,7 +233,7 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
             logger.info(f"No teacher pretrained found at '{tpath}' — using random frozen teacher")
             teacher = init_teacher(tcfg, torch.Generator().manual_seed(seed + 1)).to(device)
 
-    state = make_train_state(model, seed=seed, opt_kwargs=opt_kwargs)
+    state = make_train_state(model, seed=seed, opt_kwargs=opt_kwargs, group=group)
     if cfg["training"].get("ckpt_backend") == "orbax":
         logger.info("ckpt_backend orbax: the port writes its one torch checkpoint format "
                     "(synchronously)")
@@ -197,7 +247,7 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     compute_dtype = compute_dtype_from_yaml(cfg)
     if compute_dtype is not None:
         logger.info("mixed-precision training: bf16 compute, f32 masters")
-    step = make_train_step(loss_fn=loss_fn, compute_dtype=compute_dtype)
+    step = make_train_step(loss_fn=loss_fn, compute_dtype=compute_dtype, group=group)
     eval_step = make_eval_step()
 
     running = RunningScore(t_ds.n_classes)
@@ -207,6 +257,12 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
     stop_at = min(max_iter, (start_iter + max_steps) if max_steps else max_iter)
     ckpt_interval = int(cfg["training"].get("ckpt_interval", 0) or 0)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def save(write, *args, **kw):
+        """``write`` on rank 0, the other ranks waiting for the file."""
+        out = write(*args, **kw) if lead else None
+        group.barrier()
+        return out
 
     batches = iter(batcher)
     try:
@@ -230,8 +286,9 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
             if (cnt_iter + 1) % cfg["training"]["print_interval"] == 0:
                 if not np.isfinite(loss_val):
                     # halt on divergence with the state dumped, inspectable and resumable
+                    # (the loss is the ranks' mean, so every rank stops here)
                     dump = os.path.join(logdir, "state_nan_abort.pkl")
-                    ckpt.save_train_state(dump, state)
+                    save(ckpt.save_train_state, dump, state)
                     logger.error(f"non-finite loss at iter {cnt_iter} (loss={loss_val}); "
                                  f"state dumped to {dump}")
                     raise FloatingPointError(f"non-finite training loss at iter {cnt_iter} "
@@ -239,7 +296,8 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
                 msg = "Iter [{:d}/{:d}]  Loss: {:.4f}  Time/Image: {:.4f}".format(
                     cnt_iter + 1, max_iter, loss_val,
                     time_meter.avg / cfg["training"]["batch_size"])
-                print(msg)
+                if lead:
+                    print(msg)
                 logger.info(msg)
                 time_meter.reset()
 
@@ -250,16 +308,19 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
                     pred = eval_step(state.model, vf, i_val % path_n)
                     running.update(torch.from_numpy(vl), pred)
                 check_fault(device)
+                running.reduce(group)
                 score, class_iou = running.get_scores()
                 for k, v in score.items():
-                    print(k, v)
+                    if lead:
+                        print(k, v)
                     logger.info(f"{k}: {v}")
                 for k, v in class_iou.items():
                     logger.info(f"{k}: {v}")
                 if score["Mean IoU : \t"] >= best_iou:
                     best_iou = score["Mean IoU : \t"]
-                    path = ckpt.save_best(logdir, cfg["model"]["arch"], cfg["data"]["dataset"],
-                                          step=cnt_iter, model=state.model, best_iou=best_iou)
+                    path = save(ckpt.save_best, logdir, cfg["model"]["arch"],
+                                cfg["data"]["dataset"], step=cnt_iter, model=state.model,
+                                best_iou=best_iou)
                     stats["best_confusion"] = running.confusion_matrix()
                     stats["best_pass"] = stats["val_passes"]
                     logger.info(f"saved best checkpoint to {path}")
@@ -267,11 +328,11 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
                 stats["val_passes"] += 1
 
             if ckpt_interval and cnt_iter % ckpt_interval == 0:
-                ckpt.save_train_state(latest, state)
+                save(ckpt.save_train_state, latest, state)
                 logger.info(f"periodic train-state checkpoint at iter {cnt_iter}")
 
             if cnt_iter >= stop_at:
-                ckpt.save_train_state(latest, state)
+                save(ckpt.save_train_state, latest, state)
                 break
     finally:
         batches.close()   # joins the reading threads
@@ -279,6 +340,7 @@ def train(cfg: dict, logger, logdir: str, *, max_steps: int | None = None,
 
 
 def main(argv=None):
+    from tdnet_tpu_torch.parallel.mesh import init_distributed
     from tdnet_tpu_torch.utils.checkpoint import get_logger, make_run_dir
     from tdnet_tpu_torch.utils.config import load_config
 
@@ -287,7 +349,8 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop early after N steps (smoke runs)")
     parser.add_argument("--path_parallel", type=int, default=None,
-                        help="shard the subnet axis over this many devices (not ported)")
+                        help="shard the subnet axis over this many devices (not ported: "
+                             "ROADMAP Queue 1 item 9)")
     parser.add_argument("--resume_state", type=str, default=None,
                         help="resume the whole train state (model, optimizer, iteration) "
                              "from a state_latest.pkl")
@@ -296,17 +359,28 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     if args.path_parallel:
-        raise NotImplementedError("--path_parallel: multi-GPU not ported yet")
+        raise NotImplementedError(PATH_PARALLEL)
 
     cfg = load_config(args.config)
-    logdir = make_run_dir(args.config)
-    print(f"RUNDIR: {logdir}")
-    logger = get_logger(logdir)
-    logger.info("Let the games begin")
-    anomaly = torch.autograd.detect_anomaly() if args.debug_nans else contextlib.nullcontext()
-    with anomaly:
-        train(cfg, logger, logdir, max_steps=args.max_steps, resume_state=args.resume_state,
-              device=args.device)
+    group = init_distributed(device=args.device)
+    try:
+        check_batch(int(cfg["training"]["batch_size"]), group.world)
+        if group.rank == 0:
+            logdir = make_run_dir(args.config)
+            print(f"RUNDIR: {logdir}")
+            logger = get_logger(logdir)
+            logger.info("Let the games begin")
+        else:
+            logdir, logger = "", logging.getLogger(f"tdnet_tpu_torch.rank{group.rank}")
+            logger.addHandler(logging.NullHandler())
+            logger.propagate = False
+        anomaly = (torch.autograd.detect_anomaly() if args.debug_nans
+                   else contextlib.nullcontext())
+        with anomaly:
+            train(cfg, logger, logdir, max_steps=args.max_steps,
+                  resume_state=args.resume_state, device=args.device, group=group)
+    finally:
+        group.close()
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <atomic>
 #include <mutex>
 
 namespace {
@@ -203,15 +204,22 @@ __device__ __forceinline__ void wait_free(const Ring& ring, int ch, int stages) 
   if (round > 0) bar_wait(ring.empty + ch % stages, (round - 1) & 1);
 }
 
-// Let KERNEL take `smem` bytes of dynamic shared memory; the attribute is set once for each
-// larger size.
+// Let KERNEL take `smem` bytes of dynamic shared memory on the current device, which the
+// launch that follows runs on: cudaFuncSetAttribute acts on the current device alone, so the
+// size allowed so far is kept for each device, and the attribute is set once for each larger
+// size there.
+constexpr int MAX_DEVICES = 64;
+
 template <auto KERNEL>
 int allow_smem(size_t smem) {
-  static size_t allowed = 0;
-  if (smem <= allowed) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) allowed = smem;
+  static std::atomic<size_t> allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem <= allowed[dev].load()) return 0;
+  err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) allowed[dev].store(smem);
   return (int)err;
 }
 
@@ -243,13 +251,15 @@ inline int encode_tiled(EncodeTiled* fn) {
   return 0;
 }
 
-// The last maps encoded, by (base, dims, box rows, kind): a call whose tensors sit where the
-// last call's did (the caching allocator hands the same blocks back) copies its maps instead
-// of encoding them. A lock keeps calls from two host threads (a forward, autograd's backward
-// thread) apart.
+// The last maps encoded, by (device, base, dims, box rows, kind): a call whose tensors sit
+// where the last call's did (the caching allocator hands the same blocks back) copies its maps
+// instead of encoding them; a map encoded for one device is never served to a launch on
+// another. A lock keeps calls from two host threads (a forward, autograd's backward thread)
+// apart.
 struct MapCache {
   std::mutex lock;
   struct Entry {
+    int dev;
     const void* base;
     uint64_t d0, d1, d2;
     uint32_t rows, kind;
@@ -258,17 +268,17 @@ struct MapCache {
   static constexpr int SIZE = 64;
   Entry entries[SIZE] = {};
   int next = 0;
-  const CUtensorMap* find(const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+  const CUtensorMap* find(int dev, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
                           uint32_t rows, uint32_t kind) const {
     for (const Entry& e : entries)
-      if (e.base == base && e.d0 == d0 && e.d1 == d1 && e.d2 == d2 && e.rows == rows &&
-          e.kind == kind)
+      if (e.base && e.dev == dev && e.base == base && e.d0 == d0 && e.d1 == d1 &&
+          e.d2 == d2 && e.rows == rows && e.kind == kind)
         return &e.map;
     return nullptr;
   }
-  void put(const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows,
+  void put(int dev, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows,
            uint32_t kind, const CUtensorMap& map) {
-    entries[next] = Entry{base, d0, d1, d2, rows, kind, map};
+    entries[next] = Entry{dev, base, d0, d1, d2, rows, kind, map};
     next = (next + 1) % SIZE;
   }
 };
@@ -283,8 +293,10 @@ inline MapCache& map_cache() {
 // elements outside the tensor read as zero. Returns a CUDA error code, 0 on success.
 inline int bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
                            uint64_t d2, uint32_t rows) {
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev); e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> guard(map_cache().lock);
-  if (const CUtensorMap* hit = map_cache().find(base, d0, d1, d2, rows, 0)) {
+  if (const CUtensorMap* hit = map_cache().find(dev, base, d0, d1, d2, rows, 0)) {
     *map = *hit;
     return 0;
   }
@@ -305,7 +317,7 @@ inline int bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint
             (unsigned long long)d0, base, rows, (int)r);
     return (int)cudaErrorInvalidValue;
   }
-  map_cache().put(base, d0, d1, d2, rows, 0, *map);
+  map_cache().put(dev, base, d0, d1, d2, rows, 0, *map);
   return 0;
 }
 
@@ -314,8 +326,10 @@ inline int bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint
 inline int f32_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
                           uint64_t d2, uint32_t box0, uint32_t rows) {
   const uint32_t kind = 1 + box0;
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev); e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> guard(map_cache().lock);
-  if (const CUtensorMap* hit = map_cache().find(base, d0, d1, d2, rows, kind)) {
+  if (const CUtensorMap* hit = map_cache().find(dev, base, d0, d1, d2, rows, kind)) {
     *map = *hit;
     return 0;
   }
@@ -336,7 +350,7 @@ inline int f32_tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint6
             (unsigned long long)d0, base, box0, rows, (int)r);
     return (int)cudaErrorInvalidValue;
   }
-  map_cache().put(base, d0, d1, d2, rows, kind, *map);
+  map_cache().put(dev, base, d0, d1, d2, rows, kind, *map);
   return 0;
 }
 

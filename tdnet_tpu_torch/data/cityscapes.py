@@ -113,6 +113,15 @@ def _collate(items):
     return frames.astype(np.float32), np.stack([it[1] for it in items]).astype(np.int32)
 
 
+def share(n: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s contiguous part of ``n`` items split over ``world`` ranks,
+    the first ``n % world`` ranks one item more (an even split where world
+    divides n)."""
+    base, extra = divmod(n, world)
+    start = rank * base + min(rank, extra)
+    return slice(start, start + base + (rank < extra))
+
+
 class ClipBatcher:
     """Shuffled, threaded batch iterator -> (frames [P,N,H,W,3] f32,
     labels [N,H,W] int32).
@@ -120,11 +129,21 @@ class ClipBatcher:
     With ``drop_last=False`` an epoch's last, short batch is yielded, as the
     reference's torch ``DataLoader`` yields it; the JAX package's
     ``ClipBatcher`` leaves it out, so a val split smaller than a batch gives
-    it no batch at all."""
+    it no batch at all.
+
+    ``rank``/``world``: a data-parallel rank's batches. Every rank walks the
+    same seeded epoch order and reads only its contiguous ``share`` of each
+    global batch, so the ranks' batches together are the one-process batch,
+    clip for clip. A batch of fewer clips than ranks (a short last batch) gives
+    a rank without a clip of its own a copy of the batch's last clip with every
+    label at ``IGNORE_INDEX``, which no score counts, so that no rank's batch
+    is empty and no clip is counted twice."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8,
-                 seed: int = 0, infinite: bool = False):
+                 seed: int = 0, infinite: bool = False, rank: int = 0, world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a world of {world}")
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -132,6 +151,13 @@ class ClipBatcher:
         self.num_workers = num_workers
         self.seed = seed
         self.infinite = infinite
+        self.rank, self.world = rank, world
+
+    def _read(self, idx):
+        """This rank's indices of a global batch's ``idx``, and whether they are
+        a stand-in that no score may count."""
+        mine = idx[share(len(idx), self.rank, self.world)]
+        return (mine, False) if len(mine) else (idx[-1:], True)
 
     def _epoch_indices(self, epoch):
         idx = np.arange(len(self.ds))
@@ -149,22 +175,24 @@ class ClipBatcher:
                 idx = self._epoch_indices(epoch)
                 n = len(idx)
                 stop = n - (n % self.batch_size) if self.drop_last else n
+                # (indices this rank reads, stand-in) of each global batch, in order
+                batches = [self._read(idx[b:min(b + self.batch_size, stop)])
+                           for b in range(0, stop, self.batch_size)]
+                order = [(i, int(j)) for i, (mine, _) in enumerate(batches) for j in mine]
                 pending: deque = deque()
                 pos = 0
-                consumed = 0
                 done = []
-                while consumed < stop:
-                    while pos < stop and len(pending) < readahead:
-                        pending.append(pool.submit(self.ds.__getitem__,
-                                                   int(idx[pos])))
+                for i, _ in order:
+                    while pos < len(order) and len(pending) < readahead:
+                        pending.append(pool.submit(self.ds.__getitem__, order[pos][1]))
                         pos += 1
                     done.append(pending.popleft().result())
-                    consumed += 1
-                    if len(done) == self.batch_size:
-                        yield _collate(done)
+                    if len(done) == len(batches[i][0]):
+                        frames, labels = _collate(done)
+                        if batches[i][1]:
+                            labels[:] = IGNORE_INDEX
+                        yield frames, labels
                         done = []
-                if done:
-                    yield _collate(done)
                 if not self.infinite:
                     return
                 epoch += 1

@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.device import on_device
 from tdnet_tpu_torch.kernels.fault import fault_word
 from tdnet_tpu_torch.ops.conv import tap_wgrad
 from tdnet_tpu_torch.ops.dtype import at_least_f32
@@ -177,16 +178,17 @@ def launch(x: torch.Tensor, w: torch.Tensor, padding: int, dilation: int, flip: 
     ws = [scratch(K * K, plan.np_, plan.kp) for _ in range(parts)]
     y = scratch(n, cout, plan.ho, plan.wo)
     lib = lib or build()
-    if bf16:
-        err = lib.tdnet_dilated_conv_bf16(
-            x.data_ptr(), w.data_ptr(), xs[0].data_ptr(), ws[0].data_ptr(), y.data_ptr(),
-            fault_word(x.device).data_ptr(), n, cin, cout, h, wd, padding, dilation, int(flip),
-            plan.hr, plan.kp, plan.np_, torch.cuda.current_stream(x.device).cuda_stream)
-    else:
-        err = lib.tdnet_dilated_conv(
-            x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in xs + ws), y.data_ptr(), n, cin,
-            cout, h, wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    with on_device(x) as stream:
+        if bf16:
+            err = lib.tdnet_dilated_conv_bf16(
+                x.data_ptr(), w.data_ptr(), xs[0].data_ptr(), ws[0].data_ptr(), y.data_ptr(),
+                fault_word(x.device).data_ptr(), n, cin, cout, h, wd, padding, dilation,
+                int(flip), plan.hr, plan.kp, plan.np_, stream)
+        else:
+            err = lib.tdnet_dilated_conv(
+                x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in xs + ws), y.data_ptr(), n,
+                cin, cout, h, wd, padding, dilation, int(flip), plan.hr, plan.kp, plan.np_,
+                stream)
     _raise_on(lib, err)
     return y
 

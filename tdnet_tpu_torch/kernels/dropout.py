@@ -31,6 +31,7 @@ import functools
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.device import on_device
 from tdnet_tpu_torch.ops.dropout_mask import keep_mask, keep_threshold
 
 SOURCES = ("dropout.cu",)
@@ -86,14 +87,15 @@ def _function(entry: str):
 
 
 def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    """One kernel launch on x's current stream; raises on what it does not take.
-    The raw stream getter exists in CUDA builds of torch only."""
+    """One kernel launch on the current stream of x's device, with that device
+    current; raises on what it does not take."""
     if not x.is_contiguous():
         raise ValueError("the dropout kernel takes contiguous tensors")
     entry, n, seed32, threshold, inv_keep = launch_args(x.numel(), x.dtype, rate, seed)
     y = torch.empty_like(x)
-    err = _function(entry)(x.data_ptr(), y.data_ptr(), n, seed32, threshold, inv_keep,
-                           torch._C._cuda_getCurrentRawStream(x.get_device()))
+    with on_device(x) as stream:
+        err = _function(entry)(x.data_ptr(), y.data_ptr(), n, seed32, threshold, inv_keep,
+                               stream)
     if err != 0:
         raise RuntimeError(f"dropout kernel failed: CUDA error {err}: "
                            f"{build().tdnet_cuda_error_string(err).decode()}")

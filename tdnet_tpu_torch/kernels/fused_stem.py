@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.device import on_device
 from tdnet_tpu_torch.kernels.grid import sm_count
 from tdnet_tpu_torch.ops.conv import conv2d
 from tdnet_tpu_torch.ops.norm import batch_norm_folded
@@ -155,19 +156,25 @@ def fused_stem_tail(x: torch.Tensor, tail: StemTail) -> torch.Tensor:
         return fused_stem_plain(x, tail.w1, tail.sb1, tail.w2, tail.sb2)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    y = launch(x.contiguous(), tail)
+    fused_stem_tail.launches += 1
+    return y
+
+
+def launch(x: torch.Tensor, tail: StemTail, lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """The kernel on a checked, contiguous CUDA ``x``, from ``lib`` (default
+    ``build()``); counts no launch."""
     n, _, h, w = x.shape
-    x = x.contiguous()
     y = torch.empty((n, C_OUT, (h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device)
     plan = stem_plan(n, h, w, x.dtype, sm_count(x.device.index))
-    lib = build()
-    err = lib.tdnet_fused_stem(x.data_ptr(), tail.chunks.data_ptr(), tail.sb1.data_ptr(),
-                               tail.sb2.data_ptr(), y.data_ptr(), n, h, w, _DTYPE_CODE[x.dtype],
-                               plan.strips, plan.band_rows,
-                               torch.cuda.current_stream(x.device).cuda_stream)
+    lib = lib or build()
+    with on_device(x) as stream:
+        err = lib.tdnet_fused_stem(x.data_ptr(), tail.chunks.data_ptr(), tail.sb1.data_ptr(),
+                                   tail.sb2.data_ptr(), y.data_ptr(), n, h, w,
+                                   _DTYPE_CODE[x.dtype], plan.strips, plan.band_rows, stream)
     if err != 0:
         raise RuntimeError(f"fused stem kernel failed: CUDA error {err}: "
                            f"{lib.tdnet_cuda_error_string(err).decode()}")
-    fused_stem_tail.launches += 1
     return y
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.device import on_device
 from tdnet_tpu_torch.kernels.fault import check_fault, fault_word  # noqa: F401
 from tdnet_tpu_torch.kernels.grid import (FC_FIXED, Q_BLOCK, Bf16Plan, attention_bf16_plan,
                                           column_width, sm_count)
@@ -187,10 +188,11 @@ def _launch_f32(q, k, v, temperature, fc_w, fc_b, plan: ForwardPlan) -> torch.Te
     o_parts = (torch.empty(plan.parts, dtype=torch.float32, device=v.device)
                if plan.parts else None)
     n, lq, _ = q.shape
-    err = lib.tdnet_propagation_attention_f32(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out),
-        _ptr(o_parts), _ptr(stats), n, lq, k.shape[1], v.shape[2], 1.0 / temperature,
-        plan.cols, plan.fc_cols, plan.k_per, torch.cuda.current_stream(v.device).cuda_stream)
+    with on_device(v) as stream:
+        err = lib.tdnet_propagation_attention_f32(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out),
+            _ptr(o_parts), _ptr(stats), n, lq, k.shape[1], v.shape[2], 1.0 / temperature,
+            plan.cols, plan.fc_cols, plan.k_per, stream)
     _raise_on(lib, err)
     return out
 
@@ -203,10 +205,11 @@ def launch_bf16(q, k, v, temperature: float, fc_w, fc_b, plan: Bf16Plan,
     lib = lib or build()
     out, stats, o_tmp = _outputs(q, v, fc_w)
     n, lq, _ = q.shape
-    err = lib.tdnet_propagation_attention_bf16(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out), _ptr(stats),
-        _ptr(fault_word(v.device)), n, lq, k.shape[1], v.shape[2], 1.0 / temperature, *plan,
-        torch.cuda.current_stream(v.device).cuda_stream)
+    with on_device(v) as stream:
+        err = lib.tdnet_propagation_attention_bf16(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(fc_w), _ptr(fc_b), _ptr(o_tmp), _ptr(out),
+            _ptr(stats), _ptr(fault_word(v.device)), n, lq, k.shape[1], v.shape[2],
+            1.0 / temperature, *plan, stream)
     _raise_on(lib, err)
     return out
 

@@ -60,6 +60,7 @@ from typing import NamedTuple
 import torch
 
 from tdnet_tpu_torch.kernels.build import load_library
+from tdnet_tpu_torch.kernels.device import on_device
 from tdnet_tpu_torch.kernels.fault import fault_word
 from tdnet_tpu_torch.kernels.grid import (FORWARD_FIXED, Q_BLOCK, STATS_KEYS, TrainBwdPlan,
                                           TrainFwdPlan, ceil_div, column_width, sm_count,
@@ -306,14 +307,6 @@ def _layout(backward: bool, n: int, lq: int, lkv: int, dv: int, sms: int):
     return plan, sizes, carve(sizes)
 
 
-def _stream(device: torch.device) -> int:
-    """The current stream of a CUDA device (a tensor's, so with its index) as the raw
-    handle the C interface takes; torch's private getter where it has one (a tenth
-    of ``torch.cuda.current_stream``'s host time)."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return raw(device.index) if raw else torch.cuda.current_stream(device).cuda_stream
-
-
 def keep_words(lkv: int) -> int:
     """uint32 words a q row of the keep bits: ceil(lkv / 32) rounded up to 4."""
     return ceil_div(ceil_div(lkv, 32), 4) * 4
@@ -337,11 +330,12 @@ def launch_bf16_forward(q, k, v, temperature: float, dropout_rate: float, seed: 
     bits = (torch.empty((n, lq, keep_words(lkv)), dtype=torch.int32, device=v.device)
             if dropout_rate > 0.0 else None)
     (stats_part, o_part), buf = _scratch(sizes, v.device, carved)
-    _err(lib, lib.tdnet_attention_train_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), o_part, stats.data_ptr(),
-        stats_part, 0 if bits is None else bits.data_ptr(), fault_word(v.device).data_ptr(), n,
-        lq, lkv, dv, 1.0 / temperature, *plan, *_drop_args(dropout_rate, seed),
-        _stream(v.device)), "forward")
+    with on_device(v) as stream:
+        _err(lib, lib.tdnet_attention_train_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), o_part, stats.data_ptr(),
+            stats_part, 0 if bits is None else bits.data_ptr(), fault_word(v.device).data_ptr(),
+            n, lq, lkv, dv, 1.0 / temperature, *plan, *_drop_args(dropout_rate, seed),
+            stream), "forward")
     del buf
     return o, stats, bits
 
@@ -356,12 +350,13 @@ def launch_bf16_backward(q, k, v, dy, stats, bits, temperature: float, dropout_r
     plan, sizes, carved = _layout(True, n, lq, lkv, dv, sm_count(q.device.index))
     parts, buf = _scratch(sizes, q.device, carved)
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _err(lib, lib.tdnet_attention_train_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(), stats.data_ptr(),
-        0 if bits is None else bits.data_ptr(), *parts, dq.data_ptr(), dk.data_ptr(),
-        dv_.data_ptr(), fault_word(q.device).data_ptr(), n, lq, lkv, dv, 1.0 / temperature,
-        plan.t_kper, plan.q_per, plan.dq_kper, *_drop_args(dropout_rate, seed),
-        _stream(q.device)), "backward")
+    with on_device(q) as stream:
+        _err(lib, lib.tdnet_attention_train_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(), stats.data_ptr(),
+            0 if bits is None else bits.data_ptr(), *parts, dq.data_ptr(), dk.data_ptr(),
+            dv_.data_ptr(), fault_word(q.device).data_ptr(), n, lq, lkv, dv, 1.0 / temperature,
+            plan.t_kper, plan.q_per, plan.dq_kper, *_drop_args(dropout_rate, seed),
+            stream), "backward")
     del buf
     return dq, dk, dv_
 
@@ -382,10 +377,11 @@ class _AttentionTrainKernel(torch.autograd.Function):
         cols = column_width(-(-lq // Q_BLOCK) * n, dv, sm_count(v.device.index), FORWARD_FIXED)
         o = torch.empty((n, lq, dv), dtype=v.dtype, device=v.device)
         stats = torch.empty((2, n, lq), dtype=torch.float32, device=v.device)
-        _err(lib, lib.tdnet_attention_train_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), stats.data_ptr(),
-            n, lq, lkv, dv, 1.0 / temperature, cols, *_drop_args(dropout_rate, seed),
-            _stream(v.device)), "forward")
+        with on_device(v) as stream:
+            _err(lib, lib.tdnet_attention_train_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), stats.data_ptr(),
+                n, lq, lkv, dv, 1.0 / temperature, cols, *_drop_args(dropout_rate, seed),
+                stream), "forward")
         propagation_attention_train.launches += 1
         ctx.save_for_backward(q, k, v, stats, o)
         return o
@@ -409,12 +405,13 @@ class _AttentionTrainKernel(torch.autograd.Function):
             torch.empty(shape, dtype=torch.float32, device=q.device)
             for shape in ((n, lq), plan.ds, plan.dq_part, plan.dk_part, plan.dv_part))
         dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        _err(lib, lib.tdnet_attention_train_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dy.data_ptr(),
-            stats.data_ptr(), dsum.data_ptr(), ds.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv_.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), n, lq,
-            lkv, dv, 1.0 / ctx.temperature, plan.q_per, plan.k_per,
-            *_drop_args(ctx.rate, ctx.seed), _stream(q.device)), "backward")
+        with on_device(q) as stream:
+            _err(lib, lib.tdnet_attention_train_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dy.data_ptr(),
+                stats.data_ptr(), dsum.data_ptr(), ds.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv_.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), n,
+                lq, lkv, dv, 1.0 / ctx.temperature, plan.q_per, plan.k_per,
+                *_drop_args(ctx.rate, ctx.seed), stream), "backward")
         propagation_attention_train.backward_launches += 1
         return dq, dk, dv_, None, None, None
 

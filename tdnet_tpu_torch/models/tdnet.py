@@ -173,11 +173,10 @@ def _hop_chain(atn_p, ks, vs, qs, q_cur, cfg: TDNetConfig, ctx: Ctx | None = Non
     return acc
 
 
-def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
-                cfg: TDNetConfig, pid: int, ctx: Ctx) -> torch.Tensor:
-    """One frame through one sub-network; updates ``cache`` in place.
+def frame_trunk(sub: SubNet, img: torch.Tensor, cfg: TDNetConfig, pid: int, ctx: Ctx):
+    """The frame-local work of one sub-network: NHWC ``img`` [n, H, W, 3] ->
+    (q_cur, the v map ``feat``, the frame's cached token fields (q_c, k_c, v_c)).
 
-    ``img`` is NHWC [n, H, W, 3]; returns logits NHWC [n, H, W, nclass].
     ``ctx`` (eval) carries the backbone's ``stem_impl`` and ``fused_trunk``:
     the z-free grouped-PSP + QKV encoding (``nn/fused_trunk.py``), taken in
     eval with the projections after the subsample and an int ``pid``, as
@@ -185,31 +184,42 @@ def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
     """
     x = img.permute(0, 3, 1, 2).contiguous()
     _, c4 = sub.backbone(x, ctx)
-    use_fused = (ctx.fused_trunk and not ctx.train and cfg.pool_before_proj
-                 and isinstance(pid, int))
-    if use_fused:
+    if ctx.fused_trunk and not ctx.train and cfg.pool_before_proj and isinstance(pid, int):
         q_cur, feat, q_c, k_c, v_c = fused_psp_encoding(
             sub.psp, sub.enc, c4, pid=pid, groups=cfg.psp_groups, kv_stride=cfg.kv_stride)
     else:
         z = apply_pyramid_pooling(sub.psp, c4, groups=cfg.psp_groups, pid=pid)
         q_cur, feat = apply_encoding_full(sub.enc, z)
+        q_c, k_c, v_c = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride,
+                                              pool_before_proj=cfg.pool_before_proj)
+    return q_cur, feat, (q_c, k_c, v_c)
+
+
+def frame_head(sub: SubNet, feat: torch.Tensor, cfg: TDNetConfig) -> torch.Tensor:
+    """The recomposed features -> logits NHWC [n, H, W, nclass] at the input size."""
+    out = apply_fcn_head(sub.head, sub.ln(feat))
+    return resize_bilinear(out, cfg.in_size).permute(0, 2, 3, 1)
+
+
+def stream_step(sub: SubNet, atn_p, cache: StreamCache, img: torch.Tensor,
+                cfg: TDNetConfig, pid: int, ctx: Ctx) -> torch.Tensor:
+    """One frame through one sub-network (``frame_trunk``, the hop chain over
+    the cache, ``frame_head``); updates ``cache`` in place.
+
+    ``img`` is NHWC [n, H, W, 3]; returns logits NHWC [n, H, W, nclass].
+    """
+    q_cur, feat, tokens = frame_trunk(sub, img, cfg, pid, ctx)
     if cache.count >= cfg.window:
         # while the cache is cold the reference adds zeros: skip the hops
         feat = feat + _hop_chain(atn_p, cache.ordered(cache.k), cache.ordered(cache.v),
                                  cache.ordered(cache.q), q_cur, cfg)
-    out = apply_fcn_head(sub.head, sub.ln(feat))
-    out = resize_bilinear(out, cfg.in_size)
-
-    if not use_fused:
-        q_c, k_c, v_c = apply_encoding_cached(sub.enc, z, kv_stride=cfg.kv_stride,
-                                              pool_before_proj=cfg.pool_before_proj)
+    out = frame_head(sub, feat, cfg)
     slot = cache.head
-    cache.q[slot].copy_(q_c)
-    cache.k[slot].copy_(k_c)
-    cache.v[slot].copy_(v_c)
+    for ring, t in zip((cache.q, cache.k, cache.v), tokens):
+        ring[slot].copy_(t)
     cache.head = (slot + 1) % cfg.window
     cache.count += 1
-    return out.permute(0, 2, 3, 1)
+    return out
 
 
 def clip_forward(model: TDNet, frames: torch.Tensor, pos_id: int, ctx: Ctx) -> dict:

@@ -78,7 +78,10 @@ class Ctx:
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
 
 
-def step_generator(seed: int, it: int) -> torch.Generator:
+def step_generator(seed: int, it: int, rank: int = 0) -> torch.Generator:
     """The generator of training step ``it``: a fresh stream from (seed, it),
-    the counterpart of ``jax.random.fold_in(rng, it)``."""
-    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF))
+    the counterpart of ``jax.random.fold_in(rng, it)``. Rank r of a data group
+    draws its own stream (its dropout masks start at its own row 0, so a shared
+    seed would repeat rank 0's masks); rank 0 keeps the one-process stream."""
+    key = ((seed & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF)
+    return torch.Generator().manual_seed(key ^ ((rank * 0x9E3779B97F4A7C15) & (2**64 - 1)))

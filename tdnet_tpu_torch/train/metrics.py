@@ -6,7 +6,8 @@ accuracy, frequency-weighted accuracy, mean IoU and the per-class IoU. The
 confusion matrix is counted on the labels' device, in int64, by one
 ``torch.bincount`` a batch, so only the n x n matrix crosses to the host. The
 JAX package counts in float32, which stops counting exactly past 2^24 in a
-cell; below that the two agree.
+cell; below that the two agree. ``reduce(group)`` sums the ranks' matrices
+(int64) after a validation pass over sharded batches.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ class RunningScore:
         hist = torch.bincount(labels[valid] * n + preds[valid], minlength=n * n)
         hist = hist[:n * n].reshape(n, n)
         self.confusion = hist if self.confusion is None else self.confusion + hist
+
+    def reduce(self, group, device=None) -> None:
+        """Every rank's counts summed into each rank's (``group``, a ``DataGroup``;
+        every rank calls it, a rank that counted nothing with its zeros on
+        ``device``)."""
+        if group is None or group.world <= 1:
+            return
+        if self.confusion is None:
+            n = self.n_classes
+            self.confusion = torch.zeros((n, n), dtype=torch.int64,
+                                         device=device or group.device)
+        group.all_reduce_(self.confusion)
 
     def confusion_matrix(self) -> np.ndarray:
         """The counts so far, int64 [n, n] on the host (rows: labels)."""

@@ -12,6 +12,17 @@ One backward and one AdaOptimizer update per step; every parameter takes part in
 decay and momentum run as optax runs them). The step's dropout draws come
 from a generator seeded by (seed, it).
 
+Data-parallel (``group``, a ``DataGroup`` of ``parallel/mesh.py``): each rank
+runs the step on its share of the global batch, with its BatchNorms' moments
+taken over every rank's share (``ops.norm.sync_batch_norm``), the loss over
+its local batch (OHEM as the reference's per-GPU criterion, ``loss_fn_from_yaml(
+n_devices=world)``) and the teacher on its local batch; then the gradients,
+the loss and the KD term are averaged over the ranks in one flat all-reduce,
+the gradient of the global mean as the JAX mesh gives it, and every rank runs
+the same update. ``make_train_state`` broadcasts rank 0's parameters and
+buffers once. Rank r draws its dropout from ``step_generator(seed, it, r)``.
+A world of 1 runs the one-process step.
+
 ``conv_wgrad`` picks the residual blocks' dilated convs: ``"cudnn"`` (the
 default, ``F.conv2d`` and autograd) or ``"kernel"``, the JAX package's
 ``conv_wgrad="pallas"`` (``tdnet_tpu/train/trainer.py:124-132``): the stride-1
@@ -46,6 +57,7 @@ precision whatever the caller set.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -57,6 +69,7 @@ from tdnet_tpu_torch.nn import Ctx, step_generator
 from tdnet_tpu_torch.nn.encoding import Attention
 from tdnet_tpu_torch.ops import Conv2d
 from tdnet_tpu_torch.ops.dtype import no_tf32
+from tdnet_tpu_torch.ops.norm import sync_batch_norm
 from tdnet_tpu_torch.train.loss import cross_entropy, kl_divergence
 from tdnet_tpu_torch.train.optim import ada_optimizer
 
@@ -76,11 +89,16 @@ class TrainState:
     seed: int = 0
 
 
-def make_train_state(model: nn.Module, *, seed: int = 0,
-                     opt_kwargs: dict | None = None) -> TrainState:
+def make_train_state(model: nn.Module, *, seed: int = 0, opt_kwargs: dict | None = None,
+                     group=None) -> TrainState:
     """The model in train mode with its AdaOptimizer (``opt_kwargs`` over
     ``ada_optimizer``'s defaults, the reference's recipe); ``seed`` seeds the
-    dropout of every step."""
+    dropout of every step. With a data ``group`` every rank starts from rank 0's
+    parameters and buffers."""
+    if group is not None and group.world > 1:
+        with torch.no_grad():
+            for t in list(model.parameters()) + list(model.buffers()):
+                group.broadcast_(t.data)
     opt, schedule = ada_optimizer(model.train(), **(opt_kwargs or {}))
     return TrainState(model=model, optimizer=opt, schedule=schedule, seed=seed)
 
@@ -152,27 +170,49 @@ def make_loss_of(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "c
     return loss_of
 
 
+def average_gradients(model: nn.Module, group, *extra: torch.Tensor) -> list[torch.Tensor]:
+    """Every parameter's ``.grad`` and the scalars ``extra`` averaged over the
+    ranks of ``group`` in one flat all-reduce; returns the averaged ``extra``."""
+    params = list(model.parameters())
+    flat = torch.cat([p.grad.reshape(-1) for p in params]
+                     + [e.detach().to(params[0].grad.dtype).reshape(1) for e in extra])
+    group.all_reduce_(flat).div_(group.world)
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+        at += p.numel()
+    return [flat[at + i] for i in range(len(extra))]
+
+
 def make_train_step(*, loss_fn=None, use_dropout: bool = True, conv_wgrad: str = "cudnn",
-                    compute_dtype: torch.dtype | None = None):
+                    compute_dtype: torch.dtype | None = None, group=None):
     """``step(state, frames, labels, pos_id, teacher=None) -> {loss, kd, lr}``.
     After the step each parameter's ``.grad`` holds this step's gradient, in
-    f32 with any ``compute_dtype``."""
+    f32 with any ``compute_dtype``. With a data ``group`` of more than one rank,
+    frames and labels are this rank's share, and the gradient, ``loss`` and
+    ``kd`` are the means over the ranks."""
     loss_of = make_loss_of(loss_fn=loss_fn, use_dropout=use_dropout, conv_wgrad=conv_wgrad,
                            compute_dtype=compute_dtype)
+    if group is not None and group.world <= 1:
+        group = None
 
     def step(state: TrainState, frames, labels, pos_id: int, teacher: Teacher | None = None):
         model, opt = state.model, state.optimizer
-        with no_tf32():
+        rank, synced = ((0, contextlib.nullcontext()) if group is None
+                        else (group.rank, sync_batch_norm(model, group)))
+        with no_tf32(), synced:
             opt.zero_grad(set_to_none=False)
             loss, kd = loss_of(model, frames, labels, pos_id,
-                               step_generator(state.seed, state.it), teacher)
+                               step_generator(state.seed, state.it, rank), teacher)
             loss.backward()
             for p in model.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if group is not None:
+                loss, kd = average_gradients(model, group, loss, kd)
             lr = state.schedule(state.it)
-            for group in opt.param_groups:
-                group["lr"] = lr
+            for param_group in opt.param_groups:
+                param_group["lr"] = lr
             opt.step()
         state.it += 1
         return {"loss": loss.detach(), "kd": kd.detach(), "lr": lr}
@@ -201,7 +241,8 @@ def make_eval_step():
 
 
 def full_recipe(yaml_path: str, *, seed: int = 0, conv_wgrad: str = "cudnn",
-                compute_dtype: torch.dtype | None = None, device: str = "cuda"):
+                compute_dtype: torch.dtype | None = None, device: str = "cuda",
+                batch: int = 1, n_devices: int = 1):
     """The full training recipe of a YAML config (model, teacher, loss and
     optimizer sections: kv_stride 3, the aux head where the model has one,
     OHEM, KD from its grouped ResNet-101 teacher, AdaOptimizer) at its crop on one card at batch 1, as
@@ -209,24 +250,27 @@ def full_recipe(yaml_path: str, *, seed: int = 0, conv_wgrad: str = "cudnn",
     frames and labels (a corner band at the ignore label 250).
     ``compute_dtype``: None, the f32 recipe, or ``torch.bfloat16``, mixed
     precision (for a YAML, ``utils.config.compute_dtype_from_yaml``).
+    ``batch`` and ``n_devices``: the batch and the loss's device count (OHEM's
+    n_min is a device's), so that one process can take a data group's global
+    batch with its loss.
 
-    Returns (state, step, teacher, frames [P, 1, H, W, 3], labels [1, H, W],
+    Returns (state, step, teacher, frames [P, n, H, W, 3], labels [n, H, W],
     loss_fn), all on ``device``."""
     from tdnet_tpu_torch.models import init_teacher
     from tdnet_tpu_torch.utils.config import (load_config, loss_fn_from_yaml,
                                               model_config_from_yaml, opt_kwargs_from_yaml,
                                               teacher_config_from_yaml)
     yml = load_config(yaml_path)
-    yml["training"]["batch_size"] = 1
+    yml["training"]["batch_size"] = batch
     cfg = model_config_from_yaml(yml)
     model = init_model(cfg, torch.Generator().manual_seed(seed)).to(device)
     teacher = init_teacher(teacher_config_from_yaml(yml),
                            torch.Generator().manual_seed(seed + 1)).to(device)
-    loss_fn = loss_fn_from_yaml(yml, n_devices=1)
+    loss_fn = loss_fn_from_yaml(yml, n_devices=n_devices)
     state = make_train_state(model, seed=seed, opt_kwargs=opt_kwargs_from_yaml(yml))
     gen = torch.Generator().manual_seed(seed + 2)
-    frames = torch.randn(cfg.path_num, 1, *cfg.in_size, 3, generator=gen).to(device)
-    labels = torch.randint(0, cfg.nclass, (1, *cfg.in_size), generator=gen)
+    frames = torch.randn(cfg.path_num, batch, *cfg.in_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, cfg.nclass, (batch, *cfg.in_size), generator=gen)
     labels[:, :64] = 250
     labels[:, :, :32] = 250
     step = make_train_step(loss_fn=loss_fn, conv_wgrad=conv_wgrad, compute_dtype=compute_dtype)

@@ -38,6 +38,7 @@ from tdnet_tpu_torch.nn.fused_trunk import fused_psp_encoding
 from tdnet_tpu_torch.stream.runtime import Streamer
 from tdnet_tpu_torch.utils.from_jax import tdnet_from_jax
 from tests.test_torch_modules import _randomize_bn
+from torch_threads import few_threads  # noqa: F401  (the file runs on two threads)
 
 IN_SIZE = (65, 129)
 FEAT = (9, 17)

@@ -215,10 +215,11 @@ def test_cli_psp101_fused_stem_writes_pngs(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--model", "psp101", "--_psp101_path", "CHECKPOINT"],
-                                  ["--parallel", "group"]])
+                                  ["--parallel", "spatial"]])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path):
-    """--parallel is not ported; a checkpoint file that holds nothing (here
-    PSP-101's) raises an error that names it."""
+    """--parallel spatial is not ported (group streaming is:
+    ``tests/test_torch_parallel_stream.py``); a checkpoint file that holds
+    nothing (here PSP-101's) raises an error that names it."""
     from tdnet_tpu_torch.cli.test import main
     ckpt = tmp_path / "psp101.pkl"
     ckpt.write_bytes(b"")

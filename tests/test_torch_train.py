@@ -43,6 +43,7 @@ from tdnet_tpu_torch.models import TeacherConfig, tdnet_config
 from tdnet_tpu_torch.train import loss as tloss
 from tdnet_tpu_torch.train.trainer import make_train_state, make_train_step
 from tdnet_tpu_torch.utils.from_jax import teacher_from_jax, tdnet_from_jax, tdnet_state_from_jax
+from torch_threads import few_threads  # noqa: F401  (the file runs on two threads)
 
 IN_HW = (65, 129)
 ARCHS = {"td4-psp18": dict(backbone="resnet18", path_num=4, pool_before_proj=True),

@@ -49,6 +49,7 @@ from tdnet_tpu_torch.train import loss as tloss
 from tdnet_tpu_torch.train.trainer import make_loss_of
 from tdnet_tpu_torch.utils.from_jax import tdnet_from_jax, tdnet_state_from_jax
 from tests.test_torch_train_bf16 import FAST_COMPILE, seeded_tree
+from torch_threads import few_threads  # noqa: F401  (the file runs on two threads)
 
 IN_HW = (65, 129)
 N_MIN = IN_HW[0] * IN_HW[1] // 16
